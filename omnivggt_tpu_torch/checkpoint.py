@@ -1,0 +1,179 @@
+"""Checkpoints: the JAX parameter bridge, strict safetensors loading, and
+the bf16 trunk cast (counterpart of omnivggt_tpu/checkpoint.py).
+
+The port's modules use the reference's state-dict names, so a reference
+safetensors file loads with `load_state_dict(strict=True)`.
+`params_from_jax` is the inverse of omnivggt_tpu.checkpoint.convert_state_dict:
+it turns the JAX package's parameter pytree (numpy leaves) into this
+package's state dict, unstacking the per-layer stacks and transposing
+(in, out) linears and HWIO convs back to torch's layouts.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+from omnivggt_tpu_torch.config import OmniVGGTConfig
+
+# reference buffers that are constants here (the JAX converter drops them too)
+_IGNORED_SUFFIXES = ("_resnet_mean", "_resnet_std")
+
+
+class StateDictEmitter:
+    """Collects state-dict entries from JAX parameter subtrees; the inverse
+    of omnivggt_tpu.checkpoint._Consumer, one method per parameter kind."""
+
+    def __init__(self):
+        self.sd: Dict[str, np.ndarray] = {}
+
+    def raw(self, name, x):
+        self.sd[name] = np.asarray(x)
+
+    def linear(self, prefix, p):
+        self.raw(f"{prefix}.weight", np.asarray(p["w"]).T)
+        if "b" in p:
+            self.raw(f"{prefix}.bias", p["b"])
+
+    def conv(self, prefix, p):
+        self.raw(f"{prefix}.weight", np.transpose(np.asarray(p["w"]), (3, 2, 0, 1)))  # HWIO -> OIHW
+        if "b" in p:
+            self.raw(f"{prefix}.bias", p["b"])
+
+    def norm(self, prefix, p):
+        self.raw(f"{prefix}.weight", p["scale"])
+        self.raw(f"{prefix}.bias", p["bias"])
+
+    def block(self, prefix, p):
+        self.norm(f"{prefix}.norm1", p["norm1"])
+        self.norm(f"{prefix}.norm2", p["norm2"])
+        self.linear(f"{prefix}.attn.qkv", p["attn"]["qkv"])
+        self.linear(f"{prefix}.attn.proj", p["attn"]["proj"])
+        if "q_norm" in p["attn"]:
+            self.norm(f"{prefix}.attn.q_norm", p["attn"]["q_norm"])
+            self.norm(f"{prefix}.attn.k_norm", p["attn"]["k_norm"])
+        if "w12" in p["mlp"]:
+            raise NotImplementedError("SwiGLU blocks are not ported")
+        self.linear(f"{prefix}.mlp.fc1", p["mlp"]["fc1"])
+        self.linear(f"{prefix}.mlp.fc2", p["mlp"]["fc2"])
+        if "ls1" in p:
+            self.raw(f"{prefix}.ls1.gamma", p["ls1"]["gamma"])
+            self.raw(f"{prefix}.ls2.gamma", p["ls2"]["gamma"])
+
+    def blocks(self, prefix, stacked, n):
+        """`n` blocks from the JAX package's leading-axis stack."""
+        for i in range(n):
+            self.block(f"{prefix}.{i}", _index(stacked, i))
+
+    def dinov2(self, prefix, p, depth):
+        self.conv(f"{prefix}.patch_embed.proj", p["patch_embed"]["proj"])
+        self.raw(f"{prefix}.cls_token", p["cls_token"])
+        self.raw(f"{prefix}.pos_embed", p["pos_embed"])
+        self.norm(f"{prefix}.norm", p["norm"])
+        if "register_tokens" in p:
+            self.raw(f"{prefix}.register_tokens", p["register_tokens"])
+        self.blocks(f"{prefix}.blocks", p["blocks"], depth)
+
+    def dpt_head(self, prefix, p):
+        self.norm(f"{prefix}.norm", p["norm"])
+        for i in range(4):
+            self.conv(f"{prefix}.projects.{i}", p["projects"][i])
+        for i in (0, 1):  # ConvTranspose2d weights are kept (in, out, kh, kw)
+            self.raw(f"{prefix}.resize_layers.{i}.weight", p["resize"][i]["w"])
+            self.raw(f"{prefix}.resize_layers.{i}.bias", p["resize"][i]["b"])
+        self.conv(f"{prefix}.resize_layers.3", p["resize"][3])
+        for i in range(4):
+            self.conv(f"{prefix}.scratch.layer{i + 1}_rn", p["layer_rn"][i])
+        for r in (1, 2, 3, 4):
+            f = p[f"refinenet{r}"]
+            rp = f"{prefix}.scratch.refinenet{r}"
+            self.conv(f"{rp}.out_conv", f["out_conv"])
+            for unit, key in (("resConfUnit1", "rcu1"), ("resConfUnit2", "rcu2")):
+                if key in f:
+                    self.conv(f"{rp}.{unit}.conv1", f[key]["conv1"])
+                    self.conv(f"{rp}.{unit}.conv2", f[key]["conv2"])
+        self.conv(f"{prefix}.scratch.output_conv1", p["output_conv1"])
+        if "output_conv2" in p:
+            self.conv(f"{prefix}.scratch.output_conv2.0", p["output_conv2"]["conv1"])
+            self.conv(f"{prefix}.scratch.output_conv2.2", p["output_conv2"]["conv2"])
+
+    def state_dict(self, strip_prefix: str = "") -> Dict[str, torch.Tensor]:
+        """fp32 tensors, with `strip_prefix` removed from every name."""
+        n = len(strip_prefix)
+        return {k[n:]: torch.tensor(v, dtype=torch.float32) for k, v in self.sd.items()}
+
+
+def _index(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    return np.asarray(tree)[i]
+
+
+def params_from_jax(params, cfg: OmniVGGTConfig) -> Dict[str, torch.Tensor]:
+    """JAX parameter pytree (numpy or array leaves) -> this package's state
+    dict (fp32 tensors under the reference's names)."""
+    e = StateDictEmitter()
+    acfg = cfg.aggregator
+    a = params["aggregator"]
+    if acfg.patch_embed == "conv":
+        e.conv("aggregator.patch_embed.proj", a["patch_embed"]["proj"])
+    else:
+        e.dinov2("aggregator.patch_embed", a["patch_embed"], acfg.backbone.depth)
+    e.raw("aggregator.camera_token", a["camera_token"])
+    e.raw("aggregator.register_token", a["register_token"])
+    e.blocks("aggregator.frame_blocks", a["frame_blocks"], acfg.depth)
+    e.blocks("aggregator.global_blocks", a["global_blocks"], acfg.depth)
+    for g in range(acfg.num_groups):
+        e.linear(f"aggregator.pose_embeddings.{g}", _index(a["pose_embeddings"], g))
+        e.linear(f"aggregator.camera_adapters.{g}", _index(a["camera_adapters"], g))
+    e.raw("aggregator.depth_placeholder", a["depth_placeholder"])
+    e.conv("aggregator.depth_patch_embed.proj", a["depth_patch_embed"]["proj"])
+
+    c = params["camera_head"]
+    e.blocks("camera_head.trunk", c["trunk"], cfg.camera_head.trunk_depth)
+    e.norm("camera_head.token_norm", c["token_norm"])
+    e.norm("camera_head.trunk_norm", c["trunk_norm"])
+    e.raw("camera_head.empty_pose_tokens", c["empty_pose_tokens"])
+    e.linear("camera_head.embed_pose", c["embed_pose"])
+    e.linear("camera_head.poseLN_modulation.1", c["poseLN_modulation"])
+    e.linear("camera_head.pose_branch.fc1", c["pose_branch"]["fc1"])
+    e.linear("camera_head.pose_branch.fc2", c["pose_branch"]["fc2"])
+
+    e.dpt_head("depth_head", params["depth_head"])
+    e.dpt_head("point_head", params["point_head"])
+    return e.state_dict()
+
+
+def load_safetensors(model: nn.Module, path: str) -> None:
+    """Strictly load a reference safetensors checkpoint into `model`: every
+    parameter must be present and nothing may be left over."""
+    from safetensors.torch import load_file
+
+    sd = load_file(path, device=str(next(model.parameters()).device))
+    sd = {
+        k: v for k, v in sd.items()
+        if not k.endswith(_IGNORED_SUFFIXES) and ".rope." not in k
+    }
+    model.load_state_dict(sd, strict=True)
+
+
+@torch.no_grad()
+def cast_trunk_params(model: nn.Module, dtype=torch.bfloat16) -> nn.Module:
+    """Store the aggregator's (and DINOv2's) weights in `dtype`, in place.
+
+    The trunk casts every weight to its bf16 activation dtype at the point
+    of use, so bf16 storage halves the trunk's memory and weight traffic
+    without changing what it computes. LayerNorm weights stay fp32 (they
+    are consumed inside the fp32 normalisation), as does the DINOv2
+    pos_embed (interpolated in fp32 before the activation cast); the heads
+    are not touched. For inference only."""
+    for mod in model.aggregator.modules():
+        if isinstance(mod, nn.LayerNorm):
+            continue
+        for name, prm in mod.named_parameters(recurse=False):
+            if name != "pos_embed" and prm.is_floating_point():
+                prm.data = prm.data.to(dtype)
+    return model

@@ -1,0 +1,337 @@
+// Non-causal flash-attention forward for Hopper (sm_90a), bf16 in, fp32
+// accumulation, bf16 out. Plain C interface, loaded with ctypes from
+// omnivggt_tpu_torch/ops/kernels/flash_attention.py.
+//
+// Replaces two TPU kernels of omnivggt_tpu/ops/pallas/flash_attention.py:
+//   - _flash_kernel (head-major streaming softmax, via _flash_forward and
+//     flash_attention): the global attention, (1, 10992, 16, 64) at S=8;
+//   - _flash_packed_kernel (token-major, whole key axis per block, via
+//     _flash_packed_forward and flash_attention_packed): frame attention
+//     (8, 1374, 16, 64) and DINOv2 attention (8, 1376, 16, 64) with a
+//     valid-key prefix of 1374.
+// Both entry points run one device function, attend_tile(); they differ in
+// the grid order only (head-major: query tiles of one head are neighbours;
+// token-major: the heads of one query tile are neighbours) and in the
+// Python wrapper's launch counter and key-length contract.
+//
+// What bounds it on this card: two matrix products per (64-query, 64-key)
+// tile, 2*64*64*D FLOPs each, against 64*D*2*2 bytes of K and V streamed
+// from L2/HBM per tile. At D=64 that is ~64 FLOP/byte before L2 reuse, so
+// the kernel is compute-bound on the tensor cores once K/V sit in L2 (they
+// do: one head's K+V at N=10992 is 2.8 MB), and its rate is set by how
+// fast mma.sync can be fed from shared memory and by the exp work of the
+// softmax (64*64 exp per tile per block).
+//
+// What the design does about it (simple first; wgmma, TMA and warp
+// specialisation are later work):
+//   - 128 threads = 4 warps; each warp owns 16 query rows and keeps its Q
+//     fragments, its 16x64 score tile and its 16xD output accumulator in
+//     registers, so scores and probabilities never touch shared memory;
+//   - mma.sync.m16n8k16 bf16->fp32 for both products; the fp32 score
+//     fragment is re-packed to bf16 in registers as the A operand of P @ V
+//     (the accumulator layout of m16n8 equals the A layout of m16n8k16),
+//     rounding P to bf16 as the TPU kernel does;
+//   - K is staged row-major and V transposed in shared memory, each row
+//     padded by 8 bf16, so every fragment load is one conflict-free 32-bit
+//     shared load;
+//   - q/k/v/o are read and written through explicit (B, N, H, D) strides,
+//     so neither the TPU's head-major relayout (to_bhnd) nor its token-major
+//     packing exists here;
+//   - keys at or past min(Nk, kv_valid) are loaded as zeros and their
+//     scores set to -1e30; tiles past that bound are never visited;
+//   - bounded mode (qk-normed inputs) uses a fixed max of 0 with the
+//     exp(min(s, 80)) clamp; otherwise an online running max. The TPU's
+//     ones-column row-sum fold is not carried over: each thread sums its
+//     own probabilities and one quad shuffle finishes the row sum.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlockQ = 64;   // query rows per block: 4 warps x 16
+constexpr int kBlockK = 64;   // keys per tile
+constexpr int kThreads = 128;
+constexpr int kPad = 8;       // bf16 padding per shared row
+constexpr float kNegInf = -1e30f;        // finite "minus infinity", as on the TPU
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kClampLog2 = 80.0f * kLog2e;  // the bounded clamp, in log2 units
+
+struct Params {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  __nv_bfloat16* o;
+  // element strides of the batch, token and head axes; the last axis is
+  // contiguous and every stride is a multiple of 8 (16-byte vectors)
+  long long q_sb, q_sn, q_sh;
+  long long k_sb, k_sn, k_sh;
+  long long v_sb, v_sn, v_sh;
+  long long o_sb, o_sn, o_sh;
+  int B, H, N, Nk;
+  int kv_static;          // valid keys when kv_dynamic is null (<= Nk)
+  const int* kv_dynamic;  // optional device scalar: valid-key count
+  float scale_log2;       // D^-0.5 * log2(e)
+};
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d += a (16x16, row) * b (16x8, col), bf16 inputs, fp32 accumulator
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// rows [row0, row0 + 64) of a (rows, D) strided matrix into a row-major
+// shared tile with D + kPad columns; rows at or past n_valid become zeros
+template <int D>
+__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          long long row_stride, int row0,
+                                          int n_valid) {
+  constexpr int kVecs = D / 8;
+  for (int i = threadIdx.x; i < kBlockK * kVecs; i += kThreads) {
+    const int r = i / kVecs, c = (i % kVecs) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n_valid)
+      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
+    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
+  }
+}
+
+// the same rows, stored transposed: dst[d][r], kBlockK + kPad columns
+template <int D>
+__device__ __forceinline__ void load_rows_transposed(__nv_bfloat16* dst,
+                                                     const __nv_bfloat16* src,
+                                                     long long row_stride,
+                                                     int row0, int n_valid) {
+  constexpr int kVecs = D / 8;
+  for (int i = threadIdx.x; i < kBlockK * kVecs; i += kThreads) {
+    const int r = i / kVecs, c = (i % kVecs) * 8;
+    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    if (row0 + r < n_valid)
+      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
+    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) dst[(c + j) * (kBlockK + kPad) + r] = e[j];
+  }
+}
+
+// One block: 64 query rows of head h of batch b, starting at row q0.
+template <int D, bool kBounded>
+__device__ __forceinline__ void attend_tile(const Params& p, int b, int h, int q0) {
+  __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * (D + kPad)];
+  __shared__ __align__(16) __nv_bfloat16 vt[D * (kBlockK + kPad)];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2;  // fragment row group
+  const int t = lane & 3;   // thread in group
+  const int r0 = warp * 16 + g;
+
+  int n_eff = p.kv_dynamic ? min(p.Nk, *p.kv_dynamic) : p.kv_static;
+  n_eff = max(n_eff, 0);
+
+  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
+  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
+  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
+
+  // Q tile -> shared (borrowing the K buffer) -> A fragments in registers
+  load_rows<D>(ks, qb, p.q_sn, q0, p.N);
+  __syncthreads();
+  uint32_t qf[D / 16][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const __nv_bfloat16* lo = ks + r0 * (D + kPad) + kk * 16 + t * 2;
+    const __nv_bfloat16* hi = lo + 8 * (D + kPad);
+    qf[kk][0] = ld32(lo);
+    qf[kk][1] = ld32(hi);
+    qf[kk][2] = ld32(lo + 8);
+    qf[kk][3] = ld32(hi + 8);
+  }
+  __syncthreads();
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};  // running max (log2 units), rows g and g+8
+  float l_run[2] = {0.f, 0.f};          // this thread's share of the row sums
+
+  for (int k0 = 0; k0 < n_eff; k0 += kBlockK) {
+    load_rows<D>(ks, kb, p.k_sn, k0, n_eff);
+    load_rows_transposed<D>(vt, vb, p.v_sn, k0, n_eff);
+    __syncthreads();
+
+    // S = Q K^T for this warp's 16 rows x 64 keys
+    float s[kBlockK / 8][4];
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j) {
+      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const __nv_bfloat16* kr = ks + (j * 8 + g) * (D + kPad) + kk * 16 + t * 2;
+        mma16816(s[j], qf[kk], ld32(kr), ld32(kr + 8));
+      }
+    }
+
+    // scale into log2 units and mask keys at or past n_eff
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = k0 + j * 8 + t * 2 + (e & 1);
+        const float x = col < n_eff ? s[j][e] * p.scale_log2 : kNegInf;
+        s[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+
+    if (kBounded) {
+#pragma unroll
+      for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pe = exp2f(fminf(s[j][e], kClampLog2));
+          s[j][e] = pe;
+          l_run[e >> 1] += pe;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float m_new = fmaxf(m_run[r], mx[r]);
+        corr[r] = exp2f(m_run[r] - m_new);
+        m_run[r] = m_new;
+        l_run[r] *= corr[r];
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        acc[n][0] *= corr[0];
+        acc[n][1] *= corr[0];
+        acc[n][2] *= corr[1];
+        acc[n][3] *= corr[1];
+      }
+#pragma unroll
+      for (int j = 0; j < kBlockK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float pe = exp2f(s[j][e] - m_run[e >> 1]);
+          s[j][e] = pe;
+          l_run[e >> 1] += pe;
+        }
+      }
+    }
+
+    // O += P V: the score fragments of key groups (2kk, 2kk+1) form the A
+    // operand of the kk-th 16-key step
+#pragma unroll
+    for (int kk = 0; kk < kBlockK / 16; ++kk) {
+      const uint32_t a[4] = {
+          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
+      };
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        const __nv_bfloat16* vr = vt + (n * 8 + g) * (kBlockK + kPad) + kk * 16 + t * 2;
+        mma16816(acc[n], a, ld32(vr), ld32(vr + 8));
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+  }
+  const float inv0 = l_run[0] > 0.f ? 1.f / l_run[0] : 0.f;
+  const float inv1 = l_run[1] > 0.f ? 1.f / l_run[1] : 0.f;
+
+  __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
+  const int row_lo = q0 + r0, row_hi = q0 + r0 + 8;
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    const int c = n * 8 + t * 2;
+    if (row_lo < p.N)
+      *reinterpret_cast<uint32_t*>(ob + (long long)row_lo * p.o_sn + c) =
+          pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
+    if (row_hi < p.N)
+      *reinterpret_cast<uint32_t*>(ob + (long long)row_hi * p.o_sn + c) =
+          pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
+  }
+}
+
+// counterpart of _flash_kernel: grid (query tiles, B*H)
+template <int D, bool kBounded>
+__global__ void __launch_bounds__(kThreads) flash_fwd_head_major(Params p) {
+  const int bh = blockIdx.y;
+  attend_tile<D, kBounded>(p, bh / p.H, bh % p.H, blockIdx.x * kBlockQ);
+}
+
+// counterpart of _flash_packed_kernel: grid (H, query tiles, B)
+template <int D, bool kBounded>
+__global__ void __launch_bounds__(kThreads) flash_fwd_packed(Params p) {
+  attend_tile<D, kBounded>(p, blockIdx.z, blockIdx.x, blockIdx.y * kBlockQ);
+}
+
+template <int D, bool kBounded>
+void launch(const Params& p, int packed, cudaStream_t stream) {
+  const int q_tiles = (p.N + kBlockQ - 1) / kBlockQ;
+  if (packed) {
+    flash_fwd_packed<D, kBounded><<<dim3(p.H, q_tiles, p.B), kThreads, 0, stream>>>(p);
+  } else {
+    flash_fwd_head_major<D, kBounded><<<dim3(q_tiles, p.B * p.H), kThreads, 0, stream>>>(p);
+  }
+}
+
+}  // namespace
+
+// strides: 12 element strides, (batch, token, head) for q, k, v, o in turn.
+// Returns the cudaError_t of the launch (0 = launched).
+extern "C" int omnivggt_flash_attention_fwd(
+    int packed, int bounded, int head_dim, const void* q, const void* k,
+    const void* v, void* o, const long long* strides, int B, int H, int N,
+    int Nk, int kv_static, const void* kv_dynamic, float scale, void* stream) {
+  Params p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.q_sb = strides[0]; p.q_sn = strides[1]; p.q_sh = strides[2];
+  p.k_sb = strides[3]; p.k_sn = strides[4]; p.k_sh = strides[5];
+  p.v_sb = strides[6]; p.v_sn = strides[7]; p.v_sh = strides[8];
+  p.o_sb = strides[9]; p.o_sn = strides[10]; p.o_sh = strides[11];
+  p.B = B; p.H = H; p.N = N; p.Nk = Nk;
+  p.kv_static = kv_static;
+  p.kv_dynamic = static_cast<const int*>(kv_dynamic);
+  p.scale_log2 = scale * kLog2e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim == 64) {
+    if (bounded) launch<64, true>(p, packed, s); else launch<64, false>(p, packed, s);
+  } else if (head_dim == 128) {
+    if (bounded) launch<128, true>(p, packed, s); else launch<128, false>(p, packed, s);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

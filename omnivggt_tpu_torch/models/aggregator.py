@@ -1,0 +1,260 @@
+"""Alternating frame/global attention aggregator with auxiliary-modality
+injection (counterpart of omnivggt_tpu/models/aggregator.py).
+
+  - the 24 (frame, global) layer pairs run as a Python loop; only the layers
+    that a head reads are kept, as (frame ‖ global) concatenations;
+  - special tokens: slot 0 of camera_token / register_token is for frame 0,
+    slot 1 for every other frame;
+  - GT cameras are normalised over the selected frames, encoded to the 9-dim
+    pose encoding, embedded per injection group, and injected through the
+    zero-initialised adapters at the input and after every frame block; the
+    adapter bias reaches every frame (adapter(0) = bias);
+  - GT depth is mean-normalised over the selected frames' valid pixels and
+    patchified with its mask; frames without it get the learned placeholder.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+from torch import nn
+
+from omnivggt_tpu_torch.config import AggregatorConfig
+from omnivggt_tpu_torch.models import dinov2
+from omnivggt_tpu_torch.ops import layers as L
+from omnivggt_tpu_torch.ops import rope as R
+from omnivggt_tpu_torch.utils import geometry as G
+
+_RESNET_MEAN = (0.485, 0.456, 0.406)
+_RESNET_STD = (0.229, 0.224, 0.225)
+
+
+class AuxInputs(NamedTuple):
+    """Optional per-frame auxiliary modalities; masks are booleans over the
+    S frames (True = ground truth given for that frame)."""
+
+    extrinsics: Optional[torch.Tensor] = None  # (B, S, 3, 4) world-to-camera
+    intrinsics: Optional[torch.Tensor] = None  # (B, S, 3, 3)
+    depth: Optional[torch.Tensor] = None  # (B, S, H, W, 1)
+    depth_valid: Optional[torch.Tensor] = None  # (B, S, H, W)
+    camera_mask: Optional[torch.Tensor] = None  # (S,) or (B, S) bool
+    depth_mask: Optional[torch.Tensor] = None  # (S,) or (B, S) bool
+
+
+class Aggregator(nn.Module):
+    """Parameters under the reference's names (aggregator.*)."""
+
+    def __init__(self, cfg: AggregatorConfig):
+        super().__init__()
+        self.cfg = cfg
+        C, G_ = cfg.embed_dim, cfg.num_groups
+        if cfg.patch_embed == "conv":
+            self.patch_embed = L.PatchEmbed(cfg.patch_size, 3, C)
+        else:
+            self.patch_embed = dinov2.DinoVisionTransformer(cfg.backbone)
+
+        def blocks():
+            return nn.ModuleList(
+                L.Block(
+                    C, cfg.num_heads, mlp_ratio=cfg.mlp_ratio, qkv_bias=cfg.qkv_bias,
+                    proj_bias=cfg.proj_bias, ffn_bias=cfg.ffn_bias,
+                    init_values=cfg.init_values, qk_norm=cfg.qk_norm,
+                )
+                for _ in range(cfg.depth)
+            )
+
+        self.camera_token = nn.Parameter(torch.zeros(1, 2, 1, C))
+        self.register_token = nn.Parameter(torch.zeros(1, 2, cfg.num_register_tokens, C))
+        self.frame_blocks = blocks()
+        self.global_blocks = blocks()
+        self.pose_embeddings = nn.ModuleList(
+            nn.Linear(cfg.pose_hidden_dim, C) for _ in range(G_)
+        )
+        self.camera_adapters = nn.ModuleList(nn.Linear(C, C) for _ in range(G_))
+        self.depth_placeholder = nn.Parameter(torch.zeros(1, 1, C))
+        self.depth_patch_embed = L.PatchEmbed(cfg.patch_size, 2, C)
+
+
+def _expand_special_token(tok: torch.Tensor, B: int, S: int, dtype) -> torch.Tensor:
+    """(1, 2, X, C) -> (B, S, X, C): slot 0 for the first frame, slot 1 for
+    the rest."""
+    X, C = tok.shape[2], tok.shape[3]
+    tok = tok.to(dtype)
+    first = tok[:, 0:1].expand(B, 1, X, C)
+    others = tok[:, 1:2].expand(B, S - 1, X, C)
+    return torch.cat([first, others], dim=1)
+
+
+def masked_normalize_extrinsics(extrinsics: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Rebase (B, S, 3, 4) extrinsics to the first selected camera and divide
+    translations by the mean distance of the other selected cameras to it;
+    mask: (B, S) bool. Unselected frames are transformed too (their values
+    are ignored downstream)."""
+    B, S = extrinsics.shape[:2]
+    idx0 = mask.int().argmax(dim=1)  # first selected frame
+    homog = G.expand_extrinsic_to_homog(extrinsics)
+    batch = torch.arange(B, device=extrinsics.device)
+    first_inv = G.closed_form_inverse_se3(homog[batch, idx0])
+    new = homog @ first_inv[:, None]
+
+    cam_centers = new[:, :, :3, 3]
+    ref = cam_centers[batch, idx0][:, None]
+    dist = torch.linalg.norm(cam_centers - ref, dim=-1)  # (B, S)
+    excl = mask & (torch.arange(S, device=mask.device)[None, :] != idx0[:, None])
+    cnt = excl.sum(dim=1)
+    mean_dist = (dist * excl).sum(dim=1) / cnt.clamp_min(1)
+    scale = torch.where(cnt > 0, mean_dist.clamp_min(1e-6), 1.0)
+    new = new.clone()
+    new[:, :, :3, 3] = new[:, :, :3, 3] / scale[:, None, None]
+    return new[:, :, :3]
+
+
+def masked_normalize_depth(
+    depth: torch.Tensor, valid: torch.Tensor, frame_mask: torch.Tensor, eps: float = 1e-8
+) -> torch.Tensor:
+    """depth / (mean over the selected frames' valid pixels + eps) * valid.
+    depth: (B, S, H, W, 1); valid: (B, S, H, W); frame_mask: (B, S) bool."""
+    d = depth[..., 0]
+    sel = valid * frame_mask[:, :, None, None]
+    cnt = sel.sum(dim=(1, 2, 3))
+    mean = (d * sel).sum(dim=(1, 2, 3)) / cnt.clamp_min(1.0)
+    norm = torch.where(
+        cnt[:, None, None, None] > 0, d / (mean[:, None, None, None] + eps), 0.0
+    )
+    return (norm * valid)[..., None]
+
+
+def _frame_mask(mask, B: int, S: int, device):
+    """A camera/depth mask as (B, S) bool, or None."""
+    if mask is None:
+        return None
+    mask = torch.as_tensor(mask, device=device)
+    if mask.ndim == 1:
+        mask = mask[None, :].expand(B, S)
+    return mask.bool()
+
+
+def compute_pose_encoding(
+    aux: AuxInputs, image_size_hw: Tuple[int, int], camera_mask: torch.Tensor
+) -> torch.Tensor:
+    """(B, S, 9) pose encoding of the mask-normalised GT extrinsics; frames
+    without GT are encoded from identity cameras (masked out later)."""
+    B, S = camera_mask.shape
+    dev = camera_mask.device
+    eye34 = torch.eye(3, 4, device=dev).expand(B, S, 3, 4)
+    eyeK = torch.eye(3, device=dev).expand(B, S, 3, 3)
+    m4 = camera_mask[:, :, None, None]
+    ex = torch.where(m4, aux.extrinsics.float(), eye34)
+    K = torch.where(m4, aux.intrinsics.float(), eyeK)
+    ex_n = masked_normalize_extrinsics(ex, camera_mask)
+    return G.extri_intri_to_pose_encoding(ex_n, K, image_size_hw)
+
+
+def apply(
+    p: Aggregator,
+    images: torch.Tensor,
+    aux: Optional[AuxInputs] = None,
+    *,
+    output_layers: Tuple[int, ...],
+    dtype=torch.float32,
+    attn_impl: str = "auto",
+    allow_bounded: bool = True,
+    approx_gelu: bool = False,
+    pad_tokens: bool = True,
+):
+    """Run the aggregator on (B, S, H, W, 3) channels-last images in [0, 1].
+
+    Returns ({layer: (B, S, P, 2C) tensor in `dtype`} for each of
+    `output_layers`, patch_start_idx)."""
+    cfg = p.cfg
+    B, S, H, W, _ = images.shape
+    C = cfg.embed_dim
+    psi = cfg.patch_start_idx
+    gh, gw = H // cfg.patch_size, W // cfg.patch_size
+    n_patch = gh * gw
+    P = psi + n_patch
+    dev = images.device
+    aux = aux or AuxInputs()
+
+    mean = torch.tensor(_RESNET_MEAN, dtype=dtype, device=dev)
+    std = torch.tensor(_RESNET_STD, dtype=dtype, device=dev)
+    imgs = (images.reshape(B * S, H, W, 3).to(dtype) - mean) / std
+
+    if cfg.patch_embed == "conv":
+        patch_tokens = L.patch_embed(p.patch_embed, imgs)
+    else:
+        patch_tokens = dinov2.apply(
+            p.patch_embed, imgs, attn_impl=attn_impl, approx_gelu=approx_gelu,
+            pad_tokens=pad_tokens,
+        )
+
+    camera_token = _expand_special_token(p.camera_token, B, S, dtype)
+    register_token = _expand_special_token(p.register_token, B, S, dtype)
+
+    # GT cameras: the input injection group (index 0)
+    camera_mask = _frame_mask(aux.camera_mask, B, S, dev)
+    if camera_mask is not None:
+        pose_enc = compute_pose_encoding(aux, (H, W), camera_mask).to(dtype)
+        pe_tok = L.linear(p.pose_embeddings[0], pose_enc)
+        gt_camera = torch.where(camera_mask[:, :, None], pe_tok, 0.0)
+        cam_mask_f = camera_mask[:, :, None].to(dtype)
+    else:
+        pose_enc = torch.zeros(B, S, cfg.pose_hidden_dim, dtype=dtype, device=dev)
+        gt_camera = torch.zeros(B, S, C, dtype=dtype, device=dev)
+        cam_mask_f = torch.zeros(B, S, 1, dtype=dtype, device=dev)
+    camera_token = camera_token + L.linear(p.camera_adapters[0], gt_camera)[:, :, None, :]
+
+    # GT depth
+    placeholder = p.depth_placeholder.to(dtype)[None]  # (1, 1, 1, C)
+    depth_mask = _frame_mask(aux.depth_mask, B, S, dev)
+    if depth_mask is not None:
+        valid = aux.depth_valid.float()
+        dn = masked_normalize_depth(aux.depth.float(), valid, depth_mask)
+        dm = torch.cat([dn, valid[..., None]], dim=-1).reshape(B * S, H, W, 2)
+        d_tok = L.patch_embed(p.depth_patch_embed, dm.to(dtype)).reshape(B, S, n_patch, C)
+        gt_depth = torch.where(depth_mask[:, :, None, None], d_tok, placeholder)
+    else:
+        gt_depth = placeholder.expand(B, S, n_patch, C)
+
+    patch_tokens = patch_tokens.reshape(B, S, n_patch, C) + gt_depth
+    tokens = torch.cat([camera_token, register_token, patch_tokens], dim=2)
+
+    if cfg.rope_freq > 0:
+        cos_f, sin_f = R.rope_tables(gh, gw, psi, C // cfg.num_heads, cfg.rope_freq, dev)
+        cos_f, sin_f = cos_f.to(dtype), sin_f.to(dtype)
+        cos_g, sin_g = R.tile_tables(cos_f, sin_f, S)
+    else:
+        cos_f = sin_f = cos_g = sin_g = None
+
+    if tuple(cfg.aa_order) not in (("frame", "global"), ("global", "frame")):
+        raise NotImplementedError(f"aa_order {cfg.aa_order}")
+    kw = dict(ln_eps=cfg.ln_eps, attn_impl=attn_impl, allow_bounded=allow_bounded,
+              approx_gelu=approx_gelu)
+
+    def frame_step(tokens, i):
+        x = L.block(p.frame_blocks[i], tokens.reshape(B * S, P, C), cos_f, sin_f, **kw)
+        x = x.reshape(B, S, P, C)
+        # camera re-injection into the camera token, injection group i + 1
+        pe_tok = L.linear(p.pose_embeddings[i + 1], pose_enc) * cam_mask_f
+        inj = L.linear(p.camera_adapters[i + 1], pe_tok)
+        return torch.cat([x[:, :, :1] + inj[:, :, None], x[:, :, 1:]], dim=2)
+
+    def global_step(tokens, i):
+        g = L.block(p.global_blocks[i], tokens.reshape(B, S * P, C), cos_g, sin_g, **kw)
+        return g.reshape(B, S, P, C)
+
+    wanted = set(output_layers)
+    outputs = {}
+    tokens = tokens.to(dtype)
+    for i in range(cfg.depth):
+        if cfg.aa_order[0] == "frame":
+            frame_inter = frame_step(tokens, i)
+            global_inter = tokens = global_step(frame_inter, i)
+        else:
+            global_inter = global_step(tokens, i)
+            frame_inter = tokens = frame_step(global_inter, i)
+        if i in wanted:
+            # (frame ‖ global) in this fixed order for either aa_order
+            outputs[i] = torch.cat([frame_inter, global_inter], dim=-1)
+    return outputs, psi
