@@ -6,7 +6,8 @@ attention kernels are hand-written CUDA (csrc/), built by nvcc at first use;
 on CPU tensors every kernel wrapper computes its plain PyTorch version.
 
     from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
-    model = OmniVGGT(device="cuda")            # random weights from a seed
+    model = OmniVGGT()                         # on "cuda", random weights from a seed
+    model = OmniVGGT(device="cpu")             # the CPU only when asked for
     model = OmniVGGT.from_safetensors(path)    # reference checkpoint
     preds = model(images)                      # (S, H, W, 3) in [0, 1]
 

@@ -42,27 +42,24 @@
 //   - bounded mode (qk-normed inputs) uses a fixed max of 0 with the
 //     exp(min(s, 80)) clamp; otherwise an online running max. The TPU's
 //     ones-column row-sum fold is not carried over: each thread sums its
-//     own probabilities and one quad shuffle finishes the row sum.
+//     own probabilities and one quad shuffle finishes the row sum;
+//   - when training, both entry points also write the row log-sum-exp
+//     (the TPU kernel's return_lse output) to a (B, H, N) fp32 tensor,
+//     from the running max and row sum already in registers; the backward
+//     kernels (flash_attention_bwd.cu) rebuild P from it.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;   // query rows per block: 4 warps x 16
-constexpr int kBlockK = 64;   // keys per tile
-constexpr int kThreads = 128;
-constexpr int kPad = 8;       // bf16 padding per shared row
-constexpr float kNegInf = -1e30f;        // finite "minus infinity", as on the TPU
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kClampLog2 = 80.0f * kLog2e;  // the bounded clamp, in log2 units
+using namespace flash;
 
 struct Params {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
+  float* lse;  // optional (B, H, N) natural-log row LSE, for the backward
   // element strides of the batch, token and head axes; the last axis is
   // contiguous and every stride is a multiple of 8 (16-byte vectors)
   long long q_sb, q_sn, q_sh;
@@ -74,60 +71,6 @@ struct Params {
   const int* kv_dynamic;  // optional device scalar: valid-key count
   float scale_log2;       // D^-0.5 * log2(e)
 };
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (lo) in the low half
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// d += a (16x16, row) * b (16x8, col), bf16 inputs, fp32 accumulator
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// rows [row0, row0 + 64) of a (rows, D) strided matrix into a row-major
-// shared tile with D + kPad columns; rows at or past n_valid become zeros
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0,
-                                          int n_valid) {
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < kBlockK * kVecs; i += kThreads) {
-    const int r = i / kVecs, c = (i % kVecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_valid)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
-  }
-}
-
-// the same rows, stored transposed: dst[d][r], kBlockK + kPad columns
-template <int D>
-__device__ __forceinline__ void load_rows_transposed(__nv_bfloat16* dst,
-                                                     const __nv_bfloat16* src,
-                                                     long long row_stride,
-                                                     int row0, int n_valid) {
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < kBlockK * kVecs; i += kThreads) {
-    const int r = i / kVecs, c = (i % kVecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_valid)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c + j) * (kBlockK + kPad) + r] = e[j];
-  }
-}
 
 // One block: 64 query rows of head h of batch b, starting at row q0.
 template <int D, bool kBounded>
@@ -151,15 +94,7 @@ __device__ __forceinline__ void attend_tile(const Params& p, int b, int h, int q
   load_rows<D>(ks, qb, p.q_sn, q0, p.N);
   __syncthreads();
   uint32_t qf[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* lo = ks + r0 * (D + kPad) + kk * 16 + t * 2;
-    const __nv_bfloat16* hi = lo + 8 * (D + kPad);
-    qf[kk][0] = ld32(lo);
-    qf[kk][1] = ld32(hi);
-    qf[kk][2] = ld32(lo + 8);
-    qf[kk][3] = ld32(hi + 8);
-  }
+  load_a_fragments<D>(qf, ks, r0, t);
   __syncthreads();
 
   float acc[D / 8][4];
@@ -175,15 +110,7 @@ __device__ __forceinline__ void attend_tile(const Params& p, int b, int h, int q
 
     // S = Q K^T for this warp's 16 rows x 64 keys
     float s[kBlockK / 8][4];
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const __nv_bfloat16* kr = ks + (j * 8 + g) * (D + kPad) + kk * 16 + t * 2;
-        mma16816(s[j], qf[kk], ld32(kr), ld32(kr + 8));
-      }
-    }
+    mma_rows_by_tile<D>(s, qf, ks, g, t);
 
     // scale into log2 units and mask keys at or past n_eff
     float mx[2] = {kNegInf, kNegInf};
@@ -242,20 +169,7 @@ __device__ __forceinline__ void attend_tile(const Params& p, int b, int h, int q
 
     // O += P V: the score fragments of key groups (2kk, 2kk+1) form the A
     // operand of the kk-th 16-key step
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-          pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]),
-      };
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n) {
-        const __nv_bfloat16* vr = vt + (n * 8 + g) * (kBlockK + kPad) + kk * 16 + t * 2;
-        mma16816(acc[n], a, ld32(vr), ld32(vr + 8));
-      }
-    }
+    mma_scores_by_tile<D>(acc, s, vt, g, t);
     __syncthreads();
   }
 
@@ -267,18 +181,23 @@ __device__ __forceinline__ void attend_tile(const Params& p, int b, int h, int q
   const float inv0 = l_run[0] > 0.f ? 1.f / l_run[0] : 0.f;
   const float inv1 = l_run[1] > 0.f ? 1.f / l_run[1] : 0.f;
 
-  __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
-  const int row_lo = q0 + r0, row_hi = q0 + r0 + 8;
+  if (p.lse != nullptr && t == 0) {
+    // lse = ln(sum_k exp(s_k)) = (m + log2 l) ln 2 in log2 units; bounded
+    // mode's max is fixed at 0, so lse = ln l, the TPU kernel's contract.
+    // A row with every key masked gets +1e30, so the backward's
+    // p = exp(s - lse) is 0 there instead of NaN.
+    float* lb = p.lse + ((long long)b * p.H + h) * p.N;
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + t * 2;
-    if (row_lo < p.N)
-      *reinterpret_cast<uint32_t*>(ob + (long long)row_lo * p.o_sn + c) =
-          pack_bf16(acc[n][0] * inv0, acc[n][1] * inv0);
-    if (row_hi < p.N)
-      *reinterpret_cast<uint32_t*>(ob + (long long)row_hi * p.o_sn + c) =
-          pack_bf16(acc[n][2] * inv1, acc[n][3] * inv1);
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + r0 + 8 * r;
+      if (row < p.N) {
+        const float lse2 = kBounded ? log2f(l_run[r]) : m_run[r] + log2f(l_run[r]);
+        lb[row] = l_run[r] > 0.f ? lse2 * kLn2 : -kNegInf;
+      }
+    }
   }
+
+  store_rows<D>(p.o + b * p.o_sb + h * p.o_sh, p.o_sn, acc, inv0, inv1, q0 + r0, p.N, t);
 }
 
 // counterpart of _flash_kernel: grid (query tiles, B*H)
@@ -307,16 +226,19 @@ void launch(const Params& p, int packed, cudaStream_t stream) {
 }  // namespace
 
 // strides: 12 element strides, (batch, token, head) for q, k, v, o in turn.
+// lse: null, or a contiguous (B, H, N) fp32 output for the backward.
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int omnivggt_flash_attention_fwd(
     int packed, int bounded, int head_dim, const void* q, const void* k,
-    const void* v, void* o, const long long* strides, int B, int H, int N,
-    int Nk, int kv_static, const void* kv_dynamic, float scale, void* stream) {
+    const void* v, void* o, void* lse, const long long* strides, int B, int H,
+    int N, int Nk, int kv_static, const void* kv_dynamic, float scale,
+    void* stream) {
   Params p;
   p.q = static_cast<const __nv_bfloat16*>(q);
   p.k = static_cast<const __nv_bfloat16*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
+  p.lse = static_cast<float*>(lse);
   p.q_sb = strides[0]; p.q_sn = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_sn = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_sn = strides[7]; p.v_sh = strides[8];

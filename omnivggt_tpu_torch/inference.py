@@ -1,9 +1,9 @@
 """OmniVGGT inference CLI for the PyTorch port (counterpart of inference.py).
 
 Loads a scene folder (images + optional per-frame camera .txt and depth
-.npy/.png), runs one forward pass on the GPU when there is one (else on the
-CPU, through the kernels' plain versions), decodes the camera poses and
-unprojects the depth maps. The GLB export and the viewer are not ported
+.npy/.png), runs one forward pass on --device (default cuda, which must
+exist; --device cpu runs the kernels' plain versions on the CPU), decodes
+the camera poses and unprojects the depth maps. The GLB export and the viewer are not ported
 yet: --save_glb, and running without --no_viewer, stop with an error.
 
     python -m omnivggt_tpu_torch.inference --image_folder scene/images \
@@ -38,6 +38,8 @@ def parse_args(argv=None):
     p.add_argument("--checkpoint", type=str, default=None,
                    help="path to a reference safetensors checkpoint")
     p.add_argument("--no_viewer", action="store_true", help="skip the interactive viewer")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (default; fails without a CUDA device) or cpu")
     p.add_argument("--tiny", action="store_true",
                    help="tiny random-weight config (CPU smoke testing)")
     p.add_argument("--compress_trunk", action="store_true",
@@ -72,12 +74,13 @@ def main(argv=None):
     from omnivggt_tpu_torch.config import OmniVGGTConfig, tiny_test_config
     from omnivggt_tpu_torch.data.loader import load_images_and_cameras
     from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
+    from omnivggt_tpu_torch.utils.device import resolve_device
     from omnivggt_tpu_torch.utils.geometry import (
         pose_encoding_to_extri_intri,
         unproject_depth_map_to_point_map,
     )
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device)
     print(f"device: {torch.cuda.get_device_name(0) if device.type == 'cuda' else 'cpu'}")
     if args.tiny:
         model = OmniVGGT(tiny_test_config(), device=device)

@@ -10,7 +10,13 @@ injection (counterpart of omnivggt_tpu/models/aggregator.py).
     zero-initialised adapters at the input and after every frame block; the
     adapter bias reaches every frame (adapter(0) = bias);
   - GT depth is mean-normalised over the selected frames' valid pixels and
-    patchified with its mask; frames without it get the learned placeholder.
+    patchified with its mask; frames without it get the learned placeholder;
+  - training: `remat` recomputes each (frame, global) pair in the backward
+    (torch.utils.checkpoint, as jax.checkpoint wraps the JAX scan step;
+    DINOv2 is not recomputed), and `train_generator` enables stochastic
+    depth at the model config's drop_path_rate. Its keep masks for every block are drawn
+    before the loop (as the JAX package splits its keys outside the scan),
+    so the recomputed pair drops the same samples as the first pass.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from omnivggt_tpu_torch.config import AggregatorConfig
 from omnivggt_tpu_torch.models import dinov2
@@ -162,8 +169,16 @@ def apply(
     allow_bounded: bool = True,
     approx_gelu: bool = False,
     pad_tokens: bool = True,
+    remat: bool = False,
+    train_generator: Optional[torch.Generator] = None,
+    drop_path_rate: float = 0.0,
 ):
     """Run the aggregator on (B, S, H, W, 3) channels-last images in [0, 1].
+
+    remat: recompute each layer pair in the backward instead of keeping its
+    activations (only while grad is enabled). train_generator: a generator
+    on the images' device that enables stochastic depth at drop_path_rate
+    (None: eval, deterministic).
 
     Returns ({layer: (B, S, P, 2C) tensor in `dtype`} for each of
     `output_layers`, patch_start_idx)."""
@@ -232,28 +247,50 @@ def apply(
     kw = dict(ln_eps=cfg.ln_eps, attn_impl=attn_impl, allow_bounded=allow_bounded,
               approx_gelu=approx_gelu)
 
-    def frame_step(tokens, i):
-        x = L.block(p.frame_blocks[i], tokens.reshape(B * S, P, C), cos_f, sin_f, **kw)
+    dp_rate = drop_path_rate if train_generator is not None else 0.0
+    if dp_rate > 0.0:
+        # (first block's, second block's) keep masks per layer pair, two
+        # residual branches each, drawn up front in a fixed order
+        first_n, second_n = (B * S, B) if cfg.aa_order[0] == "frame" else (B, B * S)
+        keeps = [
+            (L.drop_path_masks(first_n, 2, dp_rate, train_generator, dev),
+             L.drop_path_masks(second_n, 2, dp_rate, train_generator, dev))
+            for _ in range(cfg.depth)
+        ]
+    else:
+        keeps = [(None, None)] * cfg.depth
+
+    def frame_step(tokens, i, keep):
+        x = L.block(p.frame_blocks[i], tokens.reshape(B * S, P, C), cos_f, sin_f, **kw,
+                    drop_path_rate=dp_rate, drop_path_keep=keep)
         x = x.reshape(B, S, P, C)
         # camera re-injection into the camera token, injection group i + 1
         pe_tok = L.linear(p.pose_embeddings[i + 1], pose_enc) * cam_mask_f
         inj = L.linear(p.camera_adapters[i + 1], pe_tok)
         return torch.cat([x[:, :, :1] + inj[:, :, None], x[:, :, 1:]], dim=2)
 
-    def global_step(tokens, i):
-        g = L.block(p.global_blocks[i], tokens.reshape(B, S * P, C), cos_g, sin_g, **kw)
+    def global_step(tokens, i, keep):
+        g = L.block(p.global_blocks[i], tokens.reshape(B, S * P, C), cos_g, sin_g, **kw,
+                    drop_path_rate=dp_rate, drop_path_keep=keep)
         return g.reshape(B, S, P, C)
+
+    def pair(tokens, i, keep_first, keep_second):
+        """One (frame, global) layer pair: (frame_inter, global_inter)."""
+        if cfg.aa_order[0] == "frame":
+            frame_inter = frame_step(tokens, i, keep_first)
+            return frame_inter, global_step(frame_inter, i, keep_second)
+        global_inter = global_step(tokens, i, keep_first)
+        return frame_step(global_inter, i, keep_second), global_inter
 
     wanted = set(output_layers)
     outputs = {}
     tokens = tokens.to(dtype)
     for i in range(cfg.depth):
-        if cfg.aa_order[0] == "frame":
-            frame_inter = frame_step(tokens, i)
-            global_inter = tokens = global_step(frame_inter, i)
+        if remat and torch.is_grad_enabled():
+            frame_inter, global_inter = checkpoint(pair, tokens, i, *keeps[i], use_reentrant=False)
         else:
-            global_inter = global_step(tokens, i)
-            frame_inter = tokens = frame_step(global_inter, i)
+            frame_inter, global_inter = pair(tokens, i, *keeps[i])
+        tokens = global_inter if cfg.aa_order[0] == "frame" else frame_inter
         if i in wanted:
             # (frame ‖ global) in this fixed order for either aa_order
             outputs[i] = torch.cat([frame_inter, global_inter], dim=-1)

@@ -24,6 +24,7 @@ from omnivggt_tpu_torch.models import camera_head as chead
 from omnivggt_tpu_torch.models import dpt_head as dhead
 from omnivggt_tpu_torch.models.aggregator import AuxInputs
 from omnivggt_tpu_torch.ops import layers as L
+from omnivggt_tpu_torch.utils.device import resolve_device
 
 
 def needed_layers(cfg: OmniVGGTConfig):
@@ -83,8 +84,10 @@ class OmniVGGT(nn.Module):
         device=None,
         seed: Optional[int] = 0,
     ):
-        """Builds the model on `device` with random weights from `seed`
-        (seed=None leaves them uninitialised, for loading a checkpoint)."""
+        """Builds the model on `device` (default "cuda"; raises without a
+        CUDA device, so the CPU runs only with device="cpu") with random
+        weights from `seed` (seed=None leaves them uninitialised, for
+        loading a checkpoint)."""
         super().__init__()
         self.config = cfg = config or OmniVGGTConfig()
         if cfg.trunk_quant != "none" or cfg.attn_quant != "none":
@@ -94,7 +97,7 @@ class OmniVGGT(nn.Module):
             self.camera_head = chead.CameraHead(cfg.camera_head)
             self.depth_head = dhead.DPTHead(cfg.depth_head)
             self.point_head = dhead.DPTHead(cfg.point_head)
-        device = torch.device(device if device is not None else "cpu")
+        device = resolve_device(device)
         self.to_empty(device=device)
         if seed is not None:
             gen = torch.Generator(device=device)
@@ -148,9 +151,16 @@ def apply(
     *,
     attn_impl: str = "auto",
     pad_tokens: bool = True,
+    remat: bool = False,
+    train_generator: Optional[torch.Generator] = None,
 ):
     """Full forward pass on (B, S, H, W, 3) (or (S, H, W, 3)) channels-last
-    images in [0, 1]. Returns the prediction dict (fp32 but `images`)."""
+    images in [0, 1]. Returns the prediction dict (fp32 but `images`).
+
+    remat: recompute each aggregator layer pair in the backward.
+    train_generator: a generator on the images' device that enables the
+    aggregator's stochastic depth at cfg.aggregator.drop_path_rate (None:
+    deterministic eval)."""
     if images.ndim == 4:
         images = images[None]
     B, S, H, W, _ = images.shape
@@ -162,6 +172,9 @@ def apply(
         allow_bounded=cfg.bounded_attn_logits,
         approx_gelu=cfg.approx_gelu,
         pad_tokens=pad_tokens,
+        remat=remat,
+        train_generator=train_generator,
+        drop_path_rate=cfg.aggregator.drop_path_rate,
     )
     pose_enc_list = chead.apply(
         model.camera_head, layers[cfg.aggregator.depth - 1].to(cfg.heads_dtype)

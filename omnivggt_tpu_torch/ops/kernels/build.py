@@ -2,8 +2,9 @@
 
 Each library is compiled by `nvcc` for `sm_90a` (Hopper) into
 `omnivggt_tpu_torch/_build/`, under a file name keyed by a hash of the
-source, so an edited source builds anew and an unchanged one is loaded from
-the last build. The library exposes a plain C interface and is loaded with
+source and of the shared headers (csrc/*.cuh), so an edited source builds
+anew and an unchanged one is loaded from the last build. `build_all` starts
+one nvcc per source at once. The library exposes a plain C interface and is loaded with
 `ctypes`; no PyTorch headers are compiled, which keeps a build to seconds.
 Nothing here runs at import time.
 """
@@ -16,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
@@ -45,7 +47,10 @@ def nvcc_path() -> str:
 
 def library_path(source: str) -> Path:
     """Where the library built from `source` (a file under csrc/) lives."""
-    digest = hashlib.sha256((CSRC_DIR / source).read_bytes()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC_DIR / source).read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    digest = h.hexdigest()[:16]
     return BUILD_DIR / f"{Path(source).stem}-{digest}.so"
 
 
@@ -72,6 +77,13 @@ def build(source: str) -> tuple[Path, str]:
         )
     os.replace(tmp, out)
     return out, proc.stdout + proc.stderr
+
+
+def build_all(sources) -> dict:
+    """Build several sources at once, one nvcc process each; returns
+    {source: compiler log}."""
+    with ThreadPoolExecutor(max_workers=max(len(sources), 1)) as pool:
+        return dict(zip(sources, (log for _, log in pool.map(build, sources))))
 
 
 def load(source: str) -> tuple[ctypes.CDLL, str]:

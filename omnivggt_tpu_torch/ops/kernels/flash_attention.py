@@ -1,7 +1,6 @@
-"""Flash-attention forward kernels for Hopper and their plain versions.
+"""Flash-attention kernels for Hopper and their plain versions.
 
-Counterparts of the two TPU kernels on the inference path
-(omnivggt_tpu/ops/pallas/flash_attention.py):
+Counterparts of the TPU kernels of omnivggt_tpu/ops/pallas/flash_attention.py:
 
   - `flash_attention` replaces `_flash_kernel` (head-major streaming
     softmax, reached through `_flash_forward` and `flash_attention`). It
@@ -10,22 +9,35 @@ Counterparts of the two TPU kernels on the inference path
     whole key axis per block, reached through `_flash_packed_forward` and
     `flash_attention_packed`). It serves frame and DINOv2 attention, whose
     key axis is at most `PACKED_MAX_KEYS`.
+  - `flash_attention_bwd_dq` and `flash_attention_bwd_dkv` replace
+    `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (reached through
+    `_flash_backward` from every custom_vjp wrapper); the gradient of both
+    forward wrappers runs them, in that order, from the forward's saved
+    row log-sum-exp (`_flash_kernel`'s `return_lse` output).
 
-Both take (B, N, H, D) tensors and compute non-causal softmax attention
-with fp32 accumulation:
+The forward wrappers take (B, N, H, D) tensors and compute non-causal
+softmax attention with fp32 accumulation:
 
   - `bounded_logits=True`: softmax at a fixed max of 0 with the insurance
     clamp exp(min(s, 80)) (qk-normed inputs keep |s| far below it);
-    otherwise a running max.
+    otherwise a running max. The backward clamps the same way and passes
+    the gradient straight through the clamp, as the TPU kernels do.
   - `kv_valid` (a Python int or an integer tensor, on the device): keys at
     positions >= kv_valid, like keys past Nk, get a score of -1e30.
 
-On a CPU tensor each wrapper computes its plain version, `attention_plain`
-(materialised fp32 scores, the same clamp and the same -1e30 mask). On a
-CUDA tensor it launches the kernel of csrc/flash_attention.cu, built by
-nvcc at first use, or raises; it never falls back. The kernels take bf16
-with head dim 64 or 128 only, and return bf16. Each wrapper counts its
-launches in a plain integer attribute, `launches`.
+Both are differentiable: when grad is enabled and q, k or v requires it,
+they run as a `torch.autograd.Function` whose forward also writes the LSE
+and whose backward is the two backward kernels; otherwise the forward
+writes no LSE and saves nothing.
+
+On CPU tensors every wrapper computes its plain version: `attention_plain`
+(materialised fp32 scores, the same clamp and the same -1e30 mask) and
+`attention_backward_plain` (`_bwd_recompute`'s math in fp32). On CUDA
+tensors it launches the kernels of csrc/flash_attention.cu and
+csrc/flash_attention_bwd.cu, built by nvcc at first use, or raises; it
+never falls back. The kernels take bf16 with head dim 64 or 128 only, and
+return bf16. Each kernel's wrapper counts its launches in a plain integer
+attribute, `launches`.
 """
 
 from __future__ import annotations
@@ -44,48 +56,178 @@ PACKED_MAX_KEYS = 2048
 HEAD_DIMS = (64, 128)
 NEG_INF = -1e30
 BOUNDED_CLAMP = 80.0
-_SOURCE = "flash_attention.cu"
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu")
 _MAX_GRID_YZ = 65535
 
 
-def attention_plain(q, k, v, kv_valid=None, bounded_logits=False):
-    """Plain PyTorch version of both kernels: (B, N, H, D) -> (B, N, H, D)
-    in q's dtype, from materialised fp32 scores."""
+def _scores(q, k, kv_valid, bounded_logits):
+    """fp32 scaled scores (B, H, N, Nk), clamped when bounded, masked."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * q.shape[-1] ** -0.5
+    if bounded_logits:
+        s = s.clamp_max(BOUNDED_CLAMP)
+    if kv_valid is not None:
+        key = torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill(key >= kv_valid, NEG_INF)
+    return s
+
+
+def attention_plain(q, k, v, kv_valid=None, bounded_logits=False, return_lse=False):
+    """Plain PyTorch version of both forward kernels: (B, N, H, D) ->
+    (B, N, H, D) in q's dtype, from materialised fp32 scores. With
+    return_lse, also the (B, H, N) fp32 row log-sum-exp of the scores.
+
+    Differentiable by autograd (the row max is taken without a gradient,
+    which the softmax does not need)."""
     scale = q.shape[-1] ** -0.5
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()).mul_(scale)
     if kv_valid is not None:
         key = torch.arange(k.shape[1], device=q.device)
         s.masked_fill_(key >= kv_valid, NEG_INF)
     if bounded_logits:
+        m = None
         p = s.clamp_max_(BOUNDED_CLAMP).exp_()
     else:
-        p = s.sub_(s.amax(dim=-1, keepdim=True)).exp_()
-    denom = p.sum(dim=-1).transpose(1, 2).unsqueeze(-1)  # (B, N, H, 1)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / denom
-    return o.to(q.dtype)
+        m = s.detach().amax(dim=-1, keepdim=True)
+        p = s.sub_(m).exp_()
+    denom = p.sum(dim=-1)  # (B, H, N)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / denom.transpose(1, 2).unsqueeze(-1)
+    o = o.to(q.dtype)
+    if not return_lse:
+        return o
+    lse = denom.log()
+    if m is not None:
+        lse = lse + m[..., 0]
+    return o, lse
+
+
+def _backward_terms(q, k, v, o, do, lse, kv_valid, bounded_logits):
+    """fp32 (p, ds, do) of _bwd_recompute: p = exp(s - lse) (s clamped when
+    bounded, masked keys at -1e30), ds = p * (do v^T - rowsum(do * o))."""
+    p = (_scores(q, k, kv_valid, bounded_logits) - lse.float()[..., None]).exp_()
+    dof = do.float()
+    delta = (dof * o.float()).sum(-1).transpose(1, 2)  # (B, H, N)
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", dof, v.float()) - delta[..., None])
+    return p, ds, dof
+
+
+def attention_backward_plain(q, k, v, o, do, lse, kv_valid=None, bounded_logits=False):
+    """Plain PyTorch version of both backward kernels: (dq, dk, dv) in the
+    inputs' dtypes from the forward's output o, its gradient do and its
+    (B, H, N) LSE, in fp32 (the math of _bwd_recompute and the two TPU
+    backward kernels): dq = scale ds k, dk = scale ds^T q, dv = p^T do. The
+    bounded clamp passes gradients straight through; masked keys get p = 0."""
+    scale = q.shape[-1] ** -0.5
+    p, ds, dof = _backward_terms(q, k, v, o, do, lse, kv_valid, bounded_logits)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def lse_tolerance(q, k, lse, kv_valid=None):
+    """(B, H, N) bound on the difference between two fp32 computations of
+    the forward's row LSE from the same inputs (the kernel's and
+    attention_plain's), each with unit roundoff u = 2^-24: the row sum of
+    nk positive terms moves by at most (nk - 1) u of itself, and the
+    rescaling by the running max by at most 3 u per 64-key tile; each
+    term's exponent moves by at most 2 (D + 1) u A, A = scale |q_i| max_j
+    |k_j| >= scale sum_d |q_d k_d| (the dot product's fp32 accumulation,
+    truncating on the tensor cores, and the scale); exp, log and
+    (m + log2 l) ln 2 add a few u of |lse|. Both sides:
+    2 u (17/16 nk + 2 (D + 1) A + 4 |lse| + 8)."""
+    D = q.shape[-1]
+    nk = k.shape[1] if kv_valid is None else max(min(int(kv_valid), k.shape[1]), 1)
+    k_max = k[:, :nk].float().norm(dim=-1).amax(dim=1)  # (B, H)
+    a = q.float().norm(dim=-1).transpose(1, 2) * k_max[..., None] * D**-0.5
+    return 2.0**-23 * (17 / 16 * nk + 2 * (D + 1) * a + 4 * lse.float().abs() + 8)
+
+
+# c in the backward bound: 2 exp(-c^2 / 2) = 4.6e-11 per entry at c = 7
+BWD_SIGMAS = 7.0
+
+
+def backward_tolerance(q, k, v, o, do, lse, kv_valid=None, bounded_logits=False, lse_err=0.0):
+    """Per-entry bounds (tol_dq, tol_dk, tol_dv), shaped like the gradients,
+    on the backward kernels' error against attention_backward_plain on the
+    same bf16 inputs and this LSE, when the kernels were given an LSE
+    within lse_err of it.
+
+    Each gradient entry is a sum of terms t = w x: w = ds for dq (x = scale
+    k) and dk (x = scale q), w = p for dv (x = dO). Two kinds of error:
+
+      - bf16 rounding. The kernels round each w to bf16 before the
+        product, which moves each term by eps t, |eps| <= 2^-8, with zero
+        mean and independently from term to term; by Hoeffding's inequality
+        the sum moves by more than c 2^-8 sqrt(sum t^2) with probability at
+        most 2 exp(-c^2 / 2): at c = BWD_SIGMAS = 7, 4.6e-11 per entry,
+        below 1e-3 over the 2e7 entries of the largest check. Rounding the
+        output to bf16 adds at most 2^-8 of its value.
+      - fp32 rounding, both sides, summed worst-case over the terms as
+        sum |dw| |x|, u = 2^-24. Each p moves by eta p, eta = 4 (D + 1) u
+        scale sum_d |q_d k_d| + 4 u |lse| + expm1(lse_err) (the score's dot
+        product, accumulated with truncation on the tensor cores, and the
+        LSE); ds = p (dP - delta) moves by eta |ds| + 4 D u p (sum_d |dO_d
+        v_d| + sum_d |dO_d o_d|), the dot products of dP and delta, which
+        cancel where one key takes the whole row."""
+    D = q.shape[-1]
+    scale, u = D**-0.5, 2.0**-24
+    p, ds, dof = _backward_terms(q, k, v, o, do, lse, kv_valid, bounded_logits)
+    eta = torch.einsum("bqhd,bkhd->bhqk", q.float().abs(), k.float().abs())
+    eta.mul_(4 * (D + 1) * u * scale).add_(4 * u * lse.float().abs()[..., None] + math.expm1(lse_err))
+    dots = torch.einsum("bqhd,bkhd->bhqk", dof.abs(), v.float().abs())
+    dots.add_((dof * o.float()).abs().sum(-1).transpose(1, 2)[..., None]).mul_(p).mul_(4 * D * u)
+    err_ds = dots.addcmul_(eta, ds.abs())
+    del dots
+    err_p = eta.mul_(p)
+    tols = []
+    for w, dw, x, mul, eq in (
+        (ds, err_ds, k.float(), scale, "bhqk,bkhd->bqhd"),
+        (ds, err_ds, q.float(), scale, "bhqk,bqhd->bkhd"),
+        (p, err_p, dof, 1.0, "bhqk,bqhd->bkhd"),
+    ):
+        value = torch.einsum(eq, w, x).abs_()
+        rms = torch.einsum(eq, w.square(), x.square()).sqrt_()
+        tol = value.add_(rms, alpha=BWD_SIGMAS).mul_(2.0**-8)
+        tol.add_(torch.einsum(eq, dw, x.abs()))
+        tols.append(tol.mul_(mul))
+    return tuple(tols)
 
 
 @functools.lru_cache(maxsize=None)
-def _library():
-    lib, log = build.load(_SOURCE)
-    fn = lib.omnivggt_flash_attention_fwd
-    fn.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int,           # packed, bounded, D
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # q, k, v
-        ctypes.c_void_p,                                    # o
-        ctypes.POINTER(ctypes.c_longlong),                  # 12 strides
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # B, H, N, Nk
-        ctypes.c_int, ctypes.c_void_p,                      # kv_static, kv_dynamic
-        ctypes.c_float, ctypes.c_void_p,                    # scale, stream
+def _libraries():
+    logs = build.build_all(SOURCES)
+    fwd_lib, _ = build.load(SOURCES[0])
+    bwd_lib, _ = build.load(SOURCES[1])
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    strides = ctypes.POINTER(ctypes.c_longlong)
+    fwd = fwd_lib.omnivggt_flash_attention_fwd
+    fwd.argtypes = [
+        i32, i32, i32,          # packed, bounded, D
+        ptr, ptr, ptr, ptr, ptr,  # q, k, v, o, lse
+        strides,                # 12 strides
+        i32, i32, i32, i32,     # B, H, N, Nk
+        i32, ptr,               # kv_static, kv_dynamic
+        f32, ptr,               # scale, stream
     ]
-    fn.restype = ctypes.c_int
-    return fn, log
+    bwd_args = [
+        i32, i32,                            # bounded, D
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # 8 tensors (see the source)
+        strides,                             # 18 strides
+        i32, i32, i32, i32, i32, ptr,        # B, H, N, Nk, kv_static, kv_dynamic
+        f32, ptr,                            # scale, stream
+    ]
+    dq, dkv = bwd_lib.omnivggt_flash_attention_bwd_dq, bwd_lib.omnivggt_flash_attention_bwd_dkv
+    dq.argtypes = dkv.argtypes = bwd_args
+    for fn in (fwd, dq, dkv):
+        fn.restype = ctypes.c_int
+    return fwd, dq, dkv, "\n".join(logs[s] for s in SOURCES)
 
 
 def load_kernels() -> str:
-    """Build and load the kernels now (they otherwise build at first
-    launch); returns the compiler log, empty if the library was cached."""
-    return _library()[1]
+    """Build (both sources at once) and load the kernels now (they
+    otherwise build at first launch); returns the compiler logs, empty
+    where a library was cached."""
+    return _libraries()[3]
 
 
 def _on_cpu(*tensors) -> bool:
@@ -94,7 +236,7 @@ def _on_cpu(*tensors) -> bool:
         return True
     if devices == {"cuda"}:
         return False
-    raise ValueError(f"q, k and v must all lie on the CPU or all on CUDA, got {devices}")
+    raise ValueError(f"attention tensors must all lie on the CPU or all on CUDA, got {devices}")
 
 
 def _vector_aligned(x):
@@ -109,7 +251,8 @@ def _vector_aligned(x):
     return x.contiguous()
 
 
-def _launch(q, k, v, kv_valid, bounded_logits, packed):
+def _check(q, k, v, packed=False):
+    """Validate what the kernels take; returns (B, N, H, D, Nk)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, N, H, D)")
     B, N, H, D = q.shape
@@ -120,42 +263,164 @@ def _launch(q, k, v, kv_valid, bounded_logits, packed):
         raise TypeError(f"the Hopper kernels take bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"the Hopper kernels take head dim in {HEAD_DIMS}, got {D}")
-    q_tiles = math.ceil(N / 64)
-    if (B * H if not packed else max(B, q_tiles)) > _MAX_GRID_YZ:
+    if (max(B, math.ceil(N / 64)) if packed else B * H) > _MAX_GRID_YZ:
         raise ValueError(f"grid too large for (B, N, H) = {(B, N, H)}")
+    return B, N, H, D, Nk
 
+
+def _check_grad_inputs(q, do, rows, o=None):
+    """do (and o) bf16 shaped like q; each of `rows` a (B, H, N) tensor."""
+    B, N, H, _ = q.shape
+    for name, x in (("do", do), ("o", o)):
+        if x is not None and (x.shape != q.shape or x.dtype != torch.bfloat16):
+            raise ValueError(f"{name} must be bf16 {tuple(q.shape)}, got {x.dtype} {tuple(x.shape)}")
+    for x in rows:
+        if x.shape != (B, H, N):
+            raise ValueError(f"lse/delta must be (B, H, N) = {(B, H, N)}, got {tuple(x.shape)}")
+
+
+def _kv_args(kv_valid, Nk, device):
+    """(kv_static, device pointer or None, tensor to keep alive)."""
+    if isinstance(kv_valid, torch.Tensor):
+        keep = kv_valid.to(device=device, dtype=torch.int32).reshape(())
+        return Nk, keep.data_ptr(), keep
+    if kv_valid is not None:
+        return max(min(int(kv_valid), Nk), 0), None, None
+    return Nk, None, None
+
+
+def _strides(*tensors):
+    return (ctypes.c_longlong * (3 * len(tensors)))(*[s for x in tensors for s in x.stride()[:3]])
+
+
+def _raise_on(err, what):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+
+
+def _launch(q, k, v, kv_valid, bounded_logits, packed, with_lse=False):
+    """One forward kernel launch: o, or (o, lse) with_lse."""
+    B, N, H, D, Nk = _check(q, k, v, packed)
     q, k, v = (_vector_aligned(x) for x in (q, k, v))
     o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
-    kv_static, kv_ptr, kv_keep = Nk, None, None
-    if isinstance(kv_valid, torch.Tensor):
-        kv_keep = kv_valid.to(device=q.device, dtype=torch.int32).reshape(())
-        kv_ptr = kv_keep.data_ptr()
-    elif kv_valid is not None:
-        kv_static = max(min(int(kv_valid), Nk), 0)
-    strides = (ctypes.c_longlong * 12)(
-        *[s for x in (q, k, v, o) for s in x.stride()[:3]]
-    )
-    fn, _ = _library()
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if with_lse else None
+    kv_static, kv_ptr, _keep = _kv_args(kv_valid, Nk, q.device)
+    fwd = _libraries()[0]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
+        err = fwd(
             int(packed), int(bool(bounded_logits)), D,
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), strides,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(), _strides(q, k, v, o),
             B, H, N, Nk, kv_static, kv_ptr, D ** -0.5, stream,
         )
-    if err != 0:
-        raise RuntimeError(f"flash-attention kernel launch failed: cudaError {err}")
-    return o
+    _raise_on(err, "flash-attention forward")
+    (flash_attention_packed if packed else flash_attention).launches += 1
+    return (o, lse) if with_lse else o
+
+
+def flash_attention_bwd_dq(q, k, v, o, do, lse, kv_valid=None, bounded_logits=False):
+    """The dq kernel (counterpart of _flash_bwd_dq_kernel) on CUDA tensors:
+    returns (dq, delta), delta = rowsum(do * o) as (B, H, N) fp32 for the
+    dk/dv kernel."""
+    B, N, H, D, Nk = _check(q, k, v)
+    _check_grad_inputs(q, do, (lse,), o)
+    q, k, v, o, do = (_vector_aligned(x) for x in (q, k, v, o, do))
+    lse = lse.float().contiguous()
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    kv_static, kv_ptr, _keep = _kv_args(kv_valid, Nk, q.device)
+    dq_fn = _libraries()[1]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = dq_fn(
+            int(bool(bounded_logits)), D,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _strides(q, k, v, do, o, dq),
+            B, H, N, Nk, kv_static, kv_ptr, D ** -0.5, stream,
+        )
+    _raise_on(err, "flash-attention dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq, delta
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_valid=None, bounded_logits=False):
+    """The dk/dv kernel (counterpart of _flash_bwd_dkv_kernel) on CUDA
+    tensors, from the delta that flash_attention_bwd_dq returned:
+    returns (dk, dv)."""
+    B, N, H, D, Nk = _check(q, k, v)
+    _check_grad_inputs(q, do, (lse, delta))
+    q, k, v, do = (_vector_aligned(x) for x in (q, k, v, do))
+    lse = lse.float().contiguous()
+    delta = delta.float().contiguous()
+    dk = torch.empty((B, Nk, H, D), dtype=k.dtype, device=k.device)
+    dv = torch.empty((B, Nk, H, D), dtype=v.dtype, device=v.device)
+    kv_static, kv_ptr, _keep = _kv_args(kv_valid, Nk, q.device)
+    dkv_fn = _libraries()[2]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = dkv_fn(
+            int(bool(bounded_logits)), D,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), _strides(q, k, v, do, dk, dv),
+            B, H, N, Nk, kv_static, kv_ptr, D ** -0.5, stream,
+        )
+    _raise_on(err, "flash-attention dk/dv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_backward(q, k, v, o, do, lse, kv_valid=None, bounded_logits=False):
+    """(dq, dk, dv) of either forward wrapper: the plain version on CPU
+    tensors; on CUDA the dq kernel, then the dk/dv kernel."""
+    if _on_cpu(q, k, v, o, do):
+        return attention_backward_plain(q, k, v, o, do, lse, kv_valid, bounded_logits)
+    dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, kv_valid, bounded_logits)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_valid, bounded_logits)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Counterpart of the custom_vjp wrappers (_flash_unmasked,
+    _flash_masked, _packed_*): the forward kernel with its LSE, the two
+    backward kernels as the gradient (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_valid, bounded, packed):
+        if _on_cpu(q, k, v):
+            o, lse = attention_plain(q, k, v, kv_valid, bounded, return_lse=True)
+        else:
+            o, lse = _launch(q, k, v, kv_valid, bounded, packed, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kv_valid, ctx.bounded = kv_valid, bounded
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, o, do, lse, ctx.kv_valid, ctx.bounded)
+        return dq, dk, dv, None, None, None
+
+
+def _attend(q, k, v, kv_valid, bounded_logits, packed):
+    cpu = _on_cpu(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, kv_valid, bool(bounded_logits), packed)
+    if cpu:
+        return attention_plain(q, k, v, kv_valid, bounded_logits)
+    return _launch(q, k, v, kv_valid, bounded_logits, packed)
 
 
 def flash_attention(q, k, v, kv_valid=None, bounded_logits=False):
     """Head-major flash attention over (B, N, H, D); any key length.
     Counterpart of flash_attention.py::_flash_kernel."""
-    if _on_cpu(q, k, v):
-        return attention_plain(q, k, v, kv_valid, bounded_logits)
-    o = _launch(q, k, v, kv_valid, bounded_logits, packed=False)
-    flash_attention.launches += 1
-    return o
+    return _attend(q, k, v, kv_valid, bounded_logits, packed=False)
 
 
 flash_attention.launches = 0
@@ -163,16 +428,28 @@ flash_attention.launches = 0
 
 def flash_attention_packed(q, k, v, kv_valid=None, bounded_logits=False):
     """Token-major flash attention over (B, N, H, D) for key lengths up to
-    PACKED_MAX_KEYS. Counterpart of flash_attention.py::_flash_packed_kernel."""
+    PACKED_MAX_KEYS. Counterpart of flash_attention.py::_flash_packed_kernel;
+    under grad its gradient runs the same backward kernels as the
+    head-major wrapper's."""
     if k.shape[1] > PACKED_MAX_KEYS:
         raise ValueError(
             f"packed kernel requires Nk <= {PACKED_MAX_KEYS}, got {k.shape[1]}"
         )
-    if _on_cpu(q, k, v):
-        return attention_plain(q, k, v, kv_valid, bounded_logits)
-    o = _launch(q, k, v, kv_valid, bounded_logits, packed=True)
-    flash_attention_packed.launches += 1
-    return o
+    return _attend(q, k, v, kv_valid, bounded_logits, packed=True)
 
 
 flash_attention_packed.launches = 0
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch counter to 0."""
+    for fn in KERNELS:
+        fn.launches = 0
+
+
+def launches() -> dict:
+    """{kernel wrapper name: launches since the last reset}."""
+    return {fn.__name__: fn.launches for fn in KERNELS}
+
+
+KERNELS = (flash_attention, flash_attention_packed, flash_attention_bwd_dq, flash_attention_bwd_dkv)

@@ -9,7 +9,8 @@ of use:
 
   - linear, layer_norm (fp32 statistics), mlp (exact-erf or tanh GELU);
   - attention: fused qkv, per-head-dim q/k LayerNorm, 2D RoPE;
-  - block: pre-LN with LayerScale;
+  - block: pre-LN with LayerScale and, when training, stochastic depth
+    (drop_path) from keep masks the caller draws;
   - patch_embed and conv2d, channels-last like the JAX package.
 """
 
@@ -117,6 +118,23 @@ def conv2d(p: nn.Conv2d, x: torch.Tensor, stride=1, padding=0) -> torch.Tensor:
     return F.conv2d(x, p.weight.to(x.dtype), _cast(p.bias, x.dtype), stride, padding)
 
 
+def drop_path_masks(n: int, count: int, rate: float, generator: torch.Generator,
+                    device) -> torch.Tensor:
+    """(count, n) fp32 per-sample Bernoulli(1 - rate) keep masks for
+    `count` residual branches, drawn from `generator` (on `device`)."""
+    keep = torch.full((count, n), 1.0 - rate, device=device)
+    return torch.bernoulli(keep, generator=generator)
+
+
+def drop_path(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """Stochastic depth (counterpart of ops/layers.py::drop_path): x times a
+    per-sample keep mask over the leading axis, scaled by 1/keep_prob. The
+    mask is an input, drawn before any activation checkpoint, so the
+    recomputed forward drops the same samples."""
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    return x * (keep.reshape(shape) / (1.0 - rate)).to(x.dtype)
+
+
 def attention(
     p: Attention,
     x: torch.Tensor,
@@ -163,8 +181,13 @@ def block(
     kv_valid=None,
     allow_bounded: bool = True,
     approx_gelu: bool = False,
+    drop_path_rate: float = 0.0,
+    drop_path_keep: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """x += LS1(Attn(LN(x), rope)); x += LS2(MLP(LN(x)))."""
+    """x += DP(LS1(Attn(LN(x), rope))); x += DP(LS2(MLP(LN(x)))), where DP
+    is stochastic depth, active only when `drop_path_keep` (2, x.shape[0]
+    keep masks, drop_path_masks) is given and drop_path_rate > 0."""
+    use_dp = drop_path_rate > 0.0 and drop_path_keep is not None
     h = attention(
         p.attn, layer_norm(p.norm1, x, ln_eps), rope_cos, rope_sin,
         ln_eps=ln_eps, impl=attn_impl, kv_valid=kv_valid,
@@ -172,10 +195,14 @@ def block(
     )
     if p.ls1 is not None:
         h = h * p.ls1.gamma.to(h.dtype)
+    if use_dp:
+        h = drop_path(h, drop_path_keep[0], drop_path_rate)
     x = x + h
     h = mlp(p.mlp, layer_norm(p.norm2, x, ln_eps), approx_gelu=approx_gelu)
     if p.ls2 is not None:
         h = h * p.ls2.gamma.to(h.dtype)
+    if use_dp:
+        h = drop_path(h, drop_path_keep[1], drop_path_rate)
     return x + h
 
 

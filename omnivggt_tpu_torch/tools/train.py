@@ -1,0 +1,128 @@
+"""Training CLI of the PyTorch port (counterpart of tools/train.py).
+
+Scene folders (the example layout, data/dataset.py) feed the one-device
+train step (train/step.py) with the layer-decay fine-tune optimizer
+(train/optim.py), metric logging to {ckpt_dir}/metrics.jsonl, and
+checkpoint save/resume (train/checkpointing.py). It runs on --device
+(default cuda, which must exist); --device cpu runs the kernels' plain
+versions on the CPU.
+
+    # fine-tune on a folder of scenes, one GPU
+    python -m omnivggt_tpu_torch.tools.train --data_root scenes/ --steps 1000 \\
+        --checkpoint OmniVGGT.safetensors --ckpt_dir runs/ft
+
+    # smoke run on the CPU with the tiny config
+    python -m omnivggt_tpu_torch.tools.train --data_root scenes/ --tiny \\
+        --device cpu --steps 2 --views 2 --target_size 28
+
+Not ported yet, and refused: --shards (streaming tar shards), --mesh and
+--state_sharding other than none (multi-device training).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import os
+import time
+
+
+def parse_args(argv=None):
+    ap = argparse.ArgumentParser(description="OmniVGGT training (PyTorch)")
+    src = ap.add_mutually_exclusive_group(required=True)
+    src.add_argument("--data_root", help="root of scene folders")
+    src.add_argument("--shards", help="glob of streaming tar shards (not ported yet)")
+    ap.add_argument("--steps", type=int, default=1000)
+    ap.add_argument("--views", type=int, default=4, help="views per sample")
+    ap.add_argument("--target_size", type=int, default=518)
+    ap.add_argument("--tiny", action="store_true", help="tiny config (CPU smoke runs)")
+    ap.add_argument("--checkpoint", help="init from an OmniVGGT .safetensors")
+    ap.add_argument("--ckpt_dir", default="runs/default")
+    ap.add_argument("--save_every", type=int, default=500)
+    ap.add_argument("--log_every", type=int, default=10)
+    ap.add_argument("--lr", type=float, default=1e-5)
+    ap.add_argument("--layer_decay", type=float, default=0.9)
+    ap.add_argument("--warmup", type=int, default=500)
+    ap.add_argument("--drop_path", type=float, default=0.0)
+    ap.add_argument("--mesh", help="data,seq device mesh (not ported yet)")
+    ap.add_argument("--state_sharding", default="none", choices=("none", "zero2", "fsdp"),
+                    help="ZeRO-style state sharding (not ported yet)")
+    ap.add_argument("--no_remat", action="store_true")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default; fails without a CUDA device) or cpu")
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    for flag, given in (("--shards", args.shards), ("--mesh", args.mesh),
+                        ("--state_sharding", args.state_sharding != "none")):
+        if given:
+            raise SystemExit(
+                f"{flag} is not ported yet: omnivggt_tpu_torch trains on one device "
+                "from --data_root; use the JAX CLI (tools/train.py)"
+            )
+
+    from omnivggt_tpu_torch.config import OmniVGGTConfig, tiny_test_config
+    from omnivggt_tpu_torch.data.dataset import SceneDataset, prefetch
+    from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
+    from omnivggt_tpu_torch.train.checkpointing import resume_or_init, save_train_state
+    from omnivggt_tpu_torch.train.optim import make_finetune_optimizer
+    from omnivggt_tpu_torch.train.step import batch_to_device, init_state, make_train_step
+    from omnivggt_tpu_torch.utils.device import resolve_device
+    from omnivggt_tpu_torch.utils.logging import MetricLogger
+
+    device = resolve_device(args.device)
+    cfg = tiny_test_config() if args.tiny else OmniVGGTConfig()
+    if args.drop_path > 0:
+        cfg = dataclasses.replace(
+            cfg, aggregator=dataclasses.replace(cfg.aggregator, drop_path_rate=args.drop_path)
+        )
+    if args.checkpoint:
+        # also re-certifies the fixed-max softmax against these weights
+        model = OmniVGGT.from_safetensors(args.checkpoint, cfg, device=device)
+        cfg = model.config
+    else:
+        model = OmniVGGT(cfg, device=device, seed=args.seed)
+    model.train()
+
+    optimizer = make_finetune_optimizer(
+        model, learning_rate=args.lr, layer_decay=args.layer_decay,
+        warmup_steps=args.warmup, total_steps=args.steps,
+    )
+    train_step = make_train_step(
+        cfg, optimizer, use_aux_inputs=True, remat=not args.no_remat, seed=args.seed,
+    )
+    state = resume_or_init(args.ckpt_dir, init_state(model, optimizer))
+    start = state.step
+    if start:
+        print(f"resumed from {args.ckpt_dir} at step {start}")
+
+    ds = SceneDataset(
+        args.data_root, views_per_sample=args.views, target_size=args.target_size, seed=args.seed,
+    )
+    print(f"{len(ds)} scene(s) under {args.data_root}")
+    batches = prefetch(ds.batches())
+
+    os.makedirs(args.ckpt_dir, exist_ok=True)
+    logger = MetricLogger(jsonl_path=os.path.join(args.ckpt_dir, "metrics.jsonl"))
+    t0 = time.perf_counter()
+    last_logged = start
+    for step, batch in zip(range(start, args.steps), batches):
+        state, metrics = train_step(state, batch_to_device(batch, device))
+        if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
+            metrics = {k: float(v) for k, v in metrics.items()}
+            dt = (time.perf_counter() - t0) / (step + 1 - last_logged)
+            t0, last_logged = time.perf_counter(), step + 1
+            logger.update(step=step + 1, sec_per_step=round(dt, 3), **metrics)
+            print(f"step {step + 1}: " + ", ".join(
+                f"{k}={v:.4f}" for k, v in sorted(metrics.items())
+            ))
+        if (step + 1) % args.save_every == 0 or step + 1 == args.steps:
+            print(f"saved {save_train_state(args.ckpt_dir, state)}")
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,66 @@
+"""Training checkpoints: save and resume (counterpart of
+omnivggt_tpu/train/checkpointing.py).
+
+The whole TrainState (model parameters, optimizer state including the
+schedule's count, and the step) goes into one `torch.save` file,
+`{ckpt_dir}/step_{N:08d}.pt`, written under a temporary name and renamed
+into place; the newest `keep_last` files are kept. The JAX package's orbax
+directories are a different format and are not read here.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import torch
+
+from omnivggt_tpu_torch.train.step import TrainState
+
+_PREFIX, _SUFFIX = "step_", ".pt"
+
+
+def _checkpoints(ckpt_dir: str):
+    if not os.path.isdir(ckpt_dir):
+        return []
+    return sorted(d for d in os.listdir(ckpt_dir) if d.startswith(_PREFIX) and d.endswith(_SUFFIX))
+
+
+def save_train_state(ckpt_dir: str, state: TrainState, step: Optional[int] = None,
+                     keep_last: int = 3) -> str:
+    """Write {ckpt_dir}/step_{N}.pt and prune all but the newest keep_last."""
+    step = state.step if step is None else step
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(os.path.abspath(ckpt_dir), f"{_PREFIX}{step:08d}{_SUFFIX}")
+    tmp = path + ".tmp"
+    torch.save(
+        {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
+         "step": step},
+        tmp,
+    )
+    os.replace(tmp, path)
+    for stale in _checkpoints(ckpt_dir)[:-keep_last]:
+        os.remove(os.path.join(ckpt_dir, stale))
+    return path
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    found = _checkpoints(ckpt_dir)
+    return os.path.join(os.path.abspath(ckpt_dir), found[-1]) if found else None
+
+
+def restore_train_state(path: str, like: TrainState) -> TrainState:
+    """Load the checkpoint at `path` into `like`'s model and optimizer (on
+    the model's device); returns `like` at the saved step."""
+    device = next(like.model.parameters()).device
+    saved = torch.load(path, map_location=device, weights_only=True)
+    like.model.load_state_dict(saved["model"], strict=True)
+    like.optimizer.load_state_dict(saved["optimizer"])
+    like.step = int(saved["step"])
+    return like
+
+
+def resume_or_init(ckpt_dir: str, init_state: TrainState) -> TrainState:
+    """Resume from the newest checkpoint in ckpt_dir, else init_state."""
+    path = latest_checkpoint(ckpt_dir)
+    return init_state if path is None else restore_train_state(path, init_state)

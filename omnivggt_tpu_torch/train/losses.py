@@ -1,0 +1,84 @@
+"""Training losses (counterpart of omnivggt_tpu/train/losses.py).
+
+  - camera loss: L1 on the 9-dim absT_quaR_FoV encoding against the
+    scene-normalised ground truth, summed over the camera head's refinement
+    iterates with weight gamma^(T-1-t) (the last iterate weighs 1); frames
+    without camera GT can be masked out (`valid`), and the normalisation
+    then rebases to the first valid camera;
+  - dense losses (depth, world points): confidence-weighted L1,
+        conf * |pred - gt| - alpha * log(conf)
+    averaged over valid pixels.
+
+All reductions are mask-aware and safe for empty masks.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from omnivggt_tpu_torch.models.aggregator import masked_normalize_extrinsics
+from omnivggt_tpu_torch.utils import geometry as G
+
+
+def camera_loss(pose_enc_list, gt_extrinsics, gt_intrinsics, image_size_hw,
+                gamma: float = 0.8, valid=None) -> torch.Tensor:
+    """pose_enc_list: (T, B, S, 9) iterates; gt: (B, S, 3, 4) / (B, S, 3, 3);
+    valid: optional (S,) or (B, S) frame mask."""
+    B, S = gt_extrinsics.shape[:2]
+    dev = pose_enc_list.device
+    if valid is None:
+        gt_norm = G.normalize_extrinsics(gt_extrinsics.float())
+        gt_enc = G.extri_intri_to_pose_encoding(gt_norm, gt_intrinsics.float(), image_size_hw)
+        w_frame = torch.ones((B, S), device=dev)
+    else:
+        valid = torch.as_tensor(valid, device=dev)
+        if valid.ndim == 1:
+            valid = valid[None].expand(B, S)
+        valid = valid.bool()
+        m4 = valid[:, :, None, None]
+        ex = torch.where(m4, gt_extrinsics.float(), torch.eye(3, 4, device=dev))
+        K = torch.where(m4, gt_intrinsics.float(), torch.eye(3, device=dev))
+        gt_enc = G.extri_intri_to_pose_encoding(
+            masked_normalize_extrinsics(ex, valid), K, image_size_hw
+        )
+        w_frame = valid.float()
+    T = pose_enc_list.shape[0]
+    weights = gamma ** torch.arange(T - 1, -1, -1, device=dev, dtype=torch.float32)
+    err = (pose_enc_list - gt_enc[None]).abs().mean(dim=-1)  # (T, B, S)
+    denom = w_frame.sum().clamp_min(1.0)
+    per_iter = (err * w_frame[None]).sum(dim=(1, 2)) / denom
+    return (weights * per_iter).sum()
+
+
+def conf_weighted_l1(pred, conf, gt, valid, alpha: float = 0.2) -> torch.Tensor:
+    """conf * |pred - gt| - alpha * log(conf) over valid pixels.
+    pred: (..., C); conf: (...); gt: (..., C); valid: (...)."""
+    err = (pred - gt).abs().sum(dim=-1)
+    loss = conf * err - alpha * torch.log(conf)
+    return (loss * valid).sum() / valid.sum().clamp_min(1.0)
+
+
+def total_loss(predictions, batch, image_size_hw, *, w_camera: float = 1.0,
+               w_depth: float = 1.0, w_point: float = 1.0) -> dict:
+    """Camera, depth and point losses and their weighted sum ("total") from
+    a prediction dict and a batch with keys extrinsics (B,S,3,4),
+    intrinsics (B,S,3,3), depth (B,S,H,W,1), depth_valid (B,S,H,W),
+    world_points (B,S,H,W,3); optionally camera_valid (S,) and point_valid
+    (B,S,H,W), which defaults to depth_valid."""
+    losses = {
+        "camera": camera_loss(
+            predictions["pose_enc_list"], batch["extrinsics"], batch["intrinsics"],
+            image_size_hw, valid=batch.get("camera_valid"),
+        ),
+        "depth": conf_weighted_l1(
+            predictions["depth"], predictions["depth_conf"], batch["depth"], batch["depth_valid"],
+        ),
+        "point": conf_weighted_l1(
+            predictions["world_points"], predictions["world_points_conf"],
+            batch["world_points"], batch.get("point_valid", batch["depth_valid"]),
+        ),
+    }
+    losses["total"] = (
+        w_camera * losses["camera"] + w_depth * losses["depth"] + w_point * losses["point"]
+    )
+    return losses

@@ -102,6 +102,21 @@ def expand_extrinsic_to_homog(extrinsics: torch.Tensor) -> torch.Tensor:
     return torch.cat([extrinsics, bottom], dim=-2)
 
 
+def normalize_extrinsics(extrinsics: torch.Tensor) -> torch.Tensor:
+    """Rebase (B, S, 3, 4) world-to-camera extrinsics to the first camera
+    and divide translations by the mean distance of the others to it (no
+    rescale when S == 1)."""
+    S = extrinsics.shape[1]
+    homog = expand_extrinsic_to_homog(extrinsics)
+    new = homog @ closed_form_inverse_se3(homog[:, 0])[:, None]
+    if S > 1:
+        centers = new[:, :, :3, 3]
+        dist = torch.linalg.norm(centers - centers[:, :1], dim=-1)[:, 1:]
+        scale = dist.mean(dim=1, keepdim=True).clamp_min(1e-6)
+        new = torch.cat([new[:, :, :3, :3], (new[:, :, :3, 3] / scale[..., None])[..., None]], dim=-1)
+    return new[:, :, :3]
+
+
 def extri_intri_to_pose_encoding(
     extrinsics: torch.Tensor,
     intrinsics: torch.Tensor,

@@ -28,7 +28,7 @@ for m in pkgutil.walk_packages(omnivggt_tpu_torch.__path__, "omnivggt_tpu_torch.
     importlib.import_module(m.name)
 from omnivggt_tpu_torch.config import tiny_test_config
 from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
-model = OmniVGGT(tiny_test_config(), seed=0)
+model = OmniVGGT(tiny_test_config(), device="cpu", seed=0)
 with torch.inference_mode():
     out = model(torch.rand(2, 28, 28, 3))
 assert out["depth"].shape == (1, 2, 28, 28, 1) and torch.isfinite(out["depth"]).all()
@@ -119,6 +119,7 @@ def test_inference_cli_tiny(scene):
     preds = inference.main([
         "--image_folder", folder, "--camera_folder", str(scene / "cameras"),
         "--depth_folder", str(scene / "depth"), "--tiny", "--no_viewer", "--target_size", "56",
+        "--device", "cpu",
     ])
     assert preds["depth"].shape == (3, 28, 28, 1)
     assert preds["world_points_from_depth"].shape == (3, 28, 28, 3)
@@ -131,20 +132,34 @@ def test_inference_cli_tiny(scene):
             inference.main(["--image_folder", folder, "--tiny", *extra])
     with pytest.raises(SystemExit, match="multiple of the 14-px patch"):
         inference.main(["--image_folder", folder, "--tiny", "--no_viewer", "--target_size", "50"])
+    # the default device is cuda, and there is none here: a clear error, no
+    # quiet fall-back to the CPU
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        inference.main(["--image_folder", folder, "--tiny", "--no_viewer", "--target_size", "56"])
+
+
+def test_model_defaults_to_cuda():
+    """OmniVGGT() builds on cuda, so without a CUDA device it raises; the
+    CPU runs only when asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default builds there")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TM.OmniVGGT(TC.tiny_test_config())
+    assert next(TM.OmniVGGT(TC.tiny_test_config(), device="cpu").parameters()).device.type == "cpu"
 
 
 def test_from_safetensors_is_strict(tmp_path):
     from safetensors.torch import save_file
 
     cfg = TC.tiny_test_config()
-    src = TM.OmniVGGT(cfg, seed=3)
+    src = TM.OmniVGGT(cfg, device="cpu", seed=3)
     sd = {k: v.contiguous() for k, v in src.state_dict().items()}
     # reference buffers the loader drops, as the JAX converter does
     sd["aggregator._resnet_mean"] = torch.zeros(1, 3, 1, 1)
     sd["aggregator.rope.freq"] = torch.zeros(4)
     path = tmp_path / "model.safetensors"
     save_file(sd, str(path))
-    model = TM.OmniVGGT.from_safetensors(str(path), cfg)
+    model = TM.OmniVGGT.from_safetensors(str(path), cfg, device="cpu")
     for (n, a), b in zip(src.state_dict().items(), model.state_dict().values()):
         assert torch.equal(a, b), n
     assert model.config.bounded_attn_logits
@@ -153,10 +168,10 @@ def test_from_safetensors_is_strict(tmp_path):
                 {**sd, "aggregator.unexpected": torch.zeros(1)}):
         save_file(bad, str(path))
         with pytest.raises(RuntimeError):
-            TM.OmniVGGT.from_safetensors(str(path), cfg)
+            TM.OmniVGGT.from_safetensors(str(path), cfg, device="cpu")
 
     # q-norm weights that break the logit bound turn the fixed-max softmax off
     sd2 = dict(sd)
     sd2["aggregator.frame_blocks.0.attn.q_norm.weight"] = sd2["aggregator.frame_blocks.0.attn.q_norm.weight"] * 100
     save_file(sd2, str(path))
-    assert not TM.OmniVGGT.from_safetensors(str(path), cfg).config.bounded_attn_logits
+    assert not TM.OmniVGGT.from_safetensors(str(path), cfg, device="cpu").config.bounded_attn_logits

@@ -193,7 +193,7 @@ def test_cast_trunk_params_matches_jax(tiny):
     Each port tensor's is-bf16 flag goes through the strict converter onto
     the JAX tree's structure and is held against the JAX cast's dtypes."""
     jcfg, tcfg, params, _ = tiny
-    model = cast_trunk_params(TM.OmniVGGT(tcfg, seed=0))
+    model = cast_trunk_params(TM.OmniVGGT(tcfg, device="cpu", seed=0))
     flags = {
         k: np.full(v.shape, float(v.dtype == torch.bfloat16), np.float32)
         for k, v in model.state_dict().items()
@@ -210,7 +210,7 @@ def test_init_weights_is_seeded():
     weights, another seed other weights; LayerScale, LayerNorm and the
     zero-initialised adapters take their fixed values."""
     cfg = TC.tiny_test_config()
-    a, b, c = (TM.OmniVGGT(cfg, seed=s) for s in (0, 0, 1))
+    a, b, c = (TM.OmniVGGT(cfg, device="cpu", seed=s) for s in (0, 0, 1))
     for (n, x), y, z in zip(a.state_dict().items(), b.state_dict().values(), c.state_dict().values()):
         assert torch.equal(x, y), n
     assert not torch.equal(a.aggregator.frame_blocks[0].attn.qkv.weight,
@@ -225,6 +225,6 @@ def test_init_weights_is_seeded():
 
 def test_unported_modes_raise():
     with pytest.raises(NotImplementedError):
-        TM.OmniVGGT(dataclasses.replace(TC.tiny_test_config(), trunk_quant="int8"))
+        TM.OmniVGGT(dataclasses.replace(TC.tiny_test_config(), trunk_quant="int8"), device="cpu")
     with pytest.raises(ValueError):
         TC.OmniVGGTConfig(attn_quant="int4")

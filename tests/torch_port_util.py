@@ -13,11 +13,18 @@ import jax.experimental.pallas as pl
 import numpy as np
 import torch
 
+import jax.numpy as jnp
+
 from omnivggt_tpu import config as JC
 from omnivggt_tpu.models import omnivggt as JM
+from omnivggt_tpu.models.aggregator import AuxInputs as JAux
+from omnivggt_tpu.train import losses as JLS
 from omnivggt_tpu_torch import config as TC
 from omnivggt_tpu_torch.checkpoint import params_from_jax
 from omnivggt_tpu_torch.models import omnivggt as TM
+from omnivggt_tpu_torch.models.aggregator import AuxInputs as TAux
+from omnivggt_tpu_torch.train import losses as TLS
+from omnivggt_tpu_torch.train import step as TTS
 
 ATOL = 5e-4  # the JAX suite's module tolerance (tests/test_models.py)
 OUTPUT_KEYS = ("pose_enc", "depth", "depth_conf", "world_points", "world_points_conf")
@@ -49,7 +56,7 @@ def tiny_pair(seed=0, **kw):
     for tiny_test_config(**kw)."""
     jcfg, tcfg = JC.tiny_test_config(**kw), TC.tiny_test_config(**kw)
     params = jax_init(JM.init, seed, jcfg)
-    model = TM.OmniVGGT(tcfg, seed=None)
+    model = TM.OmniVGGT(tcfg, device="cpu", seed=None)
     model.load_state_dict(params_from_jax(params, tcfg), strict=True)
     return jcfg, tcfg, params, model.eval()
 
@@ -90,3 +97,71 @@ def assert_outputs_close(out_j, out_t, atol=ATOL, rtol=1e-4):
         a, b = np.asarray(out_j[key]), out_t[key].detach().numpy()
         assert a.shape == b.shape, (key, a.shape, b.shape)
         np.testing.assert_allclose(b, a, atol=atol, rtol=rtol, err_msg=key)
+
+
+# training helpers (tests/test_torch_train*.py)
+
+HW = 28
+
+
+def train_batch(S=2, seed=0):
+    """A numpy training batch (B=1) with GT for every frame, and modality
+    masks: camera GT kept on frame 0, depth on every frame."""
+    rng = np.random.default_rng(seed)
+    ex, K = random_cameras(rng, 1, S)
+    return {
+        "images": rng.uniform(size=(1, S, HW, HW, 3)).astype(np.float32),
+        "extrinsics": ex,
+        "intrinsics": K,
+        "depth": rng.uniform(0.5, 5.0, size=(1, S, HW, HW, 1)).astype(np.float32),
+        "depth_valid": (rng.uniform(size=(1, S, HW, HW)) > 0.1).astype(np.float32),
+        "world_points": rng.normal(size=(1, S, HW, HW, 3)).astype(np.float32),
+        "camera_mask": np.array([True] + [False] * (S - 1)),
+        "depth_mask": np.array([True] * S),
+    }
+
+
+def tbatch(batch):
+    return TTS.batch_to_device(batch, "cpu")
+
+
+def grads_of(model):
+    return {n: (p.grad if p.grad is not None else torch.zeros_like(p)).clone()
+            for n, p in model.named_parameters()}
+
+
+def assert_trees_close(port: dict, ref: dict, rel: float, floor: float = 0.0):
+    """Each leaf within rel x max|reference leaf| (+ floor)."""
+    assert port.keys() == ref.keys()
+    for name, a in port.items():
+        b = ref[name].numpy()
+        atol = rel * float(np.abs(b).max()) + floor
+        np.testing.assert_allclose(a.detach().numpy(), b, rtol=0, atol=atol, err_msg=name)
+
+
+def jax_loss_grads(params, jcfg, batch, attn_impl, remat=False):
+    aux = JAux(**{k: jnp.asarray(batch[k]) for k in ("extrinsics", "intrinsics", "depth")},
+               depth_valid=jnp.asarray(batch["depth_valid"]),
+               camera_mask=jnp.asarray(batch["camera_mask"]),
+               depth_mask=jnp.asarray(batch["depth_mask"]))
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+
+    def loss(p):
+        preds = JM.apply(p, jb["images"], jcfg, aux, attn_impl=attn_impl, remat=remat,
+                         pad_tokens=False)
+        return JLS.total_loss(preds, jb, (HW, HW))["total"]
+
+    value, grads = jax.jit(jax.value_and_grad(loss))(params)
+    return float(value), to_np(grads)
+
+
+def port_loss_grads(model, tcfg, batch, attn_impl, **kw):
+    tb = tbatch(batch)
+    aux = TAux(extrinsics=tb["extrinsics"], intrinsics=tb["intrinsics"], depth=tb["depth"],
+               depth_valid=tb["depth_valid"], camera_mask=tb["camera_mask"],
+               depth_mask=tb["depth_mask"])
+    model.zero_grad(set_to_none=True)
+    preds = TM.apply(model, tb["images"], tcfg, aux, attn_impl=attn_impl, pad_tokens=False, **kw)
+    loss = TLS.total_loss(preds, tb, (HW, HW))["total"]
+    loss.backward()
+    return loss.item(), grads_of(model)
