@@ -41,9 +41,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
      kernels against attn_impl="plain": loss relative difference <= 1e-2
      and trunk gradient cosine >= 1 - 1e-5, a limit that the same step
      with either planted fault in the backward must break.
+  7. serving kernels (run before 5): the head-major kernel's int8 form and
+     the streaming kernel (bf16 and int8) at the global-attention shape
+     with a static key axis and a dynamic valid prefix, the 3x3 convolution
+     kernel at the DPT heads' shape (fp32 and bf16, ReLU on and off, one
+     ragged channels-last case), each against its plain version with one
+     planted fault that must fail; every quantiser's int8 grid on the card
+     equal to the CPU's; the layout probes;
+  8. serving, after 5 on the same model: a bucketed InferenceSession
+     (buckets 4 and 8) under attn_quant = trunk_quant = int8, bf16 heads,
+     tanh GELU and the head-conv kernel answers requests of 3, 5 and 8
+     frames (exact launch counts; the padded request against an exact-mode
+     session under the serving gate; the quantisers' grids unmoved by the
+     padded rows); the same with the stream flag on; the Batcher (two
+     scenes in one B=2 forward) and POST /infer on a local port, each held
+     to the single request's answer (same_answer: a limit that the other
+     scene's answer breaks); request latencies under each config, the
+     quantisation passes' share, one profiled request;
+  9. ladder: certify_fast_modes on the same weights, every rung's readings,
+     the config returned, and what the ladder without the quantising rungs
+     (from_safetensors' default) returns.
 Bounds (bound_ms) are the larger of the bytes each kernel must move over
-3.35 TB/s and its matrix-product FLOPs over 989 TFLOP/s (bf16 dense), the
-H100 SXM's published peaks. The line before the last is the kernels' JSON
+3.35 TB/s and its matrix-product operations over the H100 SXM's published
+peak for their type: 989 TFLOP/s bf16 dense, 1,979 TOP/s int8, 67 TFLOP/s
+fp32 outside the tensor cores. The line before the last is the kernels' JSON
 summary; the last line is {"ok": true, "device": {...}}.
 
 Matmul precision: the heads run fp32, and both TF32 switches are off
@@ -54,11 +75,16 @@ package's reference-parity heads.
 
 from __future__ import annotations
 
+import dataclasses
+import io
 import json
+import socket
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import urllib.request
 from collections import defaultdict
 
 import numpy as np
@@ -73,22 +99,33 @@ POSE_TOL = REL_TOL = 2e-2  # the JAX package's serving gate (_probe_failures)
 # script): the limit 1e-5 sits between the sound reading and the faults
 LOSS_REL_TOL, GRAD_COS_MIN = 1e-2, 1 - 1e-5
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: bf16 dense, HBM
+PEAK_INT8, PEAK_FP32 = 1979e12, 67e12  # int8 dense; fp32 outside the tensor cores
+P_TOKENS = 1374  # tokens per frame at 518 px: 37 * 37 patches + 5 special tokens
 REPLACES = {
     "flash_attention": "omnivggt_tpu/ops/pallas/flash_attention.py:60",
     "flash_attention_packed": "omnivggt_tpu/ops/pallas/flash_attention.py:764",
     "flash_attention_bwd_dq": "omnivggt_tpu/ops/pallas/flash_attention.py:461",
     "flash_attention_bwd_dkv": "omnivggt_tpu/ops/pallas/flash_attention.py:493",
+    "flash_attention_int8": "omnivggt_tpu/ops/pallas/flash_attention.py:60",
+    "flash_attention_packed_stream": "omnivggt_tpu/ops/pallas/flash_attention.py:1034",
+    "conv3x3_folded": "omnivggt_tpu/ops/pallas/conv3x3.py:99",
+    "layout_probes": "tools/probe_mosaic_layouts.py:37",
 }
 SOURCES = {
     "flash_attention": "omnivggt_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_packed": "omnivggt_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_bwd_dq": "omnivggt_tpu_torch/csrc/flash_attention_bwd.cu",
     "flash_attention_bwd_dkv": "omnivggt_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_int8": "omnivggt_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_packed_stream": "omnivggt_tpu_torch/csrc/flash_attention.cu",
+    "conv3x3_folded": "omnivggt_tpu_torch/csrc/conv3x3.cu",
+    "layout_probes": "omnivggt_tpu_torch/csrc/layout_probes.cu",
 }
 # kernel families of the profiled device time, first match wins
 FAMILIES = (
     ("flash_fwd_head_major", ("flash_fwd_head_major",)),
-    ("flash_fwd_packed", ("flash_fwd_packed",)),
+    ("flash_fwd_token_major", ("flash_fwd_token_major",)),
+    ("conv3x3 kernel", ("conv3x3_bf16", "conv3x3_fp32")),
     ("flash_bwd_dq", ("flash_bwd_dq",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv",)),
     ("cuDNN convolutions (fwd, dgrad, wgrad)",
@@ -162,9 +199,13 @@ def profile_breakdown(label, run):
         print(f"  | {fam} | {counts[fam]} | {ms:.2f} ms | {ms / total * 100:.1f}% |")
 
 
-def bound(flops, nbytes):
-    """(least ms the card could take, "operations" or "bytes")."""
-    by_ops, by_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops, nbytes, int8_ops=0, fp32_flops=0):
+    """(least ms the card could take, "operations" or "bytes"): bf16
+    matrix-product flops, int8 matrix-product operations and fp32 flops,
+    each over its own peak and added, against the bytes over the memory
+    rate."""
+    by_ops = (flops / PEAK_FLOPS + int8_ops / PEAK_INT8 + fp32_flops / PEAK_FP32) * 1e3
+    by_bytes = nbytes / PEAK_BYTES * 1e3
     return (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
 
 
@@ -435,6 +476,8 @@ def train_phase(FK, cfg, dev, card):
         "flash_attention_packed": 2 * depth + dino,
         "flash_attention_bwd_dq": 2 * depth + dino,
         "flash_attention_bwd_dkv": 2 * depth + dino,
+        "flash_attention_int8": 0,
+        "flash_attention_packed_stream": 0,
     }
     print(f"main path launches per train step: {launches} (expected {expect})")
     if launches != expect:
@@ -511,6 +554,572 @@ def train_phase(FK, cfg, dev, card):
     return launches
 
 
+def new_results():
+    return {"errs": [], "ms": [], "plain_ms": [], "bound": [], "library_ms": []}
+
+
+def check_serving_attention(FK, dev):
+    """The head-major kernel's int8 form and the streaming kernel (bf16 and
+    int8 forms) at the global-attention shape, a static key axis and a
+    dynamic valid prefix, each against its plain version; the quantisers'
+    int8 grids; one planted fault per form."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    B, N, H, D = shape = (1, S * P_TOKENS, 16, 64)
+    # q scaled per head from 2 to 8: the softmax is peaked (the output is of
+    # v's size, so a wrong score shows) and the heads' dequantising scalars
+    # differ (so one head's scalar used for all shows)
+    head_scale = torch.linspace(2.0, 8.0, H, device=dev)[None, None, :, None]
+    q = (torch.randn(shape, generator=gen, device=dev) * head_scale).to(torch.bfloat16)
+    k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+    kv_dyn = torch.tensor(5 * P_TOKENS, dtype=torch.int32, device=dev)
+    # as for the bf16 kernels: P rounded to bf16 and the output rounded to
+    # bf16, each within 2^-8 max|v|; the int8 forms share their plain
+    # version's integer scores exactly, so nothing is added
+    tol = 2.0**-7 * v.float().abs().max().item()
+    results = {"flash_attention_int8": new_results(),
+               "flash_attention_packed_stream": new_results()}
+
+    for valid in (None, kv_dyn):
+        for fn in (FK.quant_per_head, FK.quant_token_major):
+            on_card = fn(q, valid)
+            on_cpu = fn(q.cpu(), None if valid is None else valid.cpu())
+            same = all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu))
+            print(f"quantiser {fn.__name__} valid={None if valid is None else int(valid)}: "
+                  f"int8 values and scales on the card equal to the CPU's: {same}")
+            if not same:
+                raise AssertionError(f"{fn.__name__} gives another int8 grid on the card")
+    k_card, k_cpu = FK.quant_k_token_major(k), FK.quant_k_token_major(k.cpu())
+    if not all(torch.equal(a.cpu(), b) for a, b in zip(k_card, k_cpu)):
+        raise AssertionError("quant_k_token_major gives another int8 grid on the card")
+    print("quantiser quant_k_token_major: int8 values and scales equal to the CPU's: True")
+    from omnivggt_tpu_torch.ops import layers as TL
+
+    rows, weight = q.reshape(-1, H * D)[:4096], k.reshape(-1, H * D)[:1024]
+    for fn, x in ((TL._quantise_rows, rows), (TL._quantise_weight, weight)):
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(fn(x), fn(x.cpu())))
+        print(f"quantiser {fn.__name__} {tuple(x.shape)}: equal to the CPU's: {same}")
+        if not same:
+            raise AssertionError(f"{fn.__name__} gives another int8 grid on the card")
+
+    def err_to(out, ref):
+        return (out.float() - ref).abs().max().item()
+
+    for label, kv in (("static", None), ("dynamic kv_valid 5 of 8 frames", kv_dyn)):
+        nk = N if kv is None else int(kv)
+        f = [x.float() for x in (q, k, v)]
+        exact = FK.attention_plain(*f, kv, True)
+        ref_hm = FK.attention_plain_int8(*f, kv, True)
+        ref_st = FK.attention_stream_plain(*f, kv, True)
+        del f
+
+        # head-major int8
+        out = FK.flash_attention(q, k, v, kv, True, qk_int8=True)
+        q8, q_scale = FK.quant_per_head(q, kv)
+        k8, k_scale = FK.quant_per_head(k, kv)
+        c = q_scale * k_scale * D**-0.5
+        c_head0 = c[:, :1].expand(B, H).contiguous()
+        bad = FK._launch_fwd(FK.flash_attention_int8, q8, k8, v, kv, True, FK.MODE_HEAD_MAJOR,
+                             qk=FK.SCORES_INT8, c=c_head0)
+        torch.cuda.synchronize()
+        checks = [("flash_attention_int8", "head-major int8", err_to(out, ref_hm),
+                   err_to(out, exact), err_to(bad, ref_hm), "c of head 0 for every head")]
+        del q8, k8, out, bad
+
+        # stream, bf16 form; fault: the last key tile skipped
+        out = FK.flash_attention_packed_stream(q, k, v, kv)
+        bad = FK.flash_attention_packed_stream(q, k, v, (nk - 1) // 64 * 64)
+        torch.cuda.synchronize()
+        checks.append(("flash_attention_packed_stream", "stream bf16", err_to(out, exact),
+                       err_to(out, exact), err_to(bad, exact), "last key tile skipped"))
+
+        # stream, int8 form, and the q grid made inside the kernel
+        q8_out = torch.empty(shape, dtype=torch.int8, device=dev)
+        out = FK._stream_int8(q, k, v, kv, None, q8_out=q8_out)
+        q8_plain, q_scale, q_inv = FK.quant_token_major(q, kv)
+        k8, k_scale, _ = FK.quant_token_major(k, kv)
+        c = q_scale * k_scale * D**-0.5
+        bad = FK._launch_fwd(FK.flash_attention_packed_stream, q, k8, v, kv, True, FK.MODE_TOKEN_MAJOR,
+                             qk=FK.SCORES_INT8_Q_IN, c=c[:, :1].expand(B, H).contiguous(),
+                             qinv=q_inv)
+        torch.cuda.synchronize()
+        grid_equal = torch.equal(q8_out, q8_plain)
+        print(f"stream int8 [{label}]: the q grid made in the kernel equals quant_token_major's "
+              f"int8 values: {grid_equal}")
+        if not grid_equal:
+            raise AssertionError("the streaming kernel quantises q to another grid")
+        checks.append(("flash_attention_packed_stream", "stream int8", err_to(out, ref_st),
+                       err_to(out, exact), err_to(bad, ref_st), "c of head 0 for every head"))
+        del q8_out, q8_plain, k8, out, bad, exact, ref_hm, ref_st
+        torch.cuda.empty_cache()
+
+        runs = {
+            "head-major int8": (
+                lambda: FK.flash_attention(q, k, v, kv, True, qk_int8=True),
+                lambda: FK.attention_plain_int8(q, k, v, kv, True),
+                lambda: (FK.quant_per_head(q, kv), FK.quant_per_head(k, kv))),
+            "stream bf16": (
+                lambda: FK.flash_attention_packed_stream(q, k, v, kv),
+                lambda: FK.attention_stream_plain(q, k, v, kv), None),
+            "stream int8": (
+                lambda: FK.flash_attention_packed_stream(q, k, v, kv, qk_int8=True),
+                lambda: FK.attention_stream_plain(q, k, v, kv, True),
+                lambda: (FK._abs_max_per_head(q, kv), FK.quant_token_major(k, kv))),
+        }
+        lib_ms = sdpa_ms(q, k, v, None if kv is None else nk)
+        io_bytes = 2 * B * H * D * (2 * N + 2 * nk)  # bf16 q, k, v read, o written once
+        for name, form, err, to_exact, fault_err, fault in checks:
+            kernel, plain, quant = runs[form]
+            ms, plain_ms = median_ms(kernel, 20), median_ms(plain, 3)
+            quant_ms = median_ms(quant, 10) if quant else 0.0
+            qk_ops = 2 * B * H * N * nk * D
+            bnd = (bound(2 * qk_ops, io_bytes) if form == "stream bf16"
+                   else bound(qk_ops, io_bytes, int8_ops=qk_ops))
+            print(
+                f"kernel {name} [{form}, {label}] q{shape}: max_abs_err {err:.3e} tol {tol:.3e} "
+                f"(2^-7 max|v|, against the plain version on the same grid); to exact attention "
+                f"{to_exact:.3e} (reported); planted fault ({fault}) {fault_err:.3e} (must exceed "
+                f"tol) | wrapper {ms:.3f} ms of which the quantisation passes (plain torch ops) "
+                f"{quant_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+                f"sdpa {lib_ms:.3f} ms"
+            )
+            if not (np.isfinite(err) and err <= tol):
+                raise AssertionError(f"{name} [{form}, {label}] disagrees with its plain version")
+            if not fault_err > tol:
+                raise AssertionError(f"{name} [{form}, {label}]: the planted fault passes the check")
+            r = results[name]
+            r["errs"].append(err)
+            r["ms"].append(ms)
+            r["plain_ms"].append(plain_ms)
+            r["bound"].append(bnd)
+            r["library_ms"].append(lib_ms)
+    return results
+
+
+def check_conv(CK, dev):
+    """The 3x3 convolution kernel against F.conv2d in fp32 from the same
+    inputs, entry by entry: the flagship's output_conv2[0] shape in fp32 and
+    bf16, with and without the ReLU, and one ragged channels-last case."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    result = new_results()
+    # (B, cin, cout, H, W, channels_last, timed)
+    cases = [(8, 128, 32, IMG, IMG, False, True), (1, 20, 24, 37, 45, True, False)]
+    for B, cin, cout, H, W, channels_last, timed in cases:
+        conv = torch.nn.Conv2d(cin, cout, 3, padding=1).to(dev)
+        x32 = torch.randn((B, cin, H, W), generator=gen, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            if channels_last:
+                x = x.contiguous(memory_format=torch.channels_last)
+            w = conv.weight.detach().to(dtype)
+            with torch.no_grad():
+                pre = F.conv2d(x.float(), w.float(), conv.bias, padding=1)
+                mag = F.conv2d(x.float().abs(), w.float().abs(), conv.bias.abs(), padding=1)
+            # both sides add 9 cin products and the bias in fp32 in their own
+            # order: each within (9 cin + 1) 2^-24 of the sum of magnitudes;
+            # the bf16 kernel also rounds its output to bf16 (2^-8 of it).
+            # The ReLU is 1-Lipschitz, so the bound holds behind it too
+            tol = mag.mul_(2 * (9 * cin + 1) * 2.0**-24)
+            if dtype == torch.bfloat16:
+                tol += 2.0**-8 * pre.abs()
+            layout = "channels_last" if channels_last else "NCHW"
+            for relu in (False, True):
+                ref = F.relu(pre) if relu else pre
+                with torch.no_grad():
+                    out = CK.conv3x3_folded(conv, x, relu)
+                    bad = CK._launch(conv, x, relu, drop_halo_column=True)
+                torch.cuda.synchronize()
+                err = (out.float() - ref).abs()
+                ratio = (err / tol).max().item()
+                fault_ratio = ((bad.float() - ref).abs() / tol).max().item()
+                max_err = err.max().item()
+                del err, bad
+                line = (f"kernel conv3x3_folded [{B}x{cin}->{cout} {H}x{W} {layout} "
+                        f"{str(dtype).split('.')[-1]} relu={relu}]: max_abs_err {max_err:.3e}, "
+                        f"worst err/tol {ratio:.3f} (tol per entry: 2 (9 cin + 1) 2^-24 "
+                        f"conv(|x|, |w|) for both sides' fp32 sums"
+                        + (", + 2^-8 |ref| for the bf16 output" if dtype == torch.bfloat16 else "")
+                        + f"); planted fault (left halo column left out) err/tol {fault_ratio:.3g}")
+                if timed:
+                    with torch.no_grad():
+                        ms = median_ms(lambda: CK.conv3x3_folded(conv, x, relu), 10)
+                        plain_ms = median_ms(lambda: CK.conv3x3_plain(conv, x, relu), 10)
+                        lib_ms = median_ms(lambda: F.conv2d(x, w, conv.bias.to(dtype), padding=1), 10)
+                        line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv2d "
+                                 f"{lib_ms:.3f} ms")
+                        if dtype == torch.float32:
+                            torch.backends.cudnn.allow_tf32 = True
+                            tf32_ms = median_ms(
+                                lambda: F.conv2d(x, w, conv.bias, padding=1), 10)
+                            torch.backends.cudnn.allow_tf32 = False
+                            line += f" (TF32 off; {tf32_ms:.3f} ms with TF32 on)"
+                    flops = 2 * 9 * cin * cout * B * H * W
+                    nbytes = x.element_size() * (x.numel() + out.numel() + w.numel())
+                    bnd = (bound(0, nbytes, fp32_flops=flops) if dtype == torch.float32
+                           else bound(flops, nbytes))
+                    line += f", bound {bnd[0]:.4f} ms ({bnd[1]})"
+                    if relu:  # the heads call it with the ReLU fused
+                        result["ms"].append(ms)
+                        result["plain_ms"].append(plain_ms)
+                        result["bound"].append(bnd)
+                        result["library_ms"].append(lib_ms)
+                print(line)
+                if not (np.isfinite(ratio) and ratio <= 1.0):
+                    raise AssertionError("conv3x3_folded disagrees with its plain version")
+                if W > 32 and not fault_ratio > 1.0:
+                    raise AssertionError("conv3x3_folded: the planted fault passes the check")
+                result["errs"].append(max_err)
+                del out, ref
+            del pre, tol, x
+            torch.cuda.empty_cache()
+    return {"conv3x3_folded": result}
+
+
+def probes_phase():
+    """The layout probes (kernel 9); a FAIL fails the run."""
+    from omnivggt_tpu_torch.tools import probe_layouts as PL
+
+    stats = {}
+    before = PL._launch.launches
+    if not PL.run(stats=stats):
+        raise AssertionError("a layout probe failed")
+    result = new_results()
+    result["errs"].append(stats["max_abs_err"])
+    result["ms"].append(stats["ms"])
+    result["plain_ms"].append(stats["plain_ms"])
+    # each probe's plain version is one torch call of the same array function
+    # (torch.roll, a slice, torch.cat, a matmul), so it is the library time too
+    result["library_ms"].append(stats["plain_ms"])
+    result["bound"].append(bound(0, stats["bytes"]))
+    return {"layout_probes": result}, PL._launch.launches - before
+
+
+def request_inputs(n, seed, with_gt):
+    """One serving request as numpy arrays: n frames at 518 px, with GT
+    cameras for 4 frames and depth for 2 when with_gt."""
+    rng = np.random.default_rng(seed)
+    req = {"images": rng.uniform(size=(n, IMG, IMG, 3)).astype(np.float32)}
+    if with_gt:
+        extr = np.tile(np.eye(3, 4, dtype=np.float32), (n, 1, 1))
+        extr[:, :3, 3] = rng.normal(size=(n, 3))
+        intr = np.tile(np.diag([500.0, 500.0, 1.0]).astype(np.float32), (n, 1, 1))
+        intr[:, 0, 2] = intr[:, 1, 2] = IMG / 2
+        req.update(
+            extrinsics=extr, intrinsics=intr,
+            depth=(1.0 + 4.0 * rng.uniform(size=(n, IMG, IMG, 1))).astype(np.float32),
+            mask=np.ones((n, IMG, IMG), np.float32),
+            camera_gt_index=[0, 1, 2, 3], depth_gt_index=[0, 1],
+        )
+    return req
+
+
+def serving_phase(model, cfg, dev, card, FK, CK):
+    """The serving path at full width: a bucketed InferenceSession on the
+    flagship under the int8 fast modes, the stream flag, the Batcher and
+    the HTTP endpoint. Returns the kernels' launches of one S=8 request
+    under config (a), with the stream kernel's from config (b)."""
+    from omnivggt_tpu_torch import serving as TS
+    from omnivggt_tpu_torch.models import dpt_head as TDH
+    from omnivggt_tpu_torch.models import omnivggt as TM
+    from omnivggt_tpu_torch.ops import attention as TA
+    from omnivggt_tpu_torch.ops import layers as TL
+
+    depth, dino = cfg.aggregator.depth, cfg.aggregator.backbone.depth
+    cfg_a = dataclasses.replace(cfg, attn_quant="int8", trunk_quant="int8",
+                                head_dtype="bfloat16", approx_gelu=True)
+
+    def counts():
+        return {**FK.launches(), "conv3x3_folded": CK.conv3x3_folded.launches}
+
+    def reset():
+        FK.reset_launches()
+        CK.conv3x3_folded.launches = 0
+
+    def expect(int8, stream, conv):
+        return {"flash_attention": 0, "flash_attention_packed": depth + dino,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "flash_attention_int8": int8, "flash_attention_packed_stream": stream,
+                "conv3x3_folded": conv}
+
+    def check_output(out, n):
+        shapes = {"pose_enc": (n, 9), "depth": (n, IMG, IMG, 1), "depth_conf": (n, IMG, IMG),
+                  "world_points": (n, IMG, IMG, 3), "world_points_conf": (n, IMG, IMG)}
+        for key, shape in shapes.items():
+            if out[key].shape != shape or not np.isfinite(out[key]).all():
+                raise AssertionError(f"served {key}: shape {out[key].shape} (want {shape}) or non-finite")
+
+    def gate(label, ref, fast, enforce=True):
+        readings = TM._probe_readings(ref, fast)
+        print(f"serving gate [{label}]: " + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+              + f" (limits pose {POSE_TOL:g}, median relative {REL_TOL:g})")
+        if enforce and TM._probe_failures(ref, fast, POSE_TOL, REL_TOL):
+            raise AssertionError(f"serving gate failed: {label}")
+
+    def same_answer(label, ref, got):
+        """A batched or HTTP answer against session.infer's answer to the
+        same request: the same forward but for the batch width, so it must
+        be the same answer, not merely one inside the serving gate (on
+        random weights two different scenes are inside it). On top of that
+        gate, the dense outputs' median relative error must stay under
+        2^-10, a quarter of a bf16 step of the bf16 heads, so more than
+        half of their entries are equal: the other scene's answer is
+        outside that. pose_enc keeps the serving gate's limit: it is the
+        bf16 camera head's own output, a wider batch may pick another
+        cuBLAS kernel and move an entry by a bf16 step (1.6e-2 in [2, 4)),
+        and on random weights it does not tell two scenes apart anyway."""
+        gate(label, ref, got)
+        dense = {k: v for k, v in TM._probe_readings(ref, got).items() if k != "pose_enc_maxabs"}
+        print(f"same-answer gate [{label}]: " + ", ".join(f"{k} {v:.3e}" for k, v in dense.items())
+              + f" (limit 2^-10 = {2.0**-10:.3e})")
+        for key, val in dense.items():
+            if not val <= 2.0**-10:
+                raise AssertionError(f"{label}: {key} {val:.3e} is not the single request's answer")
+
+    model.config = cfg_a
+    TDH._PALLAS_HEAD_CONVS = True
+    bucketed = TS.InferenceSession(model, buckets=(4, 8))
+    exact = TS.InferenceSession(model, buckets=(4, 8), pad_mode="exact")
+    reqs = {3: request_inputs(3, 11, False), 5: request_inputs(5, 12, False),
+            8: request_inputs(8, 13, True)}
+    print(f"serving config (a): attn_quant={cfg_a.attn_quant} trunk_quant={cfg_a.trunk_quant} "
+          f"head_dtype={cfg_a.head_dtype} approx_gelu={cfg_a.approx_gelu}, head-conv kernel on, "
+          f"stream off; buckets {bucketed.buckets}")
+    bucketed.infer(**reqs[8])  # warm-up
+
+    # the first int8 attention of the padded S=5 run: its q, with the padded
+    # frames' rows, for the quantiser's exclusion check below
+    captured = []
+    quant_per_head = FK.quant_per_head
+
+    def spy(x, valid=None):
+        if not captured:
+            captured.append((x, valid))
+        return quant_per_head(x, valid)
+
+    outs, launches = {}, {}
+    for n in (3, 5, 8):
+        FK.quant_per_head = spy if n == 5 else quant_per_head
+        reset()
+        try:
+            outs[n] = bucketed.infer(**reqs[n])
+        finally:
+            FK.quant_per_head = quant_per_head
+        launches[n] = counts()
+        check_output(outs[n], n)
+        print(f"served S={n} through bucket {bucketed._bucket(n)}: launches {launches[n]}")
+        if launches[n] != expect(depth, 0, 2):
+            raise AssertionError(f"serving launches {launches[n]}, expected {expect(depth, 0, 2)}")
+    print(f"forwards served (bucket, H, W, camera GT, depth GT, masked, batch): "
+          f"{sorted(bucketed._served)}")
+
+    x, valid = captured[0]
+    rows = int(valid)
+    padded_grid = quant_per_head(x, valid)[0][:, :rows]
+    alone_grid = quant_per_head(x[:, :rows])[0]
+    same = torch.equal(padded_grid, alone_grid)
+    print(f"quantiser on the padded S=5 run's first global q {tuple(x.shape)}, valid {rows}: "
+          f"max |q| of the real rows {x[:, :rows].abs().max().item():.3f}, of the padded rows "
+          f"{x[:, rows:].abs().max().item():.3f}; int8 grid of the real rows equal to "
+          f"quantising them alone: {same}")
+    if not same:
+        raise AssertionError("padded frames move the real frames' int8 grid")
+    del captured, padded_grid, alone_grid, x
+
+    out_exact = exact.infer(**reqs[5])
+    gate("padded S=5 vs an exact-mode session", out_exact, outs[5])
+
+    # (b) the stream flag
+    TA._STREAM_ATTN = True
+    try:
+        for n in (8, 5):
+            reset()
+            out_s = bucketed.infer(**reqs[n])
+            got = counts()
+            check_output(out_s, n)
+            print(f"stream flag on, served S={n}: launches {got}")
+            if got != expect(0, depth, 2):
+                raise AssertionError(f"stream launches {got}, expected {expect(0, depth, 2)}")
+            if n == 8:
+                stream_launches = got
+            gate(f"stream flag on vs off, S={n}", outs[n], out_s, enforce=False)
+        stream_ms = statistics.median(timed_requests(bucketed, reqs[8], 3))
+    finally:
+        TA._STREAM_ATTN = False
+
+    # (c) the Batcher: two concurrent same-key requests, one B=2 forward
+    # (two different scenes: each must get its own answer back)
+    pair = [reqs[3], request_inputs(3, 21, False)]
+    singles = [outs[3], bucketed.infer(**pair[1])]
+    batcher = TS.Batcher(bucketed, max_batch=2, window_ms=3000.0)
+    results = {}
+    threads = [threading.Thread(target=lambda i=i: results.update(
+        {i: batcher.submit(timeout=600.0, **pair[i])})) for i in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    batcher.close()
+    key = (4, IMG, IMG, False, False, True, 2)
+    print(f"batcher: {len(results)} results, forwards at batch 2: {bucketed._served.get(key, 0)}")
+    if len(results) != 2 or bucketed._served.get(key, 0) != 1:
+        raise AssertionError("the Batcher did not coalesce two requests into one B=2 forward")
+    for i, single in enumerate(singles):
+        check_output(results[i], 3)
+        same_answer(f"batched B=2 vs single, scene {i}", single, results[i])
+        # the limit tells scenes apart: the other scene's answer is outside it
+        other = TM._probe_readings(singles[1 - i], results[i])
+        print(f"  scene {i} against the other scene's single answer: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in other.items()))
+        if not max(other["depth_medrel"], other["points_medrel"]) > 2.0**-10:
+            raise AssertionError("the same-answer limit does not tell two scenes apart")
+
+    # (d) the HTTP endpoint
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        port = sock.getsockname()[1]
+    httpd, _ = TS.serve(bucketed, port=port, background=True)
+    try:
+        body = io.BytesIO()
+        np.savez(body, images=reqs[3]["images"])
+        post = urllib.request.Request(f"http://localhost:{port}/infer", data=body.getvalue(),
+                                      method="POST")
+        with urllib.request.urlopen(post, timeout=600) as resp:
+            status, seconds = resp.status, resp.headers["X-Inference-Seconds"]
+            got = dict(np.load(io.BytesIO(resp.read())))
+        with urllib.request.urlopen(f"http://localhost:{port}/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    check_output(got, 3)
+    same_answer("POST /infer vs session.infer, S=3", outs[3], got)
+    print(f"http: POST /infer {status} in {seconds} s; GET /healthz {health['status']} "
+          f"backend {health['backend']} ready {health['ready']}")
+    if status != 200 or health["status"] != "ok":
+        raise AssertionError("the HTTP endpoint did not answer")
+
+    # request latencies (numpy in, numpy out) and peak memory
+    def latency(label):
+        torch.cuda.reset_peak_memory_stats()
+        times = timed_requests(bucketed, reqs[8], 3)
+        ms = statistics.median(times)
+        print(f"serving request S=8 {IMG}px [{label}]: {ms:.2f} ms median of {len(times)} "
+              f"({', '.join(f'{t:.2f}' for t in times)}), {8 / ms * 1e3:.3f} views/s, peak memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB; card {card}")
+        return ms
+
+    a_ms = latency("(a) int8 trunk and scores, bf16 heads, tanh GELU, conv kernel")
+    print(f"serving request S=8 {IMG}px [(b) the same with the stream flag on]: {stream_ms:.2f} ms "
+          f"median of 3, {8 / stream_ms * 1e3:.3f} views/s; card {card}")
+    TDH._PALLAS_HEAD_CONVS = False
+    latency("(a) without the conv kernel (library convolution)")
+    # W8A8 head convolutions: each the sum over its taps of one int8 product
+    model.config = dataclasses.replace(cfg_a, head_quant="int8")
+    check_output(bucketed.infer(**reqs[8]), 8)
+    latency("(a) + head_quant=int8 (library int8 products per tap)")
+    model.config = cfg_a
+    TDH._PALLAS_HEAD_CONVS = True
+
+    # the quantisation passes' share: CUDA events around every quantiser call
+    spans = []
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            spans.append((fn.__name__, start, end))
+            return out
+        return wrapper
+
+    patched = [(FK, "quant_per_head"), (TL, "_quantise_weight"), (TL, "_quantise_rows")]
+    originals = [getattr(mod, name) for mod, name in patched]
+    for (mod, name), fn in zip(patched, originals):
+        setattr(mod, name, timed(fn))
+    try:
+        bucketed.infer(**reqs[8])
+        torch.cuda.synchronize()
+    finally:
+        for (mod, name), fn in zip(patched, originals):
+            setattr(mod, name, fn)
+    by_name = defaultdict(float)
+    for name, start, end in spans:
+        by_name[name] += start.elapsed_time(end)
+    total = sum(by_name.values())
+    print(f"quantisation passes in one S=8 request under (a): {total:.2f} ms of {a_ms:.2f} "
+          f"({total / a_ms * 100:.1f}%): "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(by_name.items())))
+
+    profile_breakdown("serving request S=8, config (a)", lambda: bucketed.infer(**reqs[8]))
+
+    TDH._PALLAS_HEAD_CONVS = False
+    # what a checkpoint load certifies by default (no quantising rung)
+    model.config = dataclasses.replace(cfg, head_dtype="bfloat16", approx_gelu=True)
+    latency("bf16 heads, tanh GELU, nothing quantised (the default load's top rung)")
+    TDH._S2D_HEAD_CONVS = True
+    try:
+        latency("the same with the space-to-depth head convolutions (OMNIVGGT_S2D_HEAD_CONVS)")
+    finally:
+        TDH._S2D_HEAD_CONVS = False
+    model.config = cfg
+    default_ms = latency("default config: bf16 scores, fp32 heads, erf GELU")
+    print(f"serving request S=8: (a) {a_ms:.2f} ms, (b) {stream_ms:.2f} ms, default "
+          f"{default_ms:.2f} ms")
+    launches[8]["flash_attention_packed_stream"] = stream_launches["flash_attention_packed_stream"]
+    return launches[8]
+
+
+def timed_requests(session, req, n):
+    session.infer(**req)
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        session.infer(**req)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def ladder_phase(model, cfg):
+    """certify_fast_modes on the flagship's seeded weights: every rung's
+    readings and the config returned. A finding, whatever wins."""
+    from omnivggt_tpu_torch.models import omnivggt as TM
+
+    for hw in (140, 448):
+        ref = TM._probe_outputs(model, cfg, hw, 2)
+        if not all(np.isfinite(v).all() for v in ref.values()):
+            raise AssertionError(f"the ladder's reference forward at {hw} px is not finite")
+    report = []
+    t0 = time.perf_counter()
+    best = TM.certify_fast_modes(model, cfg, report=report)
+    print(f"ladder: {len(report)} gates in {time.perf_counter() - t0:.2f} s at probe sizes "
+          f"140 and 448 px, S=2, gates pose {POSE_TOL:g} / median relative {REL_TOL:g}")
+    for r in report:
+        print(f"  rung [{r['stage']} @ {r['hw']} px] head_dtype={r['head_dtype']} "
+              f"approx_gelu={r['approx_gelu']} trunk_quant={r['trunk_quant']} "
+              f"attn_quant={r['attn_quant']} head_quant={r['head_quant']}: "
+              f"pose_enc_maxabs {r['pose_enc_maxabs']:.3e}, depth_medrel {r['depth_medrel']:.3e}, "
+              f"points_medrel {r['points_medrel']:.3e}, depth_conf_medrel "
+              f"{r['depth_conf_medrel']:.3e} -> {'pass' if r['passed'] else 'refused'}")
+    print(f"ladder returns: head_dtype={best.head_dtype} approx_gelu={best.approx_gelu} "
+          f"trunk_quant={best.trunk_quant} attn_quant={best.attn_quant} "
+          f"head_quant={best.head_quant}")
+    cut_report = []
+    cut = TM.certify_fast_modes(model, cfg, report=cut_report, quantising_rungs=False)
+    print(f"ladder without the quantising rungs (from_safetensors' default), {len(cut_report)} "
+          f"gates: " + "; ".join(
+              f"[{r['stage']} @ {r['hw']} px] approx_gelu={r['approx_gelu']} pose "
+              f"{r['pose_enc_maxabs']:.3e} depth {r['depth_medrel']:.3e} points "
+              f"{r['points_medrel']:.3e} conf {r['depth_conf_medrel']:.3e} "
+              f"{'pass' if r['passed'] else 'refused'}" for r in cut_report)
+          + f" -> head_dtype={cut.head_dtype} approx_gelu={cut.approx_gelu} "
+          f"trunk_quant={cut.trunk_quant} attn_quant={cut.attn_quant} head_quant={cut.head_quant}")
+
+
 def synthetic_inputs(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -531,11 +1140,6 @@ def synthetic_inputs(dev):
     )
 
 
-def med_rel(a, b, floor=1e-3):
-    a, b = a.double(), b.double()
-    return ((a - b).abs() / (a.abs() + floor)).median().item()
-
-
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device: chip_smoke.py runs the port on the GPU only", file=sys.stderr)
@@ -552,22 +1156,32 @@ def main() -> int:
     from omnivggt_tpu_torch.checkpoint import cast_trunk_params
     from omnivggt_tpu_torch.config import OmniVGGTConfig
     from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
+    from omnivggt_tpu_torch.ops.kernels import build
+    from omnivggt_tpu_torch.ops.kernels import conv3x3 as CK
     from omnivggt_tpu_torch.ops.kernels import flash_attention as FK
+    from omnivggt_tpu_torch.tools import probe_layouts as PL
     from omnivggt_tpu_torch.utils.geometry import (
         pose_encoding_to_extri_intri,
         unproject_depth_map_to_point_map,
     )
 
     t0 = time.perf_counter()
-    log = FK.load_kernels()
+    logs = build.build_all(FK.SOURCES + (CK.SOURCE, PL.SOURCE))  # every nvcc at once
+    FK.load_kernels()
+    CK.load_kernels()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, one process per source: "
           f"{', '.join(sorted(set(SOURCES.values())))})")
-    for line in log.splitlines():  # ptxas: registers and shared memory per kernel
-        if "Compiling entry" in line or "Used" in line:
-            print("  " + line.strip())
+    for log in logs.values():
+        for line in log.splitlines():  # ptxas: registers and shared memory per kernel
+            if "Compiling entry" in line or "Used" in line:
+                print("  " + line.strip()[:160])
 
     kernel_results = check_kernels(FK, dev)
     kernel_results.update(check_backward(FK, dev))
+    kernel_results.update(check_serving_attention(FK, dev))
+    kernel_results.update(check_conv(CK, dev))
+    probe_results, probe_launches = probes_phase()
+    kernel_results.update(probe_results)
 
     cfg = OmniVGGTConfig()
     t0 = time.perf_counter()
@@ -601,7 +1215,8 @@ def main() -> int:
         print(f"main path launches per forward: {launches}")
         expect = {"flash_attention": cfg.aggregator.depth,
                   "flash_attention_packed": cfg.aggregator.depth + cfg.aggregator.backbone.depth,
-                  "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+                  "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                  "flash_attention_int8": 0, "flash_attention_packed_stream": 0}
         if launches != expect:
             raise AssertionError(f"kernel launches {launches}, expected {expect}")
 
@@ -638,43 +1253,51 @@ def main() -> int:
         torch.cuda.synchronize()
         plain_fwd_ms = (time.perf_counter() - t0) * 1e3
 
-    gate = {
-        "pose_enc_maxabs": ((preds["pose_enc"] - ref["pose_enc"]).abs().max().item(), POSE_TOL),
-        "depth_medrel": (med_rel(ref["depth"], preds["depth"]), REL_TOL),
-        "points_medrel": (med_rel(ref["world_points"], preds["world_points"]), REL_TOL),
-        "depth_conf_medrel": (med_rel(ref["depth_conf"], preds["depth_conf"]), REL_TOL),
-    }
-    for key, (val, tol) in gate.items():
+    # the JAX package's serving gate, as the port's ladder applies it
+    from omnivggt_tpu_torch.models import omnivggt as TM
+
+    ref_np, fast_np = ({k: out[k].float().cpu().numpy() for k in TM.PROBE_KEYS}
+                       for out in (ref, preds))
+    for key, val in TM._probe_readings(ref_np, fast_np).items():
+        tol = POSE_TOL if key == "pose_enc_maxabs" else REL_TOL
         print(f"gate kernel path vs plain path: {key} {val:.3e} (limit {tol:g})")
-    failed = [k for k, (val, tol) in gate.items() if not (np.isfinite(val) and val <= tol)]
+    failed = TM._probe_failures(ref_np, fast_np, POSE_TOL, REL_TOL)
     if failed:
         raise AssertionError(f"kernel path fails the serving gate: {failed}")
+    del ref_np, fast_np
 
     print(
         f"flagship forward S={S} {IMG}px: {fwd_ms:.2f} ms median of {len(times)} "
         f"({S / fwd_ms * 1e3:.3f} views/s), plain-attention forward {plain_fwd_ms:.2f} ms, "
         f"peak memory {peak_gb:.3f} GB; card {card}"
     )
-    del model, preds, ref, inputs
+    del preds, ref, inputs
+    torch.cuda.empty_cache()
+    serving_launches = serving_phase(model, cfg, dev, card, FK, CK)
+    ladder_phase(model, cfg)
+    del model
     torch.cuda.empty_cache()
     train_launches = train_phase(FK, cfg, dev, card)
+    # a kernel's launches on the main path that runs it: one train step, or
+    # one served S=8 request for the serving kernels; the probes' in their phase
+    path_launches = {**serving_launches, "layout_probes": probe_launches}
+    path_launches.update({k: n for k, n in train_launches.items() if n})
 
     # per kernel: the largest error over its checked variants; the mean
-    # time, bound and library time over the variants the flagship runs;
-    # the launches of one train step (the forward path's are printed above)
+    # time, bound and library time over the variants the flagship runs
     summary = {"kernels": [
         {
             "name": name,
             "route": "cuda",
             "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": train_launches[name],
+            "launches": path_launches[name],
             "max_abs_err": max(r["errs"]),
             "ms": statistics.mean(r["ms"]),
             "plain_ms": statistics.mean(r["plain_ms"]),
             "bound_ms": statistics.mean(b for b, _ in r["bound"]),
             "bound_by": r["bound"][0][1],
-            "library_ms": statistics.mean(r["library_ms"]),
+            "library_ms": statistics.mean(r["library_ms"]) if r["library_ms"] else None,
         }
         for name, r in kernel_results.items()
     ]}

@@ -2,9 +2,7 @@
 
 Counterpart of omnivggt_tpu/config.py: the same fields and defaults, so a
 configuration means the same model in both packages; dtypes resolve to
-torch dtypes. The quantisation fields (`trunk_quant`, `attn_quant`,
-`head_quant`) keep their validation but only "none" is implemented in this
-package so far; the model raises on any other value.
+torch dtypes.
 """
 
 from __future__ import annotations

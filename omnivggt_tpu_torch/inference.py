@@ -45,12 +45,19 @@ def parse_args(argv=None):
     p.add_argument("--compress_trunk", action="store_true",
                    help="store trunk weights in bf16 (checkpoint.cast_trunk_params)")
     p.add_argument("--fp32_heads", action="store_true",
-                   help="fp32 dense heads and exact-erf GELU; this package "
-                        "runs no other modes yet, so this is the default")
+                   help="reference-parity mode: fp32 dense heads and exact-erf "
+                        "GELU, no certification ladder at checkpoint load")
+    p.add_argument("--quantising_rungs", action="store_true",
+                   help="let the ladder also certify the modes that quantise "
+                        "(W8A8 trunk, int8 attention scores, W8A8 head convs). "
+                        "Off by default: on an H100 each of them runs slower "
+                        "than the bf16 default so far (PERF.md)")
     p.add_argument("--no_int8_trunk", action="store_true",
-                   help="accepted for compatibility; this package has no int8 trunk yet")
+                   help="with --quantising_rungs: drop the W8A8 int8 trunk from "
+                        "the certified modes (bf16 heads / tanh GELU stay)")
     p.add_argument("--no_attn_quant", action="store_true",
-                   help="accepted for compatibility; this package has no int8 attention yet")
+                   help="with --quantising_rungs: run the attention scores in "
+                        "bf16 even where the ladder certified int8 scores")
     return p.parse_args(argv)
 
 
@@ -86,7 +93,25 @@ def main(argv=None):
         model = OmniVGGT(tiny_test_config(), device=device)
     elif args.checkpoint:
         print(f"loading checkpoint {args.checkpoint} ...")
-        model = OmniVGGT.from_safetensors(args.checkpoint, device=device)
+        # "auto" certifies the fast serving modes on a probe batch and keeps
+        # the verdict next to the checkpoint (models/omnivggt.certify_fast_modes)
+        model = OmniVGGT.from_safetensors(
+            args.checkpoint, device=device,
+            head_dtype="float32" if args.fp32_heads else "auto",
+            quantising_rungs=args.quantising_rungs,
+        )
+        overrides = {}
+        if args.no_int8_trunk and model.config.trunk_quant != "none":
+            overrides["trunk_quant"] = "none"
+        if args.no_attn_quant and model.config.attn_quant != "none":
+            overrides["attn_quant"] = "none"
+        if overrides:
+            import dataclasses
+
+            model.config = dataclasses.replace(model.config, **overrides)
+        print(f"head dtype: {model.config.head_dtype}  approx_gelu: {model.config.approx_gelu}  "
+              f"trunk_quant: {model.config.trunk_quant}  attn_quant: {model.config.attn_quant}  "
+              f"head_quant: {model.config.head_quant}")
     else:
         print(
             "WARNING: no --checkpoint given — running with random weights "

@@ -172,8 +172,18 @@ def apply(
     remat: bool = False,
     train_generator: Optional[torch.Generator] = None,
     drop_path_rate: float = 0.0,
+    num_valid_frames=None,
+    int8_dense=False,
+    int8_qk: bool = False,
 ):
     """Run the aggregator on (B, S, H, W, 3) channels-last images in [0, 1].
+
+    num_valid_frames: an int or an integer scalar tensor on the images'
+    device; frames at or past it are shape padding (bucketed serving) and
+    are masked out of the global-attention keys, a valid prefix of
+    num_valid_frames * P tokens since the token order is frame-major. Frame
+    attention and the patch embedder are per frame and need no mask.
+    int8_dense (a trunk_quant mode) and int8_qk: the blocks' fast modes.
 
     remat: recompute each layer pair in the backward instead of keeping its
     activations (only while grad is enabled). train_generator: a generator
@@ -201,7 +211,7 @@ def apply(
     else:
         patch_tokens = dinov2.apply(
             p.patch_embed, imgs, attn_impl=attn_impl, approx_gelu=approx_gelu,
-            pad_tokens=pad_tokens,
+            int8_dense=int8_dense, int8_qk=int8_qk, pad_tokens=pad_tokens,
         )
 
     camera_token = _expand_special_token(p.camera_token, B, S, dtype)
@@ -245,7 +255,9 @@ def apply(
     if tuple(cfg.aa_order) not in (("frame", "global"), ("global", "frame")):
         raise NotImplementedError(f"aa_order {cfg.aa_order}")
     kw = dict(ln_eps=cfg.ln_eps, attn_impl=attn_impl, allow_bounded=allow_bounded,
-              approx_gelu=approx_gelu)
+              approx_gelu=approx_gelu, int8_dense=int8_dense, int8_qk=int8_qk)
+    # a device scalar stays on the device: no host sync per layer
+    kv_valid_tokens = None if num_valid_frames is None else num_valid_frames * P
 
     dp_rate = drop_path_rate if train_generator is not None else 0.0
     if dp_rate > 0.0:
@@ -271,7 +283,7 @@ def apply(
 
     def global_step(tokens, i, keep):
         g = L.block(p.global_blocks[i], tokens.reshape(B, S * P, C), cos_g, sin_g, **kw,
-                    drop_path_rate=dp_rate, drop_path_keep=keep)
+                    drop_path_rate=dp_rate, drop_path_keep=keep, kv_valid=kv_valid_tokens)
         return g.reshape(B, S, P, C)
 
     def pair(tokens, i, keep_first, keep_second):

@@ -37,9 +37,12 @@ class CameraHead(nn.Module):
         self.pose_branch = L.Mlp(D, D // 2, cfg.target_dim)
 
 
-def apply(p: CameraHead, tokens_last: torch.Tensor) -> torch.Tensor:
+def apply(p: CameraHead, tokens_last: torch.Tensor, num_valid_frames=None) -> torch.Tensor:
     """tokens_last: (B, S, P, 2C) final aggregated layer, in the head dtype.
-    Returns (num_iterations, B, S, 9) fp32 activated pose encodings."""
+    num_valid_frames: an int or an integer scalar tensor; the trunk attends
+    across the S frame tokens, so padded frames (bucketed serving) are
+    masked out of its keys. Returns (num_iterations, B, S, 9) fp32 activated
+    pose encodings."""
     cfg = p.cfg
     pose_tokens = L.layer_norm(p.token_norm, tokens_last[:, :, 0], cfg.ln_eps)
     B, S, _ = pose_tokens.shape
@@ -57,7 +60,7 @@ def apply(p: CameraHead, tokens_last: torch.Tensor) -> torch.Tensor:
         shift, scale, gate = mod.chunk(3, dim=-1)
         x = gate * (normed * (1 + scale) + shift) + pose_tokens
         for blk in p.trunk:
-            x = L.block(blk, x, ln_eps=cfg.ln_eps)
+            x = L.block(blk, x, ln_eps=cfg.ln_eps, kv_valid=num_valid_frames)
         h = L.linear(p.pose_branch.fc1, L.layer_norm(p.trunk_norm, x, cfg.ln_eps))
         delta = L.linear(p.pose_branch.fc2, F.gelu(h))
         pred = delta if it == 0 else pred + delta

@@ -82,10 +82,13 @@ def apply(
     *,
     attn_impl: str = "auto",
     approx_gelu: bool = False,
+    int8_dense=False,
+    int8_qk: bool = False,
     pad_tokens: bool = True,
 ) -> torch.Tensor:
     """(B, H, W, 3) channels-last, mean/std-normalised images -> (B, gh*gw, D)
-    final-LayerNorm'd patch tokens, in the images' dtype."""
+    final-LayerNorm'd patch tokens, in the images' dtype. int8_dense (a
+    trunk_quant mode) and int8_qk are the blocks' fast modes."""
     cfg = p.cfg
     B, H, W, _ = images.shape
     gh, gw = H // cfg.patch_size, W // cfg.patch_size
@@ -110,6 +113,7 @@ def apply(
         x = L.block(
             blk, x, ln_eps=cfg.ln_eps, attn_impl=attn_impl,
             kv_valid=n_valid if n_pad else None, approx_gelu=approx_gelu,
+            int8_dense=int8_dense, int8_qk=int8_qk,
         )
     x = L.layer_norm(p.norm, x, cfg.ln_eps)
     return x[:, 1 + cfg.num_register_tokens : n_valid]

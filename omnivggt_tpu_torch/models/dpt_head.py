@@ -8,9 +8,22 @@ resolution, the output convs, and the activation split into values and
 confidence. Runs NCHW inside (nn.Conv2d / nn.ConvTranspose2d) and returns
 channels-last like the JAX package. Frames go through in chunks of
 `frames_chunk_size`, which bounds the full-resolution activation memory.
+
+The 3x3 convolutions with a narrow output (`_conv3x3`) can go two other
+ways, both off by default as in the JAX package, whose TPU measurements had
+them lose end to end (this card's own times are in PERF.md):
+OMNIVGGT_PALLAS_HEAD_CONVS=1 routes the eligible ones (on the flagship only
+`output_conv2[0]`, 128 -> 32 at full resolution) through the hand-written
+Hopper kernel (ops/kernels/conv3x3.py; the variable keeps the JAX package's
+name; forward only, so a model whose weights require grad must be called
+under no_grad or inference_mode with it), and OMNIVGGT_S2D_HEAD_CONVS=1 through the space-to-depth rewrite
+(`L.conv2d_s2d`). `quant="int8"` (config.head_quant) runs the heavy 3x3
+convolutions W8A8 and keeps the library convolution for them.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +32,26 @@ from torch import nn
 from omnivggt_tpu_torch.config import DPTHeadConfig
 from omnivggt_tpu_torch.ops import layers as L
 from omnivggt_tpu_torch.ops.activations import activate_head
+from omnivggt_tpu_torch.ops.kernels.conv3x3 import conv3x3_eligible, conv3x3_folded
+
+_S2D_HEAD_CONVS = os.environ.get("OMNIVGGT_S2D_HEAD_CONVS", "0") != "0"
+_PALLAS_HEAD_CONVS = os.environ.get("OMNIVGGT_PALLAS_HEAD_CONVS", "0") != "0"
+
+
+def _conv3x3(p, x, int8=False, relu=False):
+    """3x3 pad-1 convolution (+ the ReLU that follows it, fused into the
+    kernel when that path is taken), through the Hopper kernel or the
+    space-to-depth rewrite when enabled and eligible. The flag alone
+    decides, as in the JAX package: `conv3x3_folded` launches its kernel on
+    a CUDA tensor (and raises when a gradient is asked of it, being forward
+    only) and computes its plain version on a CPU tensor."""
+    if _PALLAS_HEAD_CONVS and not int8 and conv3x3_eligible(x.shape, p.weight.shape):
+        return conv3x3_folded(p, x, relu=relu)
+    if _S2D_HEAD_CONVS and x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0:
+        y = L.conv2d_s2d(p, x, int8=int8)
+    else:
+        y = L.conv2d(p, x, padding=1, int8=int8)
+    return F.relu(y) if relu else y
 
 
 class ResidualConvUnit(nn.Module):
@@ -58,8 +91,6 @@ class DPTHead(nn.Module):
 
     def __init__(self, cfg: DPTHeadConfig):
         super().__init__()
-        if cfg.quant != "none":
-            raise NotImplementedError(f"head quant {cfg.quant!r} is not ported")
         self.cfg = cfg
         oc = cfg.out_channels
         self.norm = nn.LayerNorm(cfg.dim_in)
@@ -73,18 +104,18 @@ class DPTHead(nn.Module):
         self.scratch = Scratch(cfg)
 
 
-def _rcu(p: ResidualConvUnit, x):
+def _rcu(p: ResidualConvUnit, x, int8=False):
     # the reference's ResidualConvUnit applies an in-place ReLU to its
     # input, so its skip connection adds relu(x), not x
     xr = F.relu(x)
-    out = L.conv2d(p.conv2, F.relu(L.conv2d(p.conv1, xr, padding=1)), padding=1)
-    return out + xr
+    out = F.relu(L.conv2d(p.conv1, xr, padding=1, int8=int8))
+    return L.conv2d(p.conv2, out, padding=1, int8=int8) + xr
 
 
-def _fusion(p: FeatureFusionBlock, x, residual=None, size=None):
+def _fusion(p: FeatureFusionBlock, x, residual=None, size=None, int8=False):
     if residual is not None:
-        x = x + _rcu(p.resConfUnit1, residual)
-    x = _rcu(p.resConfUnit2, x)
+        x = x + _rcu(p.resConfUnit1, residual, int8=int8)
+    x = _rcu(p.resConfUnit2, x, int8=int8)
     if size is None:
         size = (x.shape[-2] * 2, x.shape[-1] * 2)
     x = F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=True)
@@ -120,10 +151,13 @@ def _apply_pos_embed(x: torch.Tensor, img_w: int, img_h: int, ratio: float = 0.1
     return x + (_uv_pos_embed(w, h, c, img_w / img_h, x.device) * ratio).to(x.dtype)
 
 
-def _forward_frames(p: DPTHead, tokens4, patch_hw, img_hw):
+def _forward_frames(p: DPTHead, tokens4, patch_hw, img_hw, quant="none"):
     """tokens4: 4 levels of (K, n_patch, dim_in) tokens -> (K, C_out, H, W)
-    raw head output (or features when cfg.feature_only)."""
+    raw head output (or features when cfg.feature_only). quant="int8" runs
+    the heavy 3x3 convolutions W8A8; the 1x1 projections, the resize
+    layers and the last regression convolution stay in the head dtype."""
     cfg = p.cfg
+    q8 = quant == "int8"
     ph, pw = patch_hw
     H, W = img_hw
     levels = []
@@ -144,13 +178,14 @@ def _forward_frames(p: DPTHead, tokens4, patch_hw, img_hw):
 
     s = p.scratch
     l1, l2, l3, l4 = [
-        L.conv2d(getattr(s, f"layer{i + 1}_rn"), levels[i], padding=1) for i in range(4)
+        L.conv2d(getattr(s, f"layer{i + 1}_rn"), levels[i], padding=1, int8=q8)
+        for i in range(4)
     ]
-    out = _fusion(s.refinenet4, l4, size=l3.shape[-2:])
-    out = _fusion(s.refinenet3, out, l3, size=l2.shape[-2:])
-    out = _fusion(s.refinenet2, out, l2, size=l1.shape[-2:])
-    out = _fusion(s.refinenet1, out, l1)
-    out = L.conv2d(s.output_conv1, out, padding=1)
+    out = _fusion(s.refinenet4, l4, size=l3.shape[-2:], int8=q8)
+    out = _fusion(s.refinenet3, out, l3, size=l2.shape[-2:], int8=q8)
+    out = _fusion(s.refinenet2, out, l2, size=l1.shape[-2:], int8=q8)
+    out = _fusion(s.refinenet1, out, l1, int8=q8)
+    out = _conv3x3(s.output_conv1, out, int8=q8)
 
     target = (int(ph * cfg.patch_size / cfg.down_ratio), int(pw * cfg.patch_size / cfg.down_ratio))
     out = F.interpolate(out, size=target, mode="bilinear", align_corners=True)
@@ -158,11 +193,12 @@ def _forward_frames(p: DPTHead, tokens4, patch_hw, img_hw):
         out = _apply_pos_embed(out, W, H)
     if cfg.feature_only:
         return out
-    out = F.relu(L.conv2d(s.output_conv2[0], out, padding=1))
+    out = _conv3x3(s.output_conv2[0], out, int8=q8, relu=True)
     return L.conv2d(s.output_conv2[2], out)
 
 
-def apply(p: DPTHead, layers, images_hw, patch_start_idx: int, dtype=torch.float32):
+def apply(p: DPTHead, layers, images_hw, patch_start_idx: int, dtype=torch.float32,
+          quant=None):
     """Run the head on the 4 aggregated layers it reads.
 
     Args:
@@ -170,12 +206,17 @@ def apply(p: DPTHead, layers, images_hw, patch_start_idx: int, dtype=torch.float
             bf16 trunk's); each chunk of frames is cast to `dtype` right
             before its compute.
         images_hw: (H, W) of the input images.
+        dtype: the head's compute dtype (config.head_dtype); the activation
+            split always runs in fp32.
+        quant: "none" or "int8" (config.head_quant); None takes the head's
+            own cfg.quant.
 
     Returns:
         (preds (B, S, H, W, output_dim - 1), conf (B, S, H, W)), fp32; or
         features (B, S, H', W', features) when cfg.feature_only.
     """
     cfg = p.cfg
+    quant = cfg.quant if quant is None else quant
     H, W = images_hw
     ph, pw = H // cfg.patch_size, W // cfg.patch_size
     B, S = layers[0].shape[:2]
@@ -183,7 +224,7 @@ def apply(p: DPTHead, layers, images_hw, patch_start_idx: int, dtype=torch.float
     K = B * S
     chunk = min(cfg.frames_chunk_size or K, K)
     outs = [
-        _forward_frames(p, [t[i : i + chunk].to(dtype) for t in toks], (ph, pw), (H, W))
+        _forward_frames(p, [t[i : i + chunk].to(dtype) for t in toks], (ph, pw), (H, W), quant)
         for i in range(0, K, chunk)
     ]
     out = torch.cat(outs).permute(0, 2, 3, 1)  # (K, H, W, C) channels-last

@@ -7,10 +7,19 @@ depth_conf (B,S,H,W), world_points (B,S,H,W,3), world_points_conf
 (B,S,H,W), images (B,S,H,W,3). The aggregator trunk runs in
 `config.compute_dtype` (bf16 by default) and the heads in
 `config.head_dtype` (fp32); only the layers the heads read are kept.
+
+The fast serving modes (`trunk_quant`, `attn_quant`, `head_quant`,
+`approx_gelu`, bf16 heads) are certified per checkpoint by
+`certify_fast_modes`, which walks the same ladder with the same gates
+(`_probe_failures`) as the JAX package; `from_safetensors(head_dtype="auto")`
+runs it and keeps the verdict next to the checkpoint
+(omnivggt_tpu_torch/certification.py).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import logging
 import math
 from typing import List, Optional, Sequence
 
@@ -90,8 +99,6 @@ class OmniVGGT(nn.Module):
         loading a checkpoint)."""
         super().__init__()
         self.config = cfg = config or OmniVGGTConfig()
-        if cfg.trunk_quant != "none" or cfg.attn_quant != "none":
-            raise NotImplementedError("int8 trunk / attention modes are not ported")
         with torch.device("meta"):
             self.aggregator = agg.Aggregator(cfg.aggregator)
             self.camera_head = chead.CameraHead(cfg.camera_head)
@@ -105,20 +112,41 @@ class OmniVGGT(nn.Module):
             init_weights(self, gen)
 
     @classmethod
-    def from_safetensors(cls, path: str, config: Optional[OmniVGGTConfig] = None, device=None):
+    def from_safetensors(cls, path: str, config: Optional[OmniVGGTConfig] = None, device=None,
+                         head_dtype: str = "auto", quantising_rungs: bool = False):
         """Load a reference safetensors checkpoint strictly; the fixed-max
-        softmax is turned off when the weights break its logit bound."""
-        import dataclasses
+        softmax is turned off when the weights break its logit bound.
 
+        head_dtype: "auto" (default) walks the `certify_fast_modes` ladder
+        on load and keeps the most aggressive serving mode whose probe
+        outputs stay within the gates of the reference-parity forward; the
+        verdict is kept next to the checkpoint (<path>.certified.json, keyed
+        by a content fingerprint), so a later load of the same file reads it
+        instead of probing again. "float32" / "bfloat16" force that head
+        dtype and skip the ladder.
+
+        quantising_rungs: whether the ladder may return the modes that
+        quantise (W8A8 trunk, int8 scores, W8A8 head convolutions). Off by
+        default, unlike the JAX package's load: their quantise and
+        dequantise passes are separate torch ops here, and on the H100
+        every such rung measured slower than the default config (PERF.md),
+        so a load certifies bf16 heads and the tanh GELU only. True walks
+        the JAX package's whole ladder."""
         from omnivggt_tpu_torch.checkpoint import load_safetensors
         from omnivggt_tpu_torch.utils.validation import check_bounded_logits_safe
 
         config = config or OmniVGGTConfig()
+        if head_dtype != "auto":
+            config = dataclasses.replace(config, head_dtype=head_dtype)
         model = cls(config, device=device, seed=None)
         load_safetensors(model, path)
         head_dim = config.embed_dim // config.aggregator.num_heads
         if config.bounded_attn_logits and not check_bounded_logits_safe(model, head_dim):
-            model.config = dataclasses.replace(config, bounded_attn_logits=False)
+            config = dataclasses.replace(config, bounded_attn_logits=False)
+        if head_dtype == "auto":
+            config = _certify_cached(model.eval(), config, path,
+                                     quantising_rungs=quantising_rungs)
+        model.config = config
         return model
 
     def forward(
@@ -131,6 +159,7 @@ class OmniVGGT(nn.Module):
         depth_gt_index: Optional[List[int]] = None,
         camera_gt_index: Optional[List[int]] = None,
         attn_impl: str = "auto",
+        num_valid_frames=None,
     ):
         device = next(self.parameters()).device
         images = torch.as_tensor(images, device=device)
@@ -140,7 +169,8 @@ class OmniVGGT(nn.Module):
             images.shape[1], extrinsics, intrinsics, depth, mask,
             depth_gt_index, camera_gt_index, device=device,
         )
-        return apply(self, images, self.config, aux, attn_impl=attn_impl)
+        return apply(self, images, self.config, aux, attn_impl=attn_impl,
+                     num_valid_frames=num_valid_frames)
 
 
 def apply(
@@ -153,9 +183,16 @@ def apply(
     pad_tokens: bool = True,
     remat: bool = False,
     train_generator: Optional[torch.Generator] = None,
+    num_valid_frames=None,
 ):
     """Full forward pass on (B, S, H, W, 3) (or (S, H, W, 3)) channels-last
     images in [0, 1]. Returns the prediction dict (fp32 but `images`).
+
+    num_valid_frames: an int or an integer scalar tensor on the images'
+    device; frames at or past it are shape padding (bucketed serving) and
+    are masked out of all cross-frame attention, so the real frames'
+    outputs equal the unpadded forward's. The fast modes come from cfg:
+    trunk_quant, attn_quant, head_quant, approx_gelu, head_dtype.
 
     remat: recompute each aggregator layer pair in the backward.
     train_generator: a generator on the images' device that enables the
@@ -175,9 +212,13 @@ def apply(
         remat=remat,
         train_generator=train_generator,
         drop_path_rate=cfg.aggregator.drop_path_rate,
+        num_valid_frames=num_valid_frames,
+        int8_dense=cfg.trunk_quant,
+        int8_qk=cfg.attn_quant == "int8",
     )
     pose_enc_list = chead.apply(
-        model.camera_head, layers[cfg.aggregator.depth - 1].to(cfg.heads_dtype)
+        model.camera_head, layers[cfg.aggregator.depth - 1].to(cfg.heads_dtype),
+        num_valid_frames=num_valid_frames,
     )
     predictions = {"pose_enc": pose_enc_list[-1], "pose_enc_list": pose_enc_list}
     for name, head, key in (
@@ -187,7 +228,7 @@ def apply(
         hcfg = getattr(cfg, name)
         preds, conf = dhead.apply(
             head, [layers[i] for i in hcfg.intermediate_layer_idx], (H, W),
-            patch_start_idx, dtype=cfg.heads_dtype,
+            patch_start_idx, dtype=cfg.heads_dtype, quant=cfg.head_quant,
         )
         predictions[key] = preds
         predictions[f"{key}_conf"] = conf
@@ -243,3 +284,237 @@ def make_aux(
         camera_mask=t(cam_mask),
         depth_mask=t(d_mask),
     )
+
+
+# ---------------------------------------------------------------------------
+# fast-mode certification
+# ---------------------------------------------------------------------------
+
+PROBE_KEYS = ("pose_enc", "depth", "world_points", "depth_conf")
+
+
+def _probe_batch(probe_s: int, probe_hw: int) -> np.ndarray:
+    """The deterministic probe batch, (1, probe_s, hw, hw, 3) uniform in
+    [0, 1) from a seeded CPU generator. (The JAX package draws its own with
+    its random module, whose bits PyTorch cannot reproduce; both ladders
+    compare each candidate with the same package's reference forward on
+    the same batch, so the batches need not agree.)"""
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    return torch.rand((1, probe_s, probe_hw, probe_hw, 3), generator=gen).numpy()
+
+
+@torch.no_grad()
+def _probe_outputs(model, cfg: OmniVGGTConfig, probe_hw, probe_s):
+    """Forward on the small deterministic probe batch; numpy outputs."""
+    if probe_hw is None:
+        probe_hw = min(140, cfg.img_size)
+    probe_hw -= probe_hw % cfg.patch_size
+    device = next(model.parameters()).device
+    images = torch.as_tensor(_probe_batch(probe_s, probe_hw), device=device)
+    out = apply(model, images, cfg)
+    return {k: out[k].float().cpu().numpy() for k in PROBE_KEYS}
+
+
+def _probe_readings(ref, fast) -> dict:
+    """The four gate readings between two probe-output dicts: max-abs on
+    pose_enc, median relative error on the dense outputs."""
+
+    def med_rel(a, b, floor=1e-3):
+        a = a.astype(np.float64)
+        b = b.astype(np.float64)
+        return float(np.median(np.abs(a - b) / (np.abs(a) + floor)))
+
+    return {
+        "pose_enc_maxabs": float(np.max(np.abs(ref["pose_enc"] - fast["pose_enc"]))),
+        "depth_medrel": med_rel(ref["depth"], fast["depth"]),
+        "points_medrel": med_rel(ref["world_points"], fast["world_points"]),
+        "depth_conf_medrel": med_rel(ref["depth_conf"], fast["depth_conf"]),
+    }
+
+
+def _probe_failures(ref, fast, pose_tol, rel_tol):
+    """Dict of gate violations between two probe-output dicts (empty =
+    pass). A non-finite reading fails: the breakage the ladder exists to
+    catch can surface as NaN, and NaN > tol is False."""
+    return {
+        k: v
+        for k, v in _probe_readings(ref, fast).items()
+        if not np.isfinite(v) or v > (pose_tol if k == "pose_enc_maxabs" else rel_tol)
+    }
+
+
+def certify_head_dtype(
+    model,
+    cfg: OmniVGGTConfig,
+    *,
+    probe_hw: Optional[int] = None,
+    probe_s: int = 2,
+    pose_tol: float = 2e-2,
+    rel_tol: float = 2e-2,
+) -> OmniVGGTConfig:
+    """The bf16-heads rung alone: cfg with head_dtype="bfloat16" when the
+    probe deltas against the fp32-head forward stay within the gates, else
+    cfg unchanged. Shares `_probe_outputs` and `_probe_failures` with the
+    full ladder."""
+    if cfg.head_dtype != "float32":
+        return cfg  # caller already chose; nothing to certify
+    ref = _probe_outputs(model, cfg, probe_hw, probe_s)
+    bf16_cfg = dataclasses.replace(cfg, head_dtype="bfloat16")
+    failed = _probe_failures(
+        ref, _probe_outputs(model, bf16_cfg, probe_hw, probe_s), pose_tol, rel_tol
+    )
+    if failed:
+        logging.getLogger(__name__).warning(
+            "bf16-head certification failed (%s); keeping fp32 heads",
+            ", ".join(f"{k}={v:.4g}" for k, v in failed.items()),
+        )
+        return cfg
+    return bf16_cfg
+
+
+def certify_fast_modes(
+    model,
+    cfg: OmniVGGTConfig,
+    *,
+    probe_hw: Optional[int] = None,
+    probe_s: int = 2,
+    pose_tol: float = 2e-2,
+    rel_tol: float = 2e-2,
+    final_hw: int = 448,
+    report: Optional[list] = None,
+    quantising_rungs: bool = True,
+) -> OmniVGGTConfig:
+    """Certify-then-default the fast serving modes, most aggressive first:
+
+      1. int8 trunk + bf16 heads + tanh GELU (W8A8 dense)
+      2. int8_ln trunk + bf16 heads + tanh GELU (qkv and fc1 only)
+      3. bf16 heads + tanh-GELU trunk
+      4. bf16 heads
+      5. fp32 heads + exact erf GELU (reference parity, the fallback)
+
+    The ladder, the gates and their order are the JAX package's
+    (`certify_fast_modes` there). Ladder stage at `probe_hw` (default 140
+    px): the first candidate that passes is the provisional winner. Final
+    stage at `final_hw` (default 448 px, where every attention family
+    crosses the flash dispatch length): the winner is gated again, stepping
+    down the ladder until a rung passes, else the fallback; skipped when
+    both sizes coincide. Then the winner is probed once more with
+    attn_quant="int8", and, when the int8 trunk rung won, with
+    head_quant="int8"; each upgrade is kept when the gates still pass
+    against the reference-parity forward. Runs only when the caller has
+    chosen no fast mode.
+
+    report: an optional list that receives one dict per gate evaluated
+    (stage, size, the candidate's modes, the four readings, passed).
+    quantising_rungs: False leaves out rungs 1 and 2 and both upgrades, so
+    only bf16 heads and the tanh GELU can be returned (what
+    `from_safetensors` certifies by default)."""
+    log = logging.getLogger(__name__)
+    if (cfg.head_dtype != "float32" or cfg.approx_gelu
+            or cfg.trunk_quant != "none" or cfg.attn_quant != "none"
+            or cfg.head_quant != "none"):
+        return cfg  # caller already chose; nothing to certify
+
+    def snap(hw):
+        hw = min(hw, cfg.img_size)
+        return hw - hw % cfg.patch_size
+
+    ladder_hw = snap(probe_hw if probe_hw is not None else 140)
+    fin_hw = snap(final_hw)
+    candidates = [
+        dataclasses.replace(cfg, head_dtype="bfloat16", approx_gelu=True, trunk_quant="int8"),
+        dataclasses.replace(cfg, head_dtype="bfloat16", approx_gelu=True, trunk_quant="int8_ln"),
+        dataclasses.replace(cfg, head_dtype="bfloat16", approx_gelu=True),
+        dataclasses.replace(cfg, head_dtype="bfloat16"),
+    ]
+    if not quantising_rungs:
+        candidates = [c for c in candidates if c.trunk_quant == "none"]
+
+    def gate(ref, cand, hw, stage):
+        fast = _probe_outputs(model, cand, hw, probe_s)
+        failed = _probe_failures(ref, fast, pose_tol, rel_tol)
+        if report is not None:
+            report.append({
+                "stage": stage, "hw": hw, "head_dtype": cand.head_dtype,
+                "approx_gelu": cand.approx_gelu, "trunk_quant": cand.trunk_quant,
+                "attn_quant": cand.attn_quant, "head_quant": cand.head_quant,
+                **_probe_readings(ref, fast), "passed": not failed,
+            })
+        if failed:
+            log.warning(
+                "fast-mode certification failed at %dpx (%s) for head_dtype=%s "
+                "approx_gelu=%s trunk_quant=%s attn_quant=%s head_quant=%s (%s)",
+                hw, stage, cand.head_dtype, cand.approx_gelu, cand.trunk_quant,
+                cand.attn_quant, cand.head_quant,
+                ", ".join(f"{k}={v:.4g}" for k, v in failed.items()),
+            )
+        return not failed
+
+    ref = _probe_outputs(model, cfg, ladder_hw, probe_s)
+    best, best_idx = cfg, len(candidates)
+    for i, cand in enumerate(candidates):
+        if gate(ref, cand, ladder_hw, "ladder"):
+            best, best_idx = cand, i
+            break
+
+    if fin_hw == ladder_hw:
+        ref_f = ref  # same resolution: the ladder gate is the final gate
+    else:
+        ref_f = _probe_outputs(model, cfg, fin_hw, probe_s)
+        if best is not cfg:
+            final_best = cfg
+            for cand in candidates[best_idx:]:
+                if gate(ref_f, cand, fin_hw, "final"):
+                    final_best = cand
+                    break
+            best = final_best
+
+    if not quantising_rungs:
+        return best
+    upgraded = dataclasses.replace(best, attn_quant="int8")
+    if gate(ref_f, upgraded, fin_hw, "attn_quant upgrade"):
+        best = upgraded
+    if best.trunk_quant == "int8" and best.head_quant == "none":
+        upgraded = dataclasses.replace(best, head_quant="int8")
+        if gate(ref_f, upgraded, fin_hw, "head_quant upgrade"):
+            best = upgraded
+    return best
+
+
+def certification_gates(
+    probe_hw: Optional[int] = None,
+    probe_s: int = 2,
+    pose_tol: float = 2e-2,
+    rel_tol: float = 2e-2,
+    final_hw: int = 448,
+) -> dict:
+    """The gate parameters certify_fast_modes runs with, as the dict kept
+    in (and matched against) a checkpoint certificate."""
+    return {
+        "probe_hw": probe_hw, "probe_s": probe_s, "pose_tol": pose_tol,
+        "rel_tol": rel_tol, "final_hw": final_hw,
+    }
+
+
+def _certify_cached(model, cfg: OmniVGGTConfig, ckpt_path: str, *,
+                    quantising_rungs: bool = True, **gate_kwargs) -> OmniVGGTConfig:
+    """certify_fast_modes with the verdict kept next to the checkpoint: a
+    valid certificate (matching content fingerprint, gates and base modes)
+    skips every probe forward. A ladder cut to the rungs that do not
+    quantise says so in the certificate's gates, so its verdict and the
+    whole ladder's (the JAX package's) are never taken for each other."""
+    from omnivggt_tpu_torch.certification import (
+        checkpoint_fingerprint, load_certificate, save_certificate,
+    )
+
+    gates = certification_gates(**gate_kwargs)
+    if not quantising_rungs:
+        gates["quantising_rungs"] = False
+    fp = checkpoint_fingerprint(ckpt_path)
+    cached = load_certificate(ckpt_path, cfg, gates, fingerprint=fp)
+    if cached is not None:
+        return cached
+    certified = certify_fast_modes(model, cfg, quantising_rungs=quantising_rungs, **gate_kwargs)
+    save_certificate(ckpt_path, cfg, certified, gates, fingerprint=fp)
+    return certified

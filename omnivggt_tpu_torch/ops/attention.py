@@ -8,10 +8,14 @@ Counterpart of omnivggt_tpu/ops/attention.py:
     keys at or past it with -1e30. Unlike `_attention_xla`, P @ V runs in
     fp32 (no bf16 rounding of P), as in the kernels, so the kernel path and
     this reference path round only at their outputs.
-  - "flash": the Hopper kernels (ops/kernels/flash_attention.py): the
-    token-major kernel when the key axis fits its contract
-    (Nk <= PACKED_MAX_KEYS: frame and DINOv2 attention), else the
-    head-major kernel (global attention).
+  - "flash": the Hopper kernels (ops/kernels/flash_attention.py), in the
+    JAX package's order: the token-major packed kernel when the key axis
+    fits its contract (Nk <= PACKED_MAX_KEYS, head dim 64 or 128: frame and
+    DINOv2 attention;
+    it wins over qk_int8 there, as in the JAX dispatch), else the
+    token-major streaming kernel when `stream_eligible`, else the
+    head-major kernel (global attention), each of the last two in its int8
+    form under qk_int8.
   - "auto": "flash" for CUDA tensors with N >= 1024, else "plain". The
     length split is the JAX package's; its TPU-measured row and score-byte
     thresholds are not carried over until they are measured on the H100.
@@ -19,18 +23,47 @@ Counterpart of omnivggt_tpu/ops/attention.py:
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from omnivggt_tpu_torch.ops.kernels.flash_attention import (
+    HEAD_DIMS,
     PACKED_MAX_KEYS,
     flash_attention,
     flash_attention_packed,
+    flash_attention_packed_stream,
 )
 from omnivggt_tpu_torch.ops.kernels.flash_attention import (
     attention_plain as kernel_plain,
 )
 
 FLASH_MIN_SEQ = 1024
+
+# The token-major streaming kernel for long (global-attention) key axes is
+# off by default, as in the JAX package, whose TPU measurements had it lose
+# to the head-major int8 kernel; OMNIVGGT_STREAM_ATTN=1 opts in. This
+# card's own times of both are in PERF.md.
+_STREAM_ATTN = os.environ.get("OMNIVGGT_STREAM_ATTN", "0") == "1"
+
+
+def packed_eligible(q_shape, n_keys: int) -> bool:
+    """Whether the token-major packed kernel serves this (q, k) pair: the
+    key axis fits its contract and the head dim is one it takes (the JAX
+    package's rule without its TPU-measured row threshold)."""
+    return n_keys <= PACKED_MAX_KEYS and q_shape[-1] in HEAD_DIMS
+
+
+def stream_eligible(q_shape, n_keys: int, bounded: bool) -> bool:
+    """Whether the token-major streaming kernel serves this (q, k) pair:
+    the flag is on, the softmax is bounded, the key axis is past the packed
+    kernel's contract, and D == 64 with an even head count (the JAX
+    package's contract, kept so both packages dispatch alike)."""
+    H, D = q_shape[-2], q_shape[-1]
+    return (
+        _STREAM_ATTN and bool(bounded) and n_keys > PACKED_MAX_KEYS
+        and D == 64 and H % 2 == 0
+    )
 
 
 def attention_plain(q, k, v, kv_valid=None):
@@ -52,20 +85,31 @@ def resolve_impl(q: torch.Tensor, impl: str = "auto") -> str:
 
 
 def scaled_dot_product_attention(
-    q, k, v, impl: str = "auto", kv_valid=None, bounded_logits: bool = False
+    q, k, v, impl: str = "auto", kv_valid=None, bounded_logits: bool = False,
+    qk_int8: bool = False,
 ):
     """Non-causal multi-head attention over (B, N, H, D) tensors.
 
     kv_valid: optional valid-key prefix (Python int or integer tensor).
     bounded_logits: caller-guaranteed |scores| far below 80 (qk-normed
     inputs), which lets the kernels run at a fixed softmax max; the plain
-    implementation ignores it."""
+    implementation ignores it.
+    qk_int8: int8 scores in the flash kernels that have an int8 form
+    (serving only); the plain implementation and the packed kernel ignore
+    it, as in the JAX package."""
     impl = resolve_impl(q, impl)
     if impl == "plain":
         return attention_plain(q, k, v, kv_valid)
     if impl == "flash":
-        kernel = (
-            flash_attention_packed if k.shape[1] <= PACKED_MAX_KEYS else flash_attention
-        )
-        return kernel(q, k, v, kv_valid=kv_valid, bounded_logits=bounded_logits)
+        if packed_eligible(q.shape, k.shape[1]):
+            return flash_attention_packed(
+                q, k, v, kv_valid=kv_valid, bounded_logits=bounded_logits
+            )
+        if stream_eligible(q.shape, k.shape[1], bounded_logits):
+            return flash_attention_packed_stream(q, k, v, kv_valid=kv_valid, qk_int8=qk_int8)
+        if qk_int8:
+            return flash_attention(
+                q, k, v, kv_valid=kv_valid, bounded_logits=bounded_logits, qk_int8=True
+            )
+        return flash_attention(q, k, v, kv_valid=kv_valid, bounded_logits=bounded_logits)
     raise ValueError(f"unknown attention impl: {impl}")

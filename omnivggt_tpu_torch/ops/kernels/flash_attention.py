@@ -9,6 +9,22 @@ Counterparts of the TPU kernels of omnivggt_tpu/ops/pallas/flash_attention.py:
     whole key axis per block, reached through `_flash_packed_forward` and
     `flash_attention_packed`). It serves frame and DINOv2 attention, whose
     key axis is at most `PACKED_MAX_KEYS`.
+  - `flash_attention(..., qk_int8=True)` (counted apart, as
+    `flash_attention_int8`) replaces `_flash_kernel`'s `qk_int8` form: q
+    and k are quantised per head by `quant_per_head` (`_quant_per_head`:
+    `round(x / scale)`, rows at or past `kv_valid` left out of the max-abs
+    and clipped), the scores are an exact s8 x s8 -> s32 product times the
+    per-head scalar c = q_scale * k_scale * D^-0.5. The quantisation pass
+    is plain torch ops on the tensors' device (a max-abs reduce and an
+    elementwise round), outside the kernel as on the TPU. Forward only.
+  - `flash_attention_packed_stream` replaces `_flash_packed_stream_kernel`
+    (token-major, key axis streamed, bounded softmax only, D == 64 and an
+    even head count as in `stream_eligible`). Its int8 form quantises q
+    inside the kernel as `round(q * qinv)` and takes a k quantised outside
+    by `quant_token_major` (`round(k * kinv)`): another rounding than
+    `quant_per_head`'s division, so the two int8 grids differ. Its bf16
+    form is differentiable through the head-major forward and the backward
+    kernels, as the JAX package routes it.
   - `flash_attention_bwd_dq` and `flash_attention_bwd_dkv` replace
     `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (reached through
     `_flash_backward` from every custom_vjp wrapper); the gradient of both
@@ -31,8 +47,10 @@ and whose backward is the two backward kernels; otherwise the forward
 writes no LSE and saves nothing.
 
 On CPU tensors every wrapper computes its plain version: `attention_plain`
-(materialised fp32 scores, the same clamp and the same -1e30 mask) and
-`attention_backward_plain` (`_bwd_recompute`'s math in fp32). On CUDA
+(materialised fp32 scores, the same clamp and the same -1e30 mask),
+`attention_plain_int8` and `attention_stream_plain` (the same with the
+int8 grids of the two quantisers) and `attention_backward_plain`
+(`_bwd_recompute`'s math in fp32). On CUDA
 tensors it launches the kernels of csrc/flash_attention.cu and
 csrc/flash_attention_bwd.cu, built by nvcc at first use, or raises; it
 never falls back. The kernels take bf16 with head dim 64 or 128 only, and
@@ -45,6 +63,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -71,17 +90,12 @@ def _scores(q, k, kv_valid, bounded_logits):
     return s
 
 
-def attention_plain(q, k, v, kv_valid=None, bounded_logits=False, return_lse=False):
-    """Plain PyTorch version of both forward kernels: (B, N, H, D) ->
-    (B, N, H, D) in q's dtype, from materialised fp32 scores. With
-    return_lse, also the (B, H, N) fp32 row log-sum-exp of the scores.
-
-    Differentiable by autograd (the row max is taken without a gradient,
-    which the softmax does not need)."""
-    scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()).mul_(scale)
+def _softmax_pv(s, v, kv_valid, bounded_logits, dtype, return_lse=False):
+    """The softmax of fp32 scaled scores (B, H, N, Nk), modified in place,
+    times v: masked past kv_valid, at a fixed max of 0 with the clamp when
+    bounded, else at the row max; output (B, N, H, D) in `dtype`."""
     if kv_valid is not None:
-        key = torch.arange(k.shape[1], device=q.device)
+        key = torch.arange(v.shape[1], device=v.device)
         s.masked_fill_(key >= kv_valid, NEG_INF)
     if bounded_logits:
         m = None
@@ -91,13 +105,115 @@ def attention_plain(q, k, v, kv_valid=None, bounded_logits=False, return_lse=Fal
         p = s.sub_(m).exp_()
     denom = p.sum(dim=-1)  # (B, H, N)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / denom.transpose(1, 2).unsqueeze(-1)
-    o = o.to(q.dtype)
+    o = o.to(dtype)
     if not return_lse:
         return o
     lse = denom.log()
     if m is not None:
         lse = lse + m[..., 0]
     return o, lse
+
+
+def attention_plain(q, k, v, kv_valid=None, bounded_logits=False, return_lse=False):
+    """Plain PyTorch version of both forward kernels: (B, N, H, D) ->
+    (B, N, H, D) in q's dtype, from materialised fp32 scores. With
+    return_lse, also the (B, H, N) fp32 row log-sum-exp of the scores.
+
+    Differentiable by autograd (the row max is taken without a gradient,
+    which the softmax does not need)."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()).mul_(scale)
+    return _softmax_pv(s, v, kv_valid, bounded_logits, q.dtype, return_lse)
+
+
+def _abs_max_per_head(x, valid):
+    """(B, H) fp32 max |x| over the token and channel axes of (B, N, H, D),
+    rows at or past `valid` (an int or a device scalar) left out."""
+    xa = x.float().abs()
+    if valid is not None:
+        row = torch.arange(x.shape[1], device=x.device)[None, :, None, None]
+        xa = torch.where(row < valid, xa, 0.0)
+    return xa.amax(dim=(1, 3))
+
+
+def _scale_of(amax, floor):
+    """max-abs -> the int8 step, max(amax, floor) / 127, as a true division:
+    on CUDA tensors PyTorch turns a division by a Python scalar into a
+    multiplication by its reciprocal, which can land one ulp off and move
+    the int8 grid away from the CPU's (and the JAX package's)."""
+    floored = amax.clamp_min(floor)
+    return floored / torch.full_like(floored, 127.0)
+
+
+def quant_per_head(x, valid=None):
+    """Counterpart of `_quant_per_head`: (B, N, H, D) float -> (int8 values
+    of the same shape, (B, H) fp32 scales), symmetric max-abs per head,
+    x8 = round(x / scale) (half to even). Rows at or past `valid` are left
+    out of the max-abs and clipped to +-127, so padded frames cannot move
+    the real frames' grid."""
+    scale = _scale_of(_abs_max_per_head(x, valid), 1e-30)
+    x8 = torch.round(x.float() / scale[:, None, :, None])
+    if valid is not None:
+        x8 = x8.clamp_(-127.0, 127.0)
+    return x8.to(torch.int8), scale
+
+
+def quant_token_major(x, valid=None):
+    """The stream kernel's quantiser (`_flash_packed_stream_forward`):
+    (B, N, H, D) float -> (int8 values, (B, H) fp32 scales, (B, H) fp32
+    inverse scales), x8 = round(x * (1 / scale)): a multiplication by the
+    reciprocal where `quant_per_head` divides. Rows at or past `valid` are
+    left out of the max-abs and clipped."""
+    scale = _scale_of(_abs_max_per_head(x, valid), 1e-30)
+    inv = 1.0 / scale
+    x8 = torch.round(x.float() * inv[:, None, :, None])
+    if valid is not None:
+        x8 = x8.clamp_(-127.0, 127.0)
+    return x8.to(torch.int8), scale, inv
+
+
+def quant_k_token_major(k):
+    """Counterpart of `quant_k_token_major`: (B, Nk, H, D) float ->
+    ((B, Nk, H*D) int8 token-major, (B, H) fp32 scales), the `k_quant`
+    argument of `flash_attention_packed_stream`."""
+    k8, scale, _ = quant_token_major(k)
+    return k8.reshape(k.shape[0], k.shape[1], -1), scale
+
+
+def _attention_from_int8(q8, k8, c, v, kv_valid, bounded_logits, dtype):
+    """Attention from int8 q and k and the (B, H) dequantising scalar c:
+    the integer scores are exact in fp32 (|s| <= 127^2 D < 2^24)."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q8.float(), k8.float()).mul_(c[:, :, None, None])
+    return _softmax_pv(s, v, kv_valid, bounded_logits, dtype)
+
+
+def attention_plain_int8(q, k, v, kv_valid=None, bounded_logits=False, k_quant=None):
+    """Plain PyTorch version of the head-major kernel's int8 form: q and k
+    through `quant_per_head` (k_quant: an already quantised (k8 (B, Nk, H,
+    D) int8, (B, H) scales) pair, without kv_valid), scores
+    (q8 . k8) * q_scale * k_scale * D^-0.5, then `attention_plain`'s
+    softmax and P @ V."""
+    q8, q_scale = quant_per_head(q, kv_valid)
+    k8, k_scale = quant_per_head(k, kv_valid) if k_quant is None else k_quant
+    c = q_scale * k_scale * q.shape[-1] ** -0.5
+    return _attention_from_int8(q8, k8, c, v, kv_valid, bounded_logits, q.dtype)
+
+
+def attention_stream_plain(q, k, v, kv_valid=None, qk_int8=False, k_quant=None):
+    """Plain PyTorch version of the stream kernel (bounded softmax): its
+    bf16 form is `attention_plain` at a fixed max; its int8 form takes q
+    and k through `quant_token_major` (k_quant: the pair that
+    `quant_k_token_major` returns)."""
+    if not qk_int8:
+        return attention_plain(q, k, v, kv_valid, bounded_logits=True)
+    B, _, H, D = q.shape
+    q8, q_scale, _ = quant_token_major(q, kv_valid)
+    if k_quant is None:
+        k8, k_scale, _ = quant_token_major(k, kv_valid)
+    else:
+        k8, k_scale = k_quant[0].reshape(B, -1, H, D), k_quant[1]
+    c = q_scale * k_scale * D**-0.5
+    return _attention_from_int8(q8, k8, c, v, kv_valid, True, q.dtype)
 
 
 def _backward_terms(q, k, v, o, do, lse, kv_valid, bounded_logits):
@@ -193,8 +309,18 @@ def backward_tolerance(q, k, v, o, do, lse, kv_valid=None, bounded_logits=False,
     return tuple(tols)
 
 
-@functools.lru_cache(maxsize=None)
+_BUILD_LOCK = threading.Lock()
+
+
 def _libraries():
+    """The three kernel entry points and the build log; built once, under a
+    lock (sessions call the wrappers from several threads)."""
+    with _BUILD_LOCK:
+        return _libraries_locked()
+
+
+@functools.lru_cache(maxsize=None)
+def _libraries_locked():
     logs = build.build_all(SOURCES)
     fwd_lib, _ = build.load(SOURCES[0])
     bwd_lib, _ = build.load(SOURCES[1])
@@ -202,8 +328,9 @@ def _libraries():
     strides = ctypes.POINTER(ctypes.c_longlong)
     fwd = fwd_lib.omnivggt_flash_attention_fwd
     fwd.argtypes = [
-        i32, i32, i32,          # packed, bounded, D
+        i32, i32, i32, i32,     # mode, bounded, D, qk
         ptr, ptr, ptr, ptr, ptr,  # q, k, v, o, lse
+        ptr, ptr, ptr,          # c, qinv, q8_out
         strides,                # 12 strides
         i32, i32, i32, i32,     # B, H, N, Nk
         i32, ptr,               # kv_static, kv_dynamic
@@ -242,16 +369,21 @@ def _on_cpu(*tensors) -> bool:
 def _vector_aligned(x):
     """x itself when every row starts on a 16-byte boundary (the kernel's
     vector loads), else a contiguous copy."""
+    per_vector = 16 // x.element_size()
     if (
         x.stride(-1) == 1
-        and all(s % 8 == 0 for s in x.stride()[:3])
+        and all(s % per_vector == 0 for s in x.stride()[:3])
         and x.data_ptr() % 16 == 0
     ):
         return x
     return x.contiguous()
 
 
-def _check(q, k, v, packed=False):
+MODE_HEAD_MAJOR, MODE_TOKEN_MAJOR = 0, 1  # the grid order
+SCORES_BF16, SCORES_INT8, SCORES_INT8_Q_IN = 0, 1, 2
+
+
+def _check(q, k, v, packed=False, qk=SCORES_BF16):
     """Validate what the kernels take; returns (B, N, H, D, Nk)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be (B, N, H, D)")
@@ -259,8 +391,15 @@ def _check(q, k, v, packed=False):
     Nk = k.shape[1]
     if k.shape != (B, Nk, H, D) or v.shape != k.shape:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
-        raise TypeError(f"the Hopper kernels take bfloat16, got {q.dtype}/{k.dtype}/{v.dtype}")
+    want = (
+        torch.int8 if qk == SCORES_INT8 else torch.bfloat16,
+        torch.bfloat16 if qk == SCORES_BF16 else torch.int8,
+        torch.bfloat16,
+    )
+    if (q.dtype, k.dtype, v.dtype) != want:
+        raise TypeError(
+            f"the Hopper kernels take {want} for q, k, v here, got {q.dtype}/{k.dtype}/{v.dtype}"
+        )
     if D not in HEAD_DIMS:
         raise ValueError(f"the Hopper kernels take head dim in {HEAD_DIMS}, got {D}")
     if (max(B, math.ceil(N / 64)) if packed else B * H) > _MAX_GRID_YZ:
@@ -298,25 +437,51 @@ def _raise_on(err, what):
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
 
-def _launch(q, k, v, kv_valid, bounded_logits, packed, with_lse=False):
-    """One forward kernel launch: o, or (o, lse) with_lse."""
-    B, N, H, D, Nk = _check(q, k, v, packed)
+def _launch_fwd(counter, q, k, v, kv_valid, bounded_logits, mode, with_lse=False,
+                qk=SCORES_BF16, c=None, qinv=None, q8_out=None):
+    """One forward kernel launch, counted on `counter`: o, or (o, lse)
+    with_lse. qk, c, qinv, q8_out: the int8 forms (see the source)."""
+    B, N, H, D, Nk = _check(q, k, v, mode != MODE_HEAD_MAJOR, qk)
     q, k, v = (_vector_aligned(x) for x in (q, k, v))
-    o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, N, H, D), dtype=torch.bfloat16, device=q.device)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device) if with_lse else None
     kv_static, kv_ptr, _keep = _kv_args(kv_valid, Nk, q.device)
+    scales = []
+    for x in (c, qinv):
+        if x is not None:
+            if x.shape != (B, H) or x.device != q.device:
+                raise ValueError(f"per-head scales must be (B, H) = {(B, H)} on {q.device}")
+            x = x.float().contiguous()
+        scales.append(x)
+    if q8_out is not None and (
+        q8_out.shape != q.shape or q8_out.dtype != torch.int8 or not q8_out.is_contiguous()
+        or q8_out.device != q.device
+    ):
+        raise ValueError("q8_out must be a contiguous int8 tensor shaped like q")
     fwd = _libraries()[0]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fwd(
-            int(packed), int(bool(bounded_logits)), D,
+            mode, int(bool(bounded_logits)), D, qk,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            None if lse is None else lse.data_ptr(), _strides(q, k, v, o),
+            None if lse is None else lse.data_ptr(),
+            *(None if x is None else x.data_ptr() for x in scales),
+            None if q8_out is None else q8_out.data_ptr(),
+            _strides(q, k, v, o),
             B, H, N, Nk, kv_static, kv_ptr, D ** -0.5, stream,
         )
     _raise_on(err, "flash-attention forward")
-    (flash_attention_packed if packed else flash_attention).launches += 1
+    counter.launches += 1
     return (o, lse) if with_lse else o
+
+
+def _launch(q, k, v, kv_valid, bounded_logits, packed, with_lse=False):
+    """One bf16 forward launch of the head-major or the packed kernel."""
+    counter, mode = (
+        (flash_attention_packed, MODE_TOKEN_MAJOR) if packed
+        else (flash_attention, MODE_HEAD_MAJOR)
+    )
+    return _launch_fwd(counter, q, k, v, kv_valid, bounded_logits, mode, with_lse)
 
 
 def flash_attention_bwd_dq(q, k, v, o, do, lse, kv_valid=None, bounded_logits=False):
@@ -410,20 +575,55 @@ class _FlashAttention(torch.autograd.Function):
 
 def _attend(q, k, v, kv_valid, bounded_logits, packed):
     cpu = _on_cpu(q, k, v)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    if _wants_grad(q, k, v):
         return _FlashAttention.apply(q, k, v, kv_valid, bool(bounded_logits), packed)
     if cpu:
         return attention_plain(q, k, v, kv_valid, bounded_logits)
     return _launch(q, k, v, kv_valid, bounded_logits, packed)
 
 
-def flash_attention(q, k, v, kv_valid=None, bounded_logits=False):
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(x is not None and x.requires_grad for x in tensors)
+
+
+def flash_attention(q, k, v, kv_valid=None, bounded_logits=False, qk_int8=False, k_quant=None):
     """Head-major flash attention over (B, N, H, D); any key length.
-    Counterpart of flash_attention.py::_flash_kernel."""
+    Counterpart of flash_attention.py::_flash_kernel.
+
+    qk_int8: the kernel's int8 form (`flash_attention_int8`), forward only.
+    k_quant: with qk_int8 and no kv_valid, an already quantised k as
+    (k8 (B, Nk, H, D) int8, (B, H) fp32 scales), e.g. `quant_per_head(k)`."""
+    if qk_int8:
+        return flash_attention_int8(q, k, v, kv_valid, bounded_logits, k_quant)
+    if k_quant is not None:
+        raise ValueError("k_quant requires qk_int8")
     return _attend(q, k, v, kv_valid, bounded_logits, packed=False)
 
 
 flash_attention.launches = 0
+
+
+def flash_attention_int8(q, k, v, kv_valid=None, bounded_logits=False, k_quant=None):
+    """The head-major kernel's int8 form (`_flash_kernel` with qk_int8):
+    q and k quantised per head by `quant_per_head` (plain torch ops on the
+    tensors' device), exact s8 scores times the per-head c in the kernel.
+    Serving only: no LSE and no gradient."""
+    if k_quant is not None and kv_valid is not None:
+        raise ValueError("k_quant requires qk_int8 and no kv_valid")
+    if _wants_grad(q, k, v):
+        raise ValueError("qk_int8 is a serving-only forward mode (no gradient)")
+    if _on_cpu(q, v) if k is None else _on_cpu(q, k, v):
+        return attention_plain_int8(q, k, v, kv_valid, bounded_logits, k_quant)
+    q8, q_scale = quant_per_head(q, kv_valid)
+    k8, k_scale = quant_per_head(k, kv_valid) if k_quant is None else k_quant
+    c = q_scale * k_scale * q.shape[-1] ** -0.5
+    return _launch_fwd(
+        flash_attention_int8, q8, k8, v, kv_valid, bounded_logits, MODE_HEAD_MAJOR,
+        qk=SCORES_INT8, c=c,
+    )
+
+
+flash_attention_int8.launches = 0
 
 
 def flash_attention_packed(q, k, v, kv_valid=None, bounded_logits=False):
@@ -441,6 +641,63 @@ def flash_attention_packed(q, k, v, kv_valid=None, bounded_logits=False):
 flash_attention_packed.launches = 0
 
 
+def flash_attention_packed_stream(q, k, v, kv_valid=None, qk_int8=False, k_quant=None):
+    """Token-major streaming flash attention over (B, N, H, D) for long key
+    axes, bounded softmax only. Counterpart of
+    flash_attention.py::_flash_packed_stream_kernel.
+
+    qk_int8: int8 scores; q is quantised inside the kernel as
+    round(q * qinv) from per-head scales taken here, k outside by
+    `quant_token_major`. Forward only. k_quant: with qk_int8 and no
+    kv_valid, the pair `quant_k_token_major` returns. The bf16 form is
+    differentiable: under grad it runs the head-major forward with its LSE
+    and the backward kernels.
+
+    On the card it launches the token-major kernel that the packed wrapper
+    launches (its key loop has no length limit); the TPU's two kernels are
+    two contracts and two launch counters here."""
+    B, N, H, D = q.shape
+    if D != 64 or H % 2:
+        raise ValueError(
+            f"the streaming kernel takes head dim 64 and an even head count, got D={D}, H={H}"
+        )
+    if k_quant is not None and (not qk_int8 or kv_valid is not None):
+        raise ValueError("k_quant requires qk_int8 and no kv_valid")
+    if not qk_int8:
+        if _wants_grad(q, k, v):
+            return _FlashAttention.apply(q, k, v, kv_valid, True, False)
+        if _on_cpu(q, k, v):
+            return attention_stream_plain(q, k, v, kv_valid)
+        return _launch_fwd(
+            flash_attention_packed_stream, q, k, v, kv_valid, True, MODE_TOKEN_MAJOR
+        )
+    if _wants_grad(q, k, v):
+        raise ValueError("qk_int8 is a serving-only forward mode (no gradient)")
+    if _on_cpu(q, v) if k is None else _on_cpu(q, k, v):
+        return attention_stream_plain(q, k, v, kv_valid, True, k_quant)
+    return _stream_int8(q, k, v, kv_valid, k_quant)
+
+
+def _stream_int8(q, k, v, kv_valid, k_quant, q8_out=None):
+    """The stream wrapper's int8 launch on CUDA tensors. q8_out: an int8
+    tensor shaped like q that receives the q quantised inside the kernel,
+    for the checks of its grid."""
+    B, _, H, D = q.shape
+    q_scale = _scale_of(_abs_max_per_head(q, kv_valid), 1e-30)
+    if k_quant is None:
+        k8, k_scale, _ = quant_token_major(k, kv_valid)
+    else:
+        k8, k_scale = k_quant[0].reshape(B, -1, H, D), k_quant[1]
+    c = q_scale * k_scale * D**-0.5
+    return _launch_fwd(
+        flash_attention_packed_stream, q, k8, v, kv_valid, True, MODE_TOKEN_MAJOR,
+        qk=SCORES_INT8_Q_IN, c=c, qinv=1.0 / q_scale, q8_out=q8_out,
+    )
+
+
+flash_attention_packed_stream.launches = 0
+
+
 def reset_launches() -> None:
     """Set every kernel's launch counter to 0."""
     for fn in KERNELS:
@@ -452,4 +709,7 @@ def launches() -> dict:
     return {fn.__name__: fn.launches for fn in KERNELS}
 
 
-KERNELS = (flash_attention, flash_attention_packed, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+KERNELS = (
+    flash_attention, flash_attention_packed, flash_attention_bwd_dq, flash_attention_bwd_dkv,
+    flash_attention_int8, flash_attention_packed_stream,
+)

@@ -8,6 +8,15 @@ parameter dict, and cast each weight to the activation dtype at its point
 of use:
 
   - linear, layer_norm (fp32 statistics), mlp (exact-erf or tanh GELU);
+  - qlinear_int8 / dense / qconv2d_int8: the W8A8 fast modes. Weights are
+    quantised per output channel at each use, activations per row (per
+    image for a convolution), the product is an exact int8 x int8 -> int32
+    one, and the epilogue dequantises and adds the bias. These products sit
+    outside any kernel of the JAX package (XLA ran them), so on the card
+    they go to the library's int8 product (`torch._int_mm`); on the CPU an
+    exact float64 product stands in;
+  - conv2d_s2d: the 3x3 convolution as one stride-2 4x4 convolution with
+    2x2 output pixels folded into channels (an exact rewrite);
   - attention: fused qkv, per-head-dim q/k LayerNorm, 2D RoPE;
   - block: pre-LN with LayerScale and, when training, stochastic depth
     (drop_path) from keep masks the caller draws;
@@ -98,6 +107,86 @@ def linear(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
     return F.linear(x, p.weight.to(x.dtype), _cast(p.bias, x.dtype))
 
 
+def _int8_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
+    """Exact int32-valued product of int8 a (M, K) with the transpose of
+    int8 b_t (N, K), returned as fp32 (M, N).
+
+    On the card: `torch._int_mm`, which takes more than 16 rows and K and N
+    in multiples of 8, so the operands are zero-padded up to that (zeros
+    add nothing to an integer sum). On the CPU: a float64 product, exact
+    because 127^2 K stays far below 2^53 (an fp32 product is not: 127^2 *
+    4096 > 2^24)."""
+    M, K = a.shape
+    N = b_t.shape[0]
+    if a.device.type != "cuda":
+        return (a.double() @ b_t.double().t()).float()
+    pad_m, pad_k, pad_n = max(32 - M, 0) + (-max(M, 32)) % 8, (-K) % 8, (-N) % 8
+    if pad_m or pad_k:
+        a = F.pad(a, (0, pad_k, 0, pad_m))
+    if pad_n or pad_k:
+        b_t = F.pad(b_t, (0, pad_k, 0, pad_n))
+    y = torch._int_mm(a.contiguous(), b_t.contiguous().t())
+    return y[:M, :N].float()
+
+
+def _int8_step(amax: torch.Tensor) -> torch.Tensor:
+    """max-abs -> the int8 step max(amax, 1e-12) / 127, as a true division
+    (on CUDA tensors a division by a Python scalar becomes a multiplication
+    by its reciprocal, one ulp off now and then, which would move the int8
+    grid away from the CPU's)."""
+    floored = amax.clamp_min(1e-12)
+    return floored / torch.full_like(floored, 127.0)
+
+
+def _quantise_weight(w: torch.Tensor):
+    """(int8 weight, (out,) fp32 scales): symmetric max-abs per output
+    channel (the leading axis), round(w / scale)."""
+    wf = w.float()
+    ws = _int8_step(wf.abs().flatten(1).amax(dim=1))
+    wq = torch.round(wf / ws.reshape(-1, *([1] * (w.dim() - 1)))).to(torch.int8)
+    return wq, ws
+
+
+def _quantise_rows(x: torch.Tensor):
+    """(int8 activations, (..., 1) fp32 scales): symmetric max-abs per row
+    of the last axis, the max taken in x's dtype, round(x / scale)."""
+    ax = _int8_step(x.abs().amax(dim=-1, keepdim=True).float())
+    return torch.round(x.float() / ax).to(torch.int8), ax
+
+
+def qlinear_int8(p: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """W8A8 dense (counterpart of ops/layers.py::qlinear_int8): weights
+    quantised per output channel, activations per row from max |x| over the
+    last axis (taken in x's dtype), an exact int8 x int8 -> int32 product,
+    then (y * a_scale) * w_scale + bias in fp32, cast to x's dtype. The
+    weights are quantised at each use, so no separate int8 state exists."""
+    wq, ws = _quantise_weight(p.weight)  # (out, in), (out,)
+    xq, ax = _quantise_rows(x)
+    y = _int8_matmul(xq.reshape(-1, x.shape[-1]), wq).reshape(*x.shape[:-1], -1)
+    y = y * ax * ws
+    if p.bias is not None:
+        y = y + p.bias.float()
+    return y.to(x.dtype)
+
+
+def dense(p: nn.Linear, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
+    """linear() or qlinear_int8() on one flag (the trunk-quant dispatch)."""
+    return qlinear_int8(p, x) if int8 else linear(p, x)
+
+
+def _quant_gates(trunk_quant):
+    """(quantise the LayerNorm-fed matmuls, quantise the residual writers)
+    for a trunk_quant mode: "int8" quantises all four block matmuls,
+    "int8_ln" only qkv and fc1, whose inputs are LayerNorm outputs and whose
+    outputs pass through qk-norm / GELU instead of writing the residual
+    stream."""
+    if trunk_quant in (True, "int8"):
+        return True, True
+    if trunk_quant == "int8_ln":
+        return True, False
+    return False, False
+
+
 def layer_norm(p: Optional[nn.LayerNorm], x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis with fp32 statistics whatever x's dtype;
     p=None normalises without an affine transform."""
@@ -107,15 +196,96 @@ def layer_norm(p: Optional[nn.LayerNorm], x: torch.Tensor, eps: float = 1e-5) ->
     return F.layer_norm(x.float(), (x.shape[-1],), w, b, eps).to(x.dtype)
 
 
-def mlp(p: Mlp, x: torch.Tensor, approx_gelu: bool = False) -> torch.Tensor:
-    """fc1 -> GELU (exact erf, or tanh with approx_gelu) -> fc2."""
-    h = F.gelu(linear(p.fc1, x), approximate="tanh" if approx_gelu else "none")
-    return linear(p.fc2, h)
+def mlp(p: Mlp, x: torch.Tensor, approx_gelu: bool = False, int8_dense=False) -> torch.Tensor:
+    """fc1 -> GELU (exact erf, or tanh with approx_gelu) -> fc2; int8_dense
+    (a trunk_quant mode) picks which of the two run W8A8."""
+    q_ln, q_res = _quant_gates(int8_dense)
+    h = F.gelu(dense(p.fc1, x, q_ln), approximate="tanh" if approx_gelu else "none")
+    return dense(p.fc2, h, q_res)
 
 
-def conv2d(p: nn.Conv2d, x: torch.Tensor, stride=1, padding=0) -> torch.Tensor:
-    """NCHW convolution with the module's weight cast to x's dtype."""
+def conv2d(p, x: torch.Tensor, stride=1, padding=0, int8: bool = False) -> torch.Tensor:
+    """NCHW convolution with the module's weight cast to x's dtype; int8
+    runs it W8A8 (qconv2d_int8). p: an nn.Conv2d or anything with `weight`
+    (out, in, kh, kw) and `bias`."""
+    if int8:
+        return qconv2d_int8(p, x, stride=stride, padding=padding)
     return F.conv2d(x, p.weight.to(x.dtype), _cast(p.bias, x.dtype), stride, padding)
+
+
+def _pair(v):
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def qconv2d_int8(p, x: torch.Tensor, stride=1, padding=0) -> torch.Tensor:
+    """W8A8 NCHW convolution (counterpart of ops/layers.py::qconv2d_int8):
+    weights quantised per output channel, activations per image, an exact
+    int8 x int8 -> int32 convolution, then (y * a_scale) * w_scale + bias
+    in fp32, cast to x's dtype.
+
+    PyTorch has no int8 convolution, and an fp32 one of integer values is
+    not exact (9 * 256 * 127^2 > 2^24). On the card the convolution is the
+    sum over the kh * kw taps of one `torch._int_mm` each: the quantised
+    image is padded once in channels-last int8, each tap's shifted (and
+    strided) window is copied to an (B * Ho * Wo, cin) int8 matrix and
+    multiplied by that tap's (cin, cout) weights, and the int32 results
+    are added. On the CPU a float64 convolution is exact."""
+    w = p.weight
+    cout, cin, kh, kw = w.shape
+    (sh, sw), (ph, pw) = _pair(stride), _pair(padding)
+    wq, ws = _quantise_weight(w)
+    xf = x.float()
+    ax = _int8_step(xf.abs().amax(dim=(1, 2, 3), keepdim=True))
+    xq = torch.round(xf / ax)
+    if x.device.type != "cuda":
+        y = F.conv2d(xq.double(), wq.double(), None, (sh, sw), (ph, pw)).float()
+    else:
+        B, _, H, W = x.shape
+        ho, wo = (H + 2 * ph - kh) // sh + 1, (W + 2 * pw - kw) // sw + 1
+        xp = F.pad(xq.to(torch.int8).permute(0, 2, 3, 1), (0, 0, pw, pw, ph, ph))
+        acc = None
+        for dy in range(kh):
+            for dx in range(kw):
+                win = xp[:, dy : dy + sh * (ho - 1) + 1 : sh, dx : dx + sw * (wo - 1) + 1 : sw]
+                part = _int8_matmul(win.reshape(-1, cin), wq[:, :, dy, dx])
+                acc = part if acc is None else acc.add_(part)
+        y = acc.reshape(B, ho, wo, cout).permute(0, 3, 1, 2)
+    y = y * ax * ws.reshape(1, -1, 1, 1)
+    if p.bias is not None:
+        y = y + p.bias.float().reshape(1, -1, 1, 1)
+    return y.to(x.dtype)
+
+
+class _ConvParams:
+    """A weight and bias held like an nn.Conv2d's, for derived kernels."""
+
+    def __init__(self, weight, bias=None):
+        self.weight, self.bias = weight, bias
+
+
+def conv2d_s2d(p, x: torch.Tensor, int8: bool = False) -> torch.Tensor:
+    """3x3 stride-1 pad-1 convolution with 2x2 output pixels folded into
+    channels (counterpart of ops/layers.py::conv2d_s2d): one stride-2 4x4
+    convolution with 4 * cout output channels whose extra taps are exact
+    zeros, then a depth-to-space pass. Numerically the 3x3 convolution up
+    to the order of the sum. Needs a 3x3 kernel and even H, W."""
+    w = p.weight
+    cout, cin, kh, kw = w.shape
+    B, _, H, W = x.shape
+    if kh != 3 or kw != 3 or H % 2 or W % 2:
+        raise ValueError(
+            f"conv2d_s2d needs a 3x3 kernel and even H, W; got {tuple(w.shape)}, {tuple(x.shape)}"
+        )
+    # w4[(dy, dx, co), ci, ty, tx] = w[co, ci, ty - dy, tx - dx], zero out of range
+    w4 = w.new_zeros(2, 2, cout, cin, 4, 4)
+    for dy in range(2):
+        for dx in range(2):
+            w4[dy, dx, :, :, dy : dy + 3, dx : dx + 3] = w
+    y = conv2d(_ConvParams(w4.reshape(4 * cout, cin, 4, 4)), x, stride=2, padding=1, int8=int8)
+    y = y.reshape(B, 2, 2, cout, H // 2, W // 2).permute(0, 3, 4, 1, 5, 2).reshape(B, cout, H, W)
+    if p.bias is not None:
+        y = y + p.bias.to(y.dtype).reshape(1, -1, 1, 1)
+    return y
 
 
 def drop_path_masks(n: int, count: int, rate: float, generator: torch.Generator,
@@ -145,9 +315,13 @@ def attention(
     impl: str = "auto",
     kv_valid=None,
     allow_bounded: bool = True,
+    int8_dense=False,
+    int8_qk: bool = False,
 ) -> torch.Tensor:
     """Multi-head self-attention over (B, N, C) tokens: fused qkv, optional
     per-head-dim q/k LayerNorm, RoPE on q and k from (N, head_dim) tables.
+    int8_dense (a trunk_quant mode) runs qkv and proj W8A8; int8_qk asks
+    the flash kernels for int8 scores (config.attn_quant, serving only).
 
     The fixed-max softmax is used when qk-norm is present and allow_bounded
     holds: after the norm, |q.k|/sqrt(D) <= sqrt(D)*(max|g_q|+max|b_q|)*
@@ -155,7 +329,8 @@ def attention(
     kernel's clamp (utils/validation)."""
     B, N, C = x.shape
     H = p.num_heads
-    qkv = linear(p.qkv, x).reshape(B, N, 3, H, C // H)
+    q_ln, q_res = _quant_gates(int8_dense)
+    qkv = dense(p.qkv, x, q_ln).reshape(B, N, 3, H, C // H)
     q, k, v = qkv.unbind(2)  # (B, N, H, D) views
     if p.q_norm is not None:
         q = layer_norm(p.q_norm, q, ln_eps)
@@ -165,9 +340,9 @@ def attention(
         k = apply_rope(k, rope_cos, rope_sin)
     bounded = allow_bounded and p.q_norm is not None
     o = scaled_dot_product_attention(
-        q, k, v, impl=impl, kv_valid=kv_valid, bounded_logits=bounded
+        q, k, v, impl=impl, kv_valid=kv_valid, bounded_logits=bounded, qk_int8=int8_qk
     )
-    return linear(p.proj, o.reshape(B, N, C))
+    return dense(p.proj, o.reshape(B, N, C), q_res)
 
 
 def block(
@@ -183,6 +358,8 @@ def block(
     approx_gelu: bool = False,
     drop_path_rate: float = 0.0,
     drop_path_keep: Optional[torch.Tensor] = None,
+    int8_dense=False,
+    int8_qk: bool = False,
 ) -> torch.Tensor:
     """x += DP(LS1(Attn(LN(x), rope))); x += DP(LS2(MLP(LN(x)))), where DP
     is stochastic depth, active only when `drop_path_keep` (2, x.shape[0]
@@ -191,14 +368,15 @@ def block(
     h = attention(
         p.attn, layer_norm(p.norm1, x, ln_eps), rope_cos, rope_sin,
         ln_eps=ln_eps, impl=attn_impl, kv_valid=kv_valid,
-        allow_bounded=allow_bounded,
+        allow_bounded=allow_bounded, int8_dense=int8_dense, int8_qk=int8_qk,
     )
     if p.ls1 is not None:
         h = h * p.ls1.gamma.to(h.dtype)
     if use_dp:
         h = drop_path(h, drop_path_keep[0], drop_path_rate)
     x = x + h
-    h = mlp(p.mlp, layer_norm(p.norm2, x, ln_eps), approx_gelu=approx_gelu)
+    h = mlp(p.mlp, layer_norm(p.norm2, x, ln_eps), approx_gelu=approx_gelu,
+            int8_dense=int8_dense)
     if p.ls2 is not None:
         h = h * p.ls2.gamma.to(h.dtype)
     if use_dp:

@@ -80,8 +80,10 @@ def main(argv=None):
             cfg, aggregator=dataclasses.replace(cfg.aggregator, drop_path_rate=args.drop_path)
         )
     if args.checkpoint:
-        # also re-certifies the fixed-max softmax against these weights
-        model = OmniVGGT.from_safetensors(args.checkpoint, cfg, device=device)
+        # also re-certifies the fixed-max softmax against these weights; the
+        # head dtype is forced, so no fast serving mode is certified for training
+        model = OmniVGGT.from_safetensors(args.checkpoint, cfg, device=device,
+                                          head_dtype=cfg.head_dtype)
         cfg = model.config
     else:
         model = OmniVGGT(cfg, device=device, seed=args.seed)

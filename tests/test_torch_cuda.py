@@ -192,6 +192,7 @@ def test_autograd_matches_plain_autograd(cuda, packed):
     assert FK.launches() == {
         "flash_attention": int(not packed), "flash_attention_packed": int(packed),
         "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1,
+        "flash_attention_int8": 0, "flash_attention_packed_stream": 0,
     }
     # the Function fed the kernels the forward's own o and LSE: its
     # gradients are the plain backward's on them, within the bf16 bounds
@@ -206,3 +207,158 @@ def test_autograd_matches_plain_autograd(cuda, packed):
     plain = FK.attention_backward_plain(q.float(), k.float(), v.float(), o32, g, lse32, 120, True)
     for i, grad in enumerate(plain):
         torch.testing.assert_close(grad, ref_leaf.grad[:, :, i], atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the serving slice's kernels
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("bounded", [False, True])
+@pytest.mark.parametrize("kv_valid", [None, 187, "device"])
+@pytest.mark.parametrize("shape", [(2, 300, 4, 64), (1, 150, 2, 128)])
+def test_head_major_int8_matches_plain_on_the_same_grid(cuda, shape, kv_valid, bounded):
+    """The int8 form against attention_plain_int8 (the same int8 values, so
+    the bf16 kernels' tolerance holds), ragged lengths, both head dims."""
+    q, k, v = _qkv(shape, shape[1], 3, cuda, scale=2.0)
+    if kv_valid == "device":
+        kv_valid = torch.tensor(187 if shape[1] > 187 else 100, dtype=torch.int32, device=cuda)
+    elif kv_valid is not None:
+        kv_valid = min(kv_valid, shape[1] - 10)
+    before = FK.flash_attention_int8.launches
+    out = FK.flash_attention(q, k, v, kv_valid, bounded, qk_int8=True)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_int8.launches == before + 1
+    ref = FK.attention_plain_int8(q.float(), k.float(), v.float(), kv_valid, bounded)
+    assert (out.float() - ref).abs().max().item() <= 2.0**-7 * v.float().abs().max().item()
+    k_quant = FK.quant_per_head(k)
+    if kv_valid is None:
+        again = FK.flash_attention(q, None, v, None, bounded, qk_int8=True, k_quant=k_quant)
+        assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("qk_int8", [False, True])
+@pytest.mark.parametrize("kv_valid", [None, 211, "device"])
+def test_stream_kernel_matches_plain(cuda, kv_valid, qk_int8):
+    """The streaming kernel, bf16 and int8 forms; the q grid it makes
+    inside equals quant_token_major's, value for value."""
+    shape = (2, 300, 4, 64)
+    q, k, v = _qkv(shape, 300, 4, cuda, scale=2.0)
+    if kv_valid == "device":
+        kv_valid = torch.tensor(211, dtype=torch.int32, device=cuda)
+    before = FK.flash_attention_packed_stream.launches
+    out = FK.flash_attention_packed_stream(q, k, v, kv_valid, qk_int8=qk_int8)
+    torch.cuda.synchronize()
+    assert FK.flash_attention_packed_stream.launches == before + 1
+    ref = FK.attention_stream_plain(q.float(), k.float(), v.float(), kv_valid, qk_int8)
+    assert (out.float() - ref).abs().max().item() <= 2.0**-7 * v.float().abs().max().item()
+    if qk_int8:
+        q8 = torch.empty(shape, dtype=torch.int8, device=cuda)
+        assert torch.equal(FK._stream_int8(q, k, v, kv_valid, None, q8_out=q8), out)
+        assert torch.equal(q8, FK.quant_token_major(q, kv_valid)[0])
+        if kv_valid is None:
+            again = FK.flash_attention_packed_stream(
+                q, None, v, qk_int8=True, k_quant=FK.quant_k_token_major(k))
+            assert torch.equal(again, out)
+
+
+def test_stream_gradient_runs_the_backward_kernels(cuda):
+    q, k, v = (x.requires_grad_(True) for x in _qkv((1, 200, 2, 64), 200, 5, cuda))
+    before = FK.launches()
+    FK.flash_attention_packed_stream(q, k, v).float().square().sum().backward()
+    after = FK.launches()
+    assert after["flash_attention"] == before["flash_attention"] + 1  # head-major, with its LSE
+    assert after["flash_attention_bwd_dq"] == before["flash_attention_bwd_dq"] + 1
+    assert after["flash_attention_packed_stream"] == before["flash_attention_packed_stream"]
+    assert all(torch.isfinite(x.grad).all() for x in (q, k, v))
+    with pytest.raises(ValueError, match="serving-only"):
+        FK.flash_attention_packed_stream(q, k, v, qk_int8=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels_last", [False, True])
+@pytest.mark.parametrize(
+    "case", [(2, 64, 32, 24, 22, False), (1, 128, 64, 16, 18, True), (1, 16, 8, 13, 10, True),
+             (1, 20, 24, 37, 45, False), (2, 33, 48, 40, 70, True)])
+def test_conv3x3_kernel_matches_plain(cuda, case, channels_last, dtype):
+    """The 3x3 convolution kernel against F.conv2d in fp32 from the same
+    inputs, entry by entry within the accumulation bound (both sides add
+    9 cin products in fp32; the bf16 kernel rounds its output once)."""
+    from omnivggt_tpu_torch.ops.kernels import conv3x3 as CK
+
+    F = torch.nn.functional
+    B, cin, cout, H, W, relu = case
+    torch.manual_seed(0)
+    conv = torch.nn.Conv2d(cin, cout, 3, padding=1).to(cuda)
+    x = torch.randn(B, cin, H, W, device=cuda).to(dtype)
+    if channels_last:
+        x = x.contiguous(memory_format=torch.channels_last)
+    w = conv.weight.detach().to(dtype).float()
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        before = CK.conv3x3_folded.launches
+        out = CK.conv3x3_folded(conv, x, relu)
+        assert CK.conv3x3_folded.launches == before + 1
+        ref = F.conv2d(x.float(), w, conv.bias, padding=1)
+        tol = F.conv2d(x.float().abs(), w.abs(), conv.bias.abs(), padding=1)
+    tol = tol * (2 * (9 * cin + 1) * 2.0**-24)
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0**-8 * ref.abs()
+    ref = F.relu(ref) if relu else ref
+    assert out.dtype == dtype and out.shape == ref.shape
+    assert out.is_contiguous(memory_format=torch.channels_last if channels_last
+                             else torch.contiguous_format)
+    assert ((out.float() - ref).abs() <= tol).all()
+    with pytest.raises(ValueError, match="forward-only"):
+        CK.conv3x3_folded(conv, x.requires_grad_(True), relu)
+
+
+def test_head_conv_flag_launches_the_kernel_whatever_the_grad_mode(cuda, monkeypatch):
+    """With the head-conv flag on, an eligible convolution of a CUDA tensor
+    launches the kernel with grad mode on as well as off; only a gradient
+    really asked for (requires_grad) is refused."""
+    from omnivggt_tpu_torch.models import dpt_head as TDH
+    from omnivggt_tpu_torch.ops.kernels import conv3x3 as CK
+
+    monkeypatch.setattr(TDH, "_PALLAS_HEAD_CONVS", True)
+    conv = torch.nn.Conv2d(16, 8, 3, padding=1).to(cuda).requires_grad_(False)
+    x = torch.randn(1, 16, 20, 20, device=cuda)
+    before = CK.conv3x3_folded.launches
+    assert torch.is_grad_enabled()
+    out = TDH._conv3x3(conv, x, relu=True)
+    with torch.no_grad():
+        assert torch.equal(TDH._conv3x3(conv, x, relu=True), out)
+    assert CK.conv3x3_folded.launches == before + 2
+    assert TDH._conv3x3(conv, x, int8=True).shape == out.shape  # int8 keeps the library route
+    assert CK.conv3x3_folded.launches == before + 2
+    with pytest.raises(ValueError, match="forward-only"):
+        TDH._conv3x3(conv.requires_grad_(True), x)
+
+
+def test_layout_probes_pass(cuda):
+    from omnivggt_tpu_torch.tools import probe_layouts as PL
+
+    lines = []
+    assert PL.run(out=lines.append)
+    assert sum(line.strip().startswith("PASS") for line in lines) == 11
+
+
+def test_int8_dense_and_conv_are_exact_on_the_card(cuda):
+    """torch._int_mm behind qlinear_int8 and qconv2d_int8: the card's
+    answers equal the CPU's exact ones (integer sums are order-free)."""
+    from omnivggt_tpu_torch.ops import layers as TL
+
+    torch.manual_seed(1)
+    lin = torch.nn.Linear(4096, 40)
+    x = torch.randn(3, 5, 4096)
+    conv = torch.nn.Conv2d(12, 10, 3)
+    img = torch.randn(2, 12, 11, 9)
+    with torch.no_grad():
+        for stride, padding in ((1, 1), (2, 1)):
+            want = TL.qconv2d_int8(conv, img, stride, padding)
+            got = TL.qconv2d_int8(conv.to(cuda), img.to(cuda), stride, padding)
+            conv.cpu()
+            torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+        want = TL.qlinear_int8(lin, x)
+        got = TL.qlinear_int8(lin.to(cuda), x.to(cuda))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)

@@ -1,0 +1,383 @@
+"""The certified fast serving modes of the port against the JAX package on
+the CPU, at a tiny size: the forward under every ladder candidate config,
+int8 attention scores and the streaming kernel through the model, padded
+frames (num_valid_frames), the DPT heads' probe flags, and the
+certification ladder itself (same rungs walked, same config returned, on
+the same probe batch).
+"""
+
+import dataclasses
+import json
+import logging
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from omnivggt_tpu.models import dpt_head as JDH
+from omnivggt_tpu.models import omnivggt as JM
+from omnivggt_tpu.ops import attention as JA
+from omnivggt_tpu_torch import config as TC
+from omnivggt_tpu_torch.models import dpt_head as TDH
+from omnivggt_tpu_torch.models import omnivggt as TM
+from omnivggt_tpu_torch.ops import attention as TA
+from omnivggt_tpu_torch.train import step as TTS
+from tests.torch_port_util import ATOL, OUTPUT_KEYS, pallas_interpret, t, tiny_pair
+
+# bf16 heads: both packages round every head activation to bf16 (8 bits of
+# significand), but not at the same places (torch's interpolation and
+# convolutions accumulate in fp32 and round once; the JAX head rounds after
+# each primitive). The dense outputs leave the head through fp32
+# activations and agree to 4e-3. pose_enc is the bf16 camera head's own
+# output: two bf16 values that differ, differ by a whole bf16 step, so its
+# tolerance is one step at the largest entry of the reference,
+# 2^(floor(log2 max|pose_enc|) - 7): 2^-6 = 1.5625e-2 on the tiny model,
+# whose pose_enc reaches 2.41 (the readings are one step at [1, 2), 7.8e-3)
+BF16_HEAD_ATOL = {"depth": 4e-3, "depth_conf": 4e-3,
+                  "world_points": 4e-3, "world_points_conf": 4e-3}
+
+
+def _bf16_step(ref) -> float:
+    """The spacing of bf16 values at the largest magnitude in ref."""
+    return float(2.0 ** (np.floor(np.log2(np.abs(ref).max())) - 7))
+
+
+# the ladder's candidates, most aggressive first, the upgrades it probes,
+# and the fallback
+CANDIDATES = {
+    "int8": dict(head_dtype="bfloat16", approx_gelu=True, trunk_quant="int8"),
+    "int8_ln": dict(head_dtype="bfloat16", approx_gelu=True, trunk_quant="int8_ln"),
+    "bf16_tanh": dict(head_dtype="bfloat16", approx_gelu=True),
+    "bf16": dict(head_dtype="bfloat16"),
+    "parity": dict(),
+    "int8_fp32_heads": dict(approx_gelu=True, trunk_quant="int8"),
+    "int8_all": dict(approx_gelu=True, trunk_quant="int8", attn_quant="int8", head_quant="int8"),
+    "head_quant": dict(head_quant="int8"),
+}
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return tiny_pair(seed=0)
+
+
+@pytest.fixture(scope="module")
+def images():
+    return np.random.default_rng(0).uniform(size=(1, 3, 28, 28, 3)).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def pair56(pair):
+    """The same weights under img_size 56 (the tiny config's conv patch
+    embed has no size-dependent parameter), so the ladder's two probe
+    sizes differ."""
+    jcfg, tcfg, params, model = pair
+    return (dataclasses.replace(jcfg, img_size=56), dataclasses.replace(tcfg, img_size=56),
+            params, model)
+
+
+def _port(pair, images, modes, nv=None, attn_impl="auto"):
+    _, tcfg, _, model = pair
+    nv_t = None if nv is None else torch.tensor(nv, dtype=torch.int32)
+    with torch.no_grad():
+        return TM.apply(model, t(images), dataclasses.replace(tcfg, **modes),
+                        attn_impl=attn_impl, num_valid_frames=nv_t)
+
+
+def _both(pair, images, modes, nv=None, attn_impl="auto"):
+    jcfg, _, params, _ = pair
+    jc = dataclasses.replace(jcfg, **modes)
+    nv_j = None if nv is None else jnp.int32(nv)
+    with pallas_interpret():
+        out_j = jax.jit(
+            lambda p, x, n: JM.apply(p, x, jc, attn_impl=attn_impl, num_valid_frames=n)
+        )(params, jnp.asarray(images), nv_j)
+    return out_j, _port(pair, images, modes, nv, attn_impl)
+
+
+def _assert_close(out_j, out_t, modes, valid=None):
+    for key in OUTPUT_KEYS:
+        a, b = np.asarray(out_j[key])[:, :valid], out_t[key].numpy()[:, :valid]
+        atol = ATOL
+        if modes.get("head_dtype") == "bfloat16":
+            atol = _bf16_step(a) if key == "pose_enc" else BF16_HEAD_ATOL[key]
+        np.testing.assert_allclose(b, a, atol=atol, rtol=1e-4, err_msg=key)
+
+
+@pytest.mark.parametrize("name", list(CANDIDATES))
+def test_forward_under_each_candidate_matches_jax(pair, images, name):
+    """The tiny model under every config the ladder can try or return:
+    5e-4 with fp32 heads, the int8 modes included (both packages land on
+    the same int8 grids, so the quantisation error is common to them);
+    bf16 heads to a few bf16 steps."""
+    modes = CANDIDATES[name]
+    out_j, out_t = _both(pair, images, modes)
+    _assert_close(out_j, out_t, modes)
+    if name != "parity":
+        # the mode does something: the output moved off the parity forward
+        parity = _port(pair, images, {})
+        assert max(float((out_t[k] - parity[k]).abs().max()) for k in OUTPUT_KEYS) > 0
+
+
+@pytest.mark.parametrize("modes", [dict(attn_quant="int8"),
+                                   dict(attn_quant="int8", trunk_quant="int8", approx_gelu=True)],
+                         ids=["attn_quant", "attn_and_trunk_quant"])
+@pytest.mark.parametrize("nv", [None, 2])
+def test_int8_scores_through_the_model_match_jax(pair, images, modes, nv):
+    """attn_impl="flash": every attention of the tiny model (head dim 32)
+    runs the head-major kernel's int8 form, Pallas in interpret mode there
+    and the plain int8 version here, with padded frames left out of the
+    quantisers' scales (nv = 2 of 3 frames)."""
+    out_j, out_t = _both(pair, images, modes, nv=nv, attn_impl="flash")
+    _assert_close(out_j, out_t, modes, valid=nv)
+    # int8 scores are in use: the result differs from the bf16-score forward
+    plain = _port(pair, images, {k: v for k, v in modes.items() if k != "attn_quant"},
+                  nv=nv, attn_impl="flash")
+    assert float((out_t["pose_enc"] - plain["pose_enc"]).abs().max()) > 0
+
+
+@pytest.mark.parametrize("attn_quant", ["int8"])
+def test_stream_flag_routes_global_attention_like_jax(images, attn_quant, monkeypatch):
+    """With the stream flag on (and the packed kernel's key budget cut so
+    the tiny global attention exceeds it), global attention runs the
+    streaming kernel in both packages: head dim 64, bounded softmax, a
+    dynamic valid prefix, the int8 form (the bf16 form is held against the
+    Pallas kernel in tests/test_torch_serving_kernels.py)."""
+    from omnivggt_tpu import config as JC
+    from omnivggt_tpu.checkpoint import convert_state_dict
+
+    kw = dict(embed_dim=128, num_heads=2)  # head dim 64: stream-eligible
+    jcfg, tcfg = JC.tiny_test_config(**kw), TC.tiny_test_config(**kw)
+    model = TM.OmniVGGT(tcfg, device="cpu", seed=1).eval()
+    with torch.no_grad():  # LayerScale at 1: the attention outputs count
+        for name, prm in model.named_parameters():
+            if name.endswith(".gamma"):
+                prm.fill_(1.0)
+    params = convert_state_dict({k: v.numpy() for k, v in model.state_dict().items()}, jcfg)
+    modes = dict(attn_quant=attn_quant)
+    for mod, name in ((JA, "_PACKED_MAX_KEYS"), (TA, "PACKED_MAX_KEYS")):
+        monkeypatch.setattr(mod, name, 16)
+    monkeypatch.setattr(JA, "_STREAM_ATTN", True)
+    monkeypatch.setattr(TA, "_STREAM_ATTN", True)
+    streamed = []
+    stream = TA.flash_attention_packed_stream
+    monkeypatch.setattr(TA, "flash_attention_packed_stream",
+                        lambda *a, **k: (streamed.append(k.get("qk_int8")), stream(*a, **k))[1])
+    jax.clear_caches()  # the dispatch is decided at trace time
+    out_j, out_t = _both((jcfg, tcfg, params, model), images, modes, nv=2, attn_impl="flash")
+    jax.clear_caches()
+    assert streamed == [attn_quant == "int8"] * tcfg.aggregator.depth
+    _assert_close(out_j, out_t, modes, valid=2)
+
+
+@pytest.mark.parametrize("name", ["parity", "int8", "int8_all"])
+def test_padded_forward_matches_jax_and_the_unpadded_forward(pair, images, name):
+    """num_valid_frames = 2 of 3: the two real frames agree with the JAX
+    package's masked forward and, in fp32, with the forward of the two
+    frames alone (atol 2e-5, the JAX serving test's), the third frame
+    holding other content."""
+    modes = CANDIDATES[name]
+    out_j, out_t = _both(pair, images, modes, nv=2)
+    _assert_close(out_j, out_t, modes, valid=2)
+    if modes.get("head_dtype") != "bfloat16":
+        alone = _port(pair, images[:, :2], modes)
+        for key in OUTPUT_KEYS:
+            np.testing.assert_allclose(out_t[key].numpy()[:, :2], alone[key].numpy(),
+                                       atol=2e-5, rtol=1e-5, err_msg=key)
+    # an int (static) count masks like the device scalar
+    jcfg, tcfg, params, model = pair
+    with torch.no_grad():
+        static = TM.apply(model, t(images), dataclasses.replace(tcfg, **modes), num_valid_frames=2)
+    for key in OUTPUT_KEYS:
+        np.testing.assert_allclose(static[key].numpy()[:, :2], out_t[key].numpy()[:, :2],
+                                   atol=2e-5, err_msg=key)
+
+
+def test_head_conv_flags_keep_the_jax_names_and_defaults(pair, images, monkeypatch):
+    """The two probe flags are off by default under the JAX package's
+    variable names; the space-to-depth route gives the plain route's
+    output; with the kernel flag on every eligible convolution goes to
+    `conv3x3_folded`, with grad mode on as well as off (on the CPU the
+    wrapper computes its plain version and launches nothing)."""
+    from omnivggt_tpu_torch.ops.kernels import conv3x3 as CK
+
+    assert (TDH._PALLAS_HEAD_CONVS, TDH._S2D_HEAD_CONVS) == (False, False)
+    assert (JDH._PALLAS_HEAD_CONVS, JDH._S2D_HEAD_CONVS) == (False, False)
+    _, tcfg, _, model = pair
+    routed = []
+    folded = TDH.conv3x3_folded
+    monkeypatch.setattr(TDH, "conv3x3_folded",
+                        lambda p, x, relu=False: (routed.append(torch.is_grad_enabled()),
+                                                  folded(p, x, relu=relu))[1])
+    with torch.no_grad():
+        base = TM.apply(model, t(images), tcfg)
+        monkeypatch.setattr(TDH, "_S2D_HEAD_CONVS", True)
+        s2d = TM.apply(model, t(images), tcfg)
+        monkeypatch.setattr(TDH, "_S2D_HEAD_CONVS", False)
+        assert routed == []
+        monkeypatch.setattr(TDH, "_PALLAS_HEAD_CONVS", True)
+        flagged = TM.apply(model, t(images), tcfg)
+        per_forward = len(routed)
+        assert per_forward > 0 and not any(routed)
+        # W8A8 head convolutions keep the library route
+        TM.apply(model, t(images), dataclasses.replace(tcfg, head_quant="int8"))
+        assert len(routed) == per_forward
+    # grad mode on (no no_grad around the call): the flag still decides
+    with_grad = TM.apply(model, t(images), tcfg)
+    assert routed[per_forward:] == [True] * per_forward
+    assert CK.conv3x3_folded.launches == 0
+    for key in OUTPUT_KEYS:
+        np.testing.assert_allclose(s2d[key].numpy(), base[key].numpy(), atol=2e-5, err_msg=key)
+        np.testing.assert_array_equal(flagged[key].numpy(), base[key].numpy())
+        np.testing.assert_array_equal(with_grad[key].detach().numpy(), base[key].numpy())
+
+
+def test_training_refuses_the_fast_modes():
+    cfg = TC.tiny_test_config()
+    for field in ("trunk_quant", "attn_quant", "head_quant"):
+        with pytest.raises(ValueError, match="serving-only"):
+            TTS.make_train_step(dataclasses.replace(cfg, **{field: "int8"}), None)
+
+
+# ---------------------------------------------------------------------------
+# the ladder
+# ---------------------------------------------------------------------------
+
+
+def _shared_probe(monkeypatch, params):
+    """Hand both packages' _probe_outputs the same numpy probe batch (the
+    JAX package draws its own inside; the port's generator cannot give the
+    same bits) and record every config each ladder probes."""
+    probed = {"jax": [], "port": []}
+
+    def batch(probe_s, probe_hw):
+        rng = np.random.default_rng(7)
+        return rng.uniform(size=(1, probe_s, probe_hw, probe_hw, 3)).astype(np.float32)
+
+    def jax_probe(p, cfg, probe_hw, probe_s):
+        if probe_hw is None:
+            probe_hw = min(140, cfg.img_size)
+        probe_hw -= probe_hw % cfg.patch_size
+        probed["jax"].append((probe_hw, cfg))
+        out = jax.jit(lambda p, x: JM.apply(p, x, cfg))(p, jnp.asarray(batch(probe_s, probe_hw)))
+        return {k: np.asarray(out[k]) for k in TM.PROBE_KEYS}
+
+    port_probe = TM._probe_outputs
+
+    def recording_port_probe(model, cfg, probe_hw, probe_s):
+        probed["port"].append((probe_hw, cfg))
+        return port_probe(model, cfg, probe_hw, probe_s)
+
+    monkeypatch.setattr(JM, "_probe_outputs", jax_probe)
+    monkeypatch.setattr(TM, "_probe_batch", batch)
+    monkeypatch.setattr(TM, "_probe_outputs", recording_port_probe)
+    return probed
+
+
+def _modes(cfg):
+    return (cfg.head_dtype, cfg.approx_gelu, cfg.trunk_quant, cfg.attn_quant, cfg.head_quant)
+
+
+@pytest.mark.parametrize(
+    "gates",
+    [
+        # the default gates at two probe sizes: the final stage runs
+        dict(probe_hw=28, final_hw=56),
+        # gates that bf16 heads cannot meet: every rung falls through to
+        # the parity config, and the upgrades are probed on it
+        dict(probe_hw=28, final_hw=28, pose_tol=1e-4, rel_tol=1e-5),
+    ],
+    ids=["default_gates", "tight_gates"],
+)
+def test_ladder_walks_the_same_rungs_as_jax(pair56, gates, monkeypatch, caplog):
+    """certify_fast_modes probes the same configs in the same order at the
+    same sizes, and returns the same config, as the JAX ladder on the same
+    probe batch."""
+    jcfg, tcfg, params, model = pair56
+    probed = _shared_probe(monkeypatch, params)
+    report = []
+    with caplog.at_level(logging.ERROR):
+        want = JM.certify_fast_modes(params, jcfg, **gates)
+        got = TM.certify_fast_modes(model, tcfg, report=report, **gates)
+    assert [(hw, _modes(c)) for hw, c in probed["port"]] == \
+        [(hw, _modes(c)) for hw, c in probed["jax"]]
+    assert _modes(got) == _modes(want)
+    assert len(report) == len(probed["port"]) - len({hw for hw, _ in probed["port"]})
+    assert all(np.isfinite(r["pose_enc_maxabs"]) for r in report)
+    assert TM.certification_gates(**gates) == JM.certification_gates(**gates)
+    # a caller who already chose a fast mode gets the config back unprobed
+    chosen = dataclasses.replace(tcfg, approx_gelu=True)
+    n = len(probed["port"])
+    assert TM.certify_fast_modes(model, chosen) is chosen and len(probed["port"]) == n
+    # without the quantising rungs only the two bf16-head candidates are
+    # walked, no upgrade is probed, and the winner is the last to pass
+    cut_report = []
+    with caplog.at_level(logging.ERROR):
+        cut = TM.certify_fast_modes(model, tcfg, quantising_rungs=False, report=cut_report, **gates)
+    walked = [_modes(c) for _, c in probed["port"][n:]]
+    assert len(walked) > 1 and all(m[2:] == ("none", "none", "none") for m in walked)
+    stage = "final" if gates["final_hw"] != gates["probe_hw"] else "ladder"
+    passed = [r for r in cut_report if r["passed"] and r["stage"] == stage]
+    winner = (passed[-1]["head_dtype"], passed[-1]["approx_gelu"]) if passed else ("float32", False)
+    assert _modes(cut) == winner + ("none", "none", "none")
+
+
+def test_probe_gate_functions_match_jax(pair):
+    """_probe_failures: the same violations as the JAX gate on the same
+    outputs, NaN readings failing; certify_head_dtype decides alike."""
+    jcfg, tcfg, params, model = pair
+    rng = np.random.default_rng(3)
+    ref = {k: rng.normal(size=(1, 2, 4, 4, 1)).astype(np.float32) for k in TM.PROBE_KEYS}
+    fast = {k: v + rng.normal(size=v.shape).astype(np.float32) * s
+            for (k, v), s in zip(ref.items(), (3e-2, 1e-4, 1e-1, 1e-4))}
+    for pose_tol, rel_tol in ((2e-2, 2e-2), (1.0, 1e-6), (1e-9, 1.0)):
+        want = JM._probe_failures(ref, fast, pose_tol, rel_tol)
+        got = TM._probe_failures(ref, fast, pose_tol, rel_tol)
+        assert got.keys() == want.keys() and all(got[k] == want[k] for k in got)
+    fast["depth"] = np.full_like(fast["depth"], np.nan)
+    assert "depth_medrel" in TM._probe_failures(ref, fast, 1.0, 1.0)
+    assert TM.certify_head_dtype(model, tcfg, probe_hw=28).head_dtype == \
+        JM.certify_head_dtype(params, jcfg, probe_hw=28).head_dtype
+    forced = dataclasses.replace(tcfg, head_dtype="bfloat16")
+    assert TM.certify_head_dtype(model, forced) is forced
+
+
+def test_certified_load_keeps_and_reuses_the_verdict(tmp_path, monkeypatch):
+    """from_safetensors(head_dtype="auto") runs the ladder and writes the
+    certificate; the second load reads it and probes nothing; a forced
+    head dtype skips the ladder."""
+    from safetensors.torch import save_file
+
+    cfg = TC.tiny_test_config()
+    src = TM.OmniVGGT(cfg, device="cpu", seed=3)
+    path = tmp_path / "model.safetensors"
+    save_file({k: v.contiguous() for k, v in src.state_dict().items()}, str(path))
+    first = TM.OmniVGGT.from_safetensors(str(path), cfg, device="cpu")
+    assert (tmp_path / "model.safetensors.certified.json").exists()
+
+    def no_probe(*a, **k):
+        raise AssertionError("a valid certificate must skip the ladder")
+
+    monkeypatch.setattr(TM, "certify_fast_modes", no_probe)
+    second = TM.OmniVGGT.from_safetensors(str(path), cfg, device="cpu")
+    assert _modes(second.config) == _modes(first.config)
+    forced = TM.OmniVGGT.from_safetensors(str(path), cfg, device="cpu", head_dtype="float32")
+    assert _modes(forced.config) == ("float32", False, "none", "none", "none")
+    # the default load certifies nothing that quantises, and says in the
+    # certificate that its ladder was cut; the whole ladder (the JAX
+    # package's) is asked for, and then does not take that verdict for its own
+    assert _modes(first.config)[2:] == ("none", "none", "none")
+    cert = json.loads((tmp_path / "model.safetensors.certified.json").read_text())
+    assert cert["gates"]["quantising_rungs"] is False
+    monkeypatch.undo()
+    whole = []
+    ladder = TM.certify_fast_modes
+    monkeypatch.setattr(TM, "certify_fast_modes",
+                        lambda *a, **k: (whole.append(k["quantising_rungs"]), ladder(*a, **k))[1])
+    TM.OmniVGGT.from_safetensors(str(path), cfg, device="cpu", quantising_rungs=True)
+    assert whole == [True]
+    cert = json.loads((tmp_path / "model.safetensors.certified.json").read_text())
+    assert cert["gates"] == TM.certification_gates()

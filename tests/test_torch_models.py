@@ -224,7 +224,15 @@ def test_init_weights_is_seeded():
 
 
 def test_unported_modes_raise():
+    """The int8 modes build now; what is still unported (a SwiGLU DINOv2)
+    and values outside the config's contract keep raising."""
+    from omnivggt_tpu_torch.models import dinov2 as TD
+
+    fast = dataclasses.replace(
+        TC.tiny_test_config(), trunk_quant="int8", attn_quant="int8", head_quant="int8"
+    )
+    assert TM.OmniVGGT(fast, device="cpu").config.depth_head.quant == "int8"
     with pytest.raises(NotImplementedError):
-        TM.OmniVGGT(dataclasses.replace(TC.tiny_test_config(), trunk_quant="int8"), device="cpu")
+        TD.DinoVisionTransformer(dataclasses.replace(TC.vit_small(), ffn_layer="swiglu"))
     with pytest.raises(ValueError):
         TC.OmniVGGTConfig(attn_quant="int4")

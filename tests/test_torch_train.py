@@ -367,3 +367,21 @@ def test_train_cli_tiny(scenes, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--data_root", str(scenes), "--tiny", "--steps", "1"])
+
+
+def test_train_cli_checkpoint_load_certifies_no_fast_mode(scenes, tmp_path):
+    """--checkpoint starts training from a reference checkpoint with the
+    config's own head dtype: the load runs no certification ladder (no
+    certificate appears), so no serving-only mode reaches make_train_step."""
+    from safetensors.torch import save_file
+
+    from omnivggt_tpu_torch.tools import train
+
+    src = TM.OmniVGGT(TC.tiny_test_config(), device="cpu", seed=5)
+    path = tmp_path / "model.safetensors"
+    save_file({k: v.contiguous() for k, v in src.state_dict().items()}, str(path))
+    state = train.main(["--data_root", str(scenes), "--tiny", "--device", "cpu", "--views", "2",
+                        "--target_size", "28", "--ckpt_dir", str(tmp_path / "run"),
+                        "--warmup", "1", "--steps", "1", "--checkpoint", str(path)])
+    assert state.step == 1
+    assert not (tmp_path / "model.safetensors.certified.json").exists()
