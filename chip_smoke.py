@@ -61,6 +61,36 @@ Phases, each of which fails the run (non-zero exit, no result line):
   9. ladder: certify_fast_modes on the same weights, every rung's readings,
      the config returned, and what the ladder without the quantising rungs
      (from_safetensors' default) returns.
+ 10. ring kernels (run with the other kernel phases): the two ring wrappers
+     over 4 logical ranks at the flagship's global-attention shape
+     (1, 10992, 16, 64), nl = 2748, ragged (ring_flash_attention_hbm:
+     bounded and running-max, bf16 and int8), at (1, 16384, 16, 64), two
+     query chunks a rank, and at the S=4 224 px shape (1, 1044, 16, 64)
+     that the main path gives it (ring_flash_attention: bounded bf16 and
+     int8), and one 8-rank case; each against ring_attention_plain within
+     2^-7 max|v|, the bounded bf16 ones also against the head-major kernel
+     within RK.reorder_tolerance (the order of the fp32 sums only); every
+     rank's last-read slot must hold its right neighbour's shard exactly;
+     quant_ring's grids on the card equal to the CPU's; with the last
+     rotation left out the output must leave the tolerance; times beside
+     the plain version's, SDPA over the whole sequence, and the bound,
+     whose bytes include the rotation ((n - 1) shards of K and V read and
+     written once each);
+ 11. sharded flagship forward, after 5 on the same model: S=8 at 518 px on
+     make_mesh(data=1, seq=4) under "ring_fused", "ring" and "allgather",
+     then under attn_quant="int8" "ring_fused" (the int8 ring) and
+     "allgather" (K quantised per shard on the max over the ranks, gathered
+     as int8 and handed over as k_quant: the gathered grid must equal the
+     whole K's), the last also with the stream flag on; exact launch counts
+     worked out from the rank count, no unfused fallback; each against the
+     single-device forward under the serving gate and, for the bf16
+     strategies, the same-answer gate; one S=4 224 px forward under
+     "ring_fused", whose shards (nl = 261) meet ring_flash_attention's own
+     contract; latencies beside the single-device forward's;
+ 12. sharded serving: a bucketed InferenceSession under "allgather" answers
+     requests of 5 and 8 frames, the padded one against an exact-mode
+     session; under "ring_fused" the constructor refuses bucket mode and
+     serves exact mode.
 Bounds (bound_ms) are the larger of the bytes each kernel must move over
 3.35 TB/s and its matrix-product operations over the H100 SXM's published
 peak for their type: 989 TFLOP/s bf16 dense, 1,979 TOP/s int8, 67 TFLOP/s
@@ -110,6 +140,8 @@ REPLACES = {
     "flash_attention_packed_stream": "omnivggt_tpu/ops/pallas/flash_attention.py:1034",
     "conv3x3_folded": "omnivggt_tpu/ops/pallas/conv3x3.py:99",
     "layout_probes": "tools/probe_mosaic_layouts.py:37",
+    "ring_flash_attention": "omnivggt_tpu/ops/pallas/ring_attention.py:91",
+    "ring_flash_attention_hbm": "omnivggt_tpu/ops/pallas/ring_attention.py:260",
 }
 SOURCES = {
     "flash_attention": "omnivggt_tpu_torch/csrc/flash_attention.cu",
@@ -120,11 +152,15 @@ SOURCES = {
     "flash_attention_packed_stream": "omnivggt_tpu_torch/csrc/flash_attention.cu",
     "conv3x3_folded": "omnivggt_tpu_torch/csrc/conv3x3.cu",
     "layout_probes": "omnivggt_tpu_torch/csrc/layout_probes.cu",
+    "ring_flash_attention": "omnivggt_tpu_torch/csrc/ring_attention.cu",
+    "ring_flash_attention_hbm": "omnivggt_tpu_torch/csrc/ring_attention.cu",
 }
+N_RANKS = 4  # logical ranks of the sharded phases
 # kernel families of the profiled device time, first match wins
 FAMILIES = (
     ("flash_fwd_head_major", ("flash_fwd_head_major",)),
     ("flash_fwd_token_major", ("flash_fwd_token_major",)),
+    ("ring_step / ring_stage", ("ring_step", "ring_stage")),
     ("conv3x3 kernel", ("conv3x3_bf16", "conv3x3_fp32")),
     ("flash_bwd_dq", ("flash_bwd_dq",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv",)),
@@ -1120,6 +1156,356 @@ def ladder_phase(model, cfg):
           f"trunk_quant={cut.trunk_quant} attn_quant={cut.attn_quant} head_quant={cut.head_quant}")
 
 
+def check_ring(RK, FK, dev):
+    """The two ring wrappers against ring_attention_plain, the head-major
+    kernel, their own slots and a planted fault, over logical ranks."""
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    H, D = 16, 64
+    hbm, vmem = "ring_flash_attention_hbm", "ring_flash_attention"
+    # (wrapper, label, ranks, N, bounded, int8, on the main path)
+    cases = [
+        (hbm, "S=8 518 px, bounded", 4, S * P_TOKENS, True, False, True),
+        (hbm, "S=8 518 px, running-max", 4, S * P_TOKENS, False, False, False),
+        (hbm, "S=8 518 px, bounded int8", 4, S * P_TOKENS, True, True, True),
+        (hbm, "S=8 518 px, running-max int8", 4, S * P_TOKENS, False, True, False),
+        (hbm, "S=8 518 px, 8 ranks, bounded", 8, S * P_TOKENS, True, False, False),
+        (vmem, "two chunks a rank, bounded", 4, 16384, True, False, False),
+        (vmem, "two chunks a rank, bounded int8", 4, 16384, True, True, False),
+        (vmem, "S=4 224 px, bounded", 4, 4 * 261, True, False, True),
+        (vmem, "S=4 224 px, bounded int8", 4, 4 * 261, True, True, True),
+    ]
+    results = {vmem: new_results(), hbm: new_results()}
+    inputs, lib = {}, {}
+    for name, label, n, N, bounded, int8, on_path in cases:
+        if N not in inputs:
+            inputs.clear()  # one shape's tensors at a time
+            torch.cuda.empty_cache()
+            shape = (1, N, H, D)
+            # q scaled per head from 2 to 8: a peaked softmax, so the output is
+            # of v's size and a shard read twice or left out shows
+            scale = torch.linspace(2.0, 8.0, H, device=dev)[None, None, :, None]
+            q = (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
+            k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+            inputs[N] = (q, k, v)
+            lib[N] = sdpa_ms(q, k, v, None)
+        q, k, v = inputs[N]
+        nl = N // n
+        mesh = make_mesh(data=1, seq=n, device=dev)
+        wrapper = getattr(RK, name)
+        chunk = RK.CHUNK_Q if name == vmem else None
+
+        def run():
+            return RK.ring_flash_attention(q, k, v, mesh, "seq", bounded_logits=bounded,
+                                           qk_int8=int8)
+
+        RK.reset_launches()
+        out = run()
+        torch.cuda.synchronize()
+        if RK.launches() != {vmem: int(name == vmem), hbm: int(name == hbm)}:
+            raise AssertionError(f"ring [{label}]: dispatched to {RK.launches()}, expected {name}")
+        again, slots = RK._ring_launch(wrapper, q, k, v, n, bounded, int8, chunk_q=chunk)
+        bad, _ = RK._ring_launch(wrapper, q, k, v, n, bounded, int8, chunk_q=chunk,
+                                 skip_rotation_at=n - 2)
+        torch.cuda.synchronize()
+        if not torch.equal(out, again):
+            raise AssertionError(f"ring [{label}]: two runs on the same inputs differ")
+
+        # every rank's last-read slot holds its right neighbour's shard
+        held_k, held_v = k, v
+        if int8:
+            on_card = RK.quant_ring(q, k, v, n, D**-0.5)
+            on_cpu = RK.quant_ring(q.cpu(), k.cpu(), v.cpu(), n, D**-0.5)
+            if not all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)):
+                raise AssertionError(f"ring [{label}]: quant_ring gives another grid on the card")
+            held_k, held_v = on_card[1], on_card[2]
+        last = (n - 1) % 2
+        turned = all(
+            torch.equal(slots[r][last, kv],
+                        x[0, (r + 1) % n * nl:((r + 1) % n + 1) * nl].transpose(0, 1))
+            for r in range(n) for kv, x in enumerate((held_k, held_v))
+        )
+        del slots, again
+
+        f = [x.float() for x in (q, k, v)]
+        ref = RK.ring_attention_plain(*f, n, bounded, chunk_q=chunk, qk_int8=int8)
+        del f
+        # P rounded to bf16 and the output rounded to bf16, each within
+        # 2^-8 max|v|; the int8 form shares its plain version's grids
+        tol = 2.0**-7 * v.float().abs().max().item()
+        err = (out.float() - ref).abs().max().item()
+        fault_err = (bad.float() - ref).abs().max().item()
+        line = (f"kernel {name} [{label}] q(1, {N}, {H}, {D}) over {n} ranks, nl {nl}: "
+                f"max_abs_err {err:.3e} tol {tol:.3e} (2^-7 max|v|, against "
+                f"ring_attention_plain{' on the grids of quant_ring (equal to the CPU grids: True)' if int8 else ''}); "
+                f"slots rotated (last-read slot == right neighbour's shard, exactly): {turned}; "
+                f"planted fault (last rotation left out) {fault_err:.3e} (must exceed tol)")
+        sharp_ok = True
+        if bounded and not int8:
+            head_major = FK.flash_attention(q, k, v, bounded_logits=True).float()
+            ratio = ((out.float() - head_major).abs()
+                     / RK.reorder_tolerance(head_major, v, N)).max().item()
+            sharp_ok = ratio <= 1.0
+            line += (f"; against the head-major kernel: worst err/tol {ratio:.3f} "
+                     f"(RK.reorder_tolerance: the order of the fp32 sums and one bf16 step)")
+            del head_major
+        del ref, bad
+
+        ms = median_ms(run, 10)
+        plain_ms = median_ms(
+            lambda: RK.ring_attention_plain(q, k, v, n, bounded, chunk_q=chunk, qk_int8=int8), 2)
+        quant_ms = median_ms(lambda: RK.quant_ring(q, k, v, n, D**-0.5), 5) if int8 else 0.0
+        products = 2 * H * N * N * D  # one of the two products, over all ranks
+        esize = 1 if int8 else 2
+        io_bytes = 2 * H * D * 4 * N  # bf16 q, k, v read and o written once
+        rotation = 2 * (n - 1) * 2 * H * D * N * esize  # (n-1) x (K + V), read and written
+        bnd = (bound(products, io_bytes + rotation, int8_ops=products) if int8
+               else bound(2 * products, io_bytes + rotation))
+        line += (f" | wrapper {ms:.3f} ms"
+                 + (f" of which quant_ring (plain torch ops) {quant_ms:.3f} ms" if int8 else "")
+                 + f", plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}; rotation "
+                 f"{rotation / 1e6:.1f} MB of {(io_bytes + rotation) / 1e6:.1f} MB), sdpa over the "
+                 f"whole sequence {lib[N]:.3f} ms")
+        print(line)
+        if not (np.isfinite(err) and err <= tol and sharp_ok):
+            raise AssertionError(f"{name} [{label}] disagrees with its plain version")
+        if not turned:
+            raise AssertionError(f"{name} [{label}]: the slots do not hold the rotated shards")
+        if not fault_err > tol:
+            raise AssertionError(f"{name} [{label}]: the planted fault passes the check")
+        r = results[name]
+        r["errs"].append(err)
+        if on_path:
+            r["ms"].append(ms)
+            r["plain_ms"].append(plain_ms)
+            r["bound"].append(bnd)
+            r["library_ms"].append(lib[N])
+        del out
+    inputs.clear()
+    torch.cuda.empty_cache()
+    return results
+
+
+def np_outputs(TM, preds):
+    return {k: preds[k].float().cpu().numpy() for k in TM.PROBE_KEYS}
+
+
+def sharded_phase(model, cfg, inputs, dev, card, FK, RK):
+    """The flagship forward sharded over N_RANKS logical ranks under every
+    strategy, against the single-device forward; returns the ring wrappers'
+    launches on this path."""
+    from omnivggt_tpu_torch.models import omnivggt as TM
+    from omnivggt_tpu_torch.ops import attention as TA
+    from omnivggt_tpu_torch.parallel import attention as PA
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh
+    from omnivggt_tpu_torch.parallel.sharding import ModelSharding
+
+    n = N_RANKS
+    mesh = make_mesh(data=1, seq=n, device=dev)
+    depth, dino = cfg.aggregator.depth, cfg.aggregator.backbone.depth
+    cfg_q = dataclasses.replace(cfg, attn_quant="int8")
+    nl = S * P_TOKENS // n
+    print(f"sharded forward: mesh (1 x {n}) of logical ranks on {dev}, S={S} {IMG}px, "
+          f"{nl} tokens a rank; fits_hbm_ring {RK.fits_hbm_ring(nl)}")
+
+    def counts():
+        return {**FK.launches(), **RK.launches(),
+                "unfused_fallbacks": PA.fused_ring_attention.unfused_fallbacks}
+
+    def reset():
+        FK.reset_launches()
+        RK.reset_launches()
+        PA.fused_ring_attention.unfused_fallbacks = 0
+
+    def expect(**kw):
+        # frame and DINOv2 attention: the rows strategy, one packed launch
+        # per rank's rows
+        base = {"flash_attention": 0, "flash_attention_packed": n * (depth + dino),
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                "flash_attention_int8": 0, "flash_attention_packed_stream": 0,
+                "ring_flash_attention": 0, "ring_flash_attention_hbm": 0,
+                "unfused_fallbacks": 0}
+        return {**base, **kw}
+
+    def timed(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    def gate(label, ref, got, same_answer):
+        readings = TM._probe_readings(ref, got)
+        print(f"sharded gate [{label}] vs the single-device forward: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+              + f" (limits pose {POSE_TOL:g}, median relative {REL_TOL:g}"
+              + (f"; same answer: dense median relative <= 2^-10 = {2.0**-10:.3e})" if same_answer
+                 else ")"))
+        if TM._probe_failures(ref, got, POSE_TOL, REL_TOL):
+            raise AssertionError(f"sharded forward fails the serving gate: {label}")
+        if same_answer and not all(v <= 2.0**-10 for k, v in readings.items()
+                                   if k != "pose_enc_maxabs"):
+            raise AssertionError(f"sharded forward is not the single-device answer: {label}")
+
+    # the first n K shards on their way to the gather, and what they gather to
+    shards = []
+
+    def spy_on(mod, name):
+        real = getattr(mod, name)
+
+        def spy(x, *args, **kw):
+            out = real(x, *args, **kw)
+            if kw.get("amax_reduce") is not None and len(shards) < n:
+                shards.append((x, out))
+            return out
+
+        setattr(mod, name, spy)
+        return real
+
+    path = {}
+    with torch.inference_mode():
+        refs, single_ms = {}, {}
+        for key, config in (("bf16", cfg), ("int8", cfg_q)):
+            model.config = config
+            refs[key] = np_outputs(TM, model(**inputs))
+            single_ms[key] = timed(lambda: model(**inputs))
+        # (label, strategy, config key, stream flag, expected launches)
+        cases = [
+            ("ring_fused", "ring_fused", "bf16", False, expect(ring_flash_attention_hbm=depth)),
+            ("ring", "ring", "bf16", False, expect()),
+            ("allgather", "allgather", "bf16", False, expect(flash_attention=n * depth)),
+            ("ring_fused int8", "ring_fused", "int8", False,
+             expect(ring_flash_attention_hbm=depth)),
+            ("allgather int8", "allgather", "int8", False,
+             expect(flash_attention_int8=n * depth)),
+            ("allgather int8, stream flag on", "allgather", "int8", True,
+             expect(flash_attention_packed_stream=n * depth)),
+        ]
+        for label, strategy, key, stream, want in cases:
+            sharding = ModelSharding(mesh, strategy)
+            model.config = cfg_q if key == "int8" else cfg
+            TA._STREAM_ATTN = stream
+            quantiser = "quant_k_token_major" if stream else "quant_per_head"
+            real = spy_on(FK, quantiser) if strategy == "allgather" and key == "int8" else None
+            try:
+                model(**inputs, sharding=sharding)  # warm-up
+                shards.clear()
+                reset()
+                preds = model(**inputs, sharding=sharding)
+                torch.cuda.synchronize()
+                got = counts()
+                ms = timed(lambda: model(**inputs, sharding=sharding))
+            finally:
+                TA._STREAM_ATTN = False
+                model.config = cfg
+                if real is not None:
+                    setattr(FK, quantiser, real)
+            print(f"sharded forward [{label}]: launches {got}")
+            if got != want:
+                raise AssertionError(f"sharded launches [{label}] {got}, expected {want}")
+            if real is not None:
+                whole = real(torch.cat([x for x, _ in shards], dim=1))
+                same = (len(shards) == n
+                        and torch.equal(torch.cat([o[0] for _, o in shards], dim=1), whole[0])
+                        and all(torch.equal(o[1], whole[1]) for _, o in shards))
+                print(f"  pre-gathered K [{label}]: the {n} shards' int8 values, gathered, and "
+                      f"their scales equal {quantiser} of the whole K: {same}")
+                if not same:
+                    raise AssertionError(f"the pre-gathered int8 K is on another grid: {label}")
+                shards.clear()
+            out = np_outputs(TM, preds)
+            del preds
+            for name, shape in (("pose_enc", (1, S, 9)), ("depth", (1, S, IMG, IMG, 1))):
+                if out[name].shape != shape or not np.isfinite(out[name]).all():
+                    raise AssertionError(f"sharded {name} [{label}] malformed or non-finite")
+            # int8: each rank's q scales are its own, so the sharded answer is
+            # the single-device one only up to the int8 noise the gate allows
+            gate(label, refs[key], out, same_answer=key == "bf16")
+            if key == "int8":
+                readings = TM._probe_readings(refs["bf16"], out)
+                print("  against the bf16 single-device forward (reported): "
+                      + ", ".join(f"{k} {v:.3e}" for k, v in readings.items()))
+            print(f"sharded forward S={S} {IMG}px [{label}]: {ms:.2f} ms median of 3 beside the "
+                  f"single-device forward's {single_ms[key]:.2f} ms in this run; card {card}")
+            if label == "ring_fused":
+                path["ring_flash_attention_hbm"] = got["ring_flash_attention_hbm"]
+
+        fused = ModelSharding(mesh, "ring_fused")
+        profile_breakdown(f"sharded forward S={S}, ring_fused, {n} logical ranks",
+                          lambda: model(**inputs, sharding=fused))
+
+        # S=4 at 224 px: 261 tokens a frame and a rank, within one block, so
+        # the shards meet ring_flash_attention's own contract
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(7)
+        small = torch.rand((4, 224, 224, 3), generator=gen, device=dev)
+        ref = np_outputs(TM, model(small))
+        sharding = ModelSharding(mesh, "ring_fused")
+        model(small, sharding=sharding)
+        reset()
+        preds = model(small, sharding=sharding)
+        torch.cuda.synchronize()
+        got = counts()
+        print(f"sharded forward [ring_fused, S=4 224 px, 261 tokens a rank]: launches {got}")
+        # 261 tokens a frame are below the attention dispatch's kernel
+        # length (FLASH_MIN_SEQ), so frame and DINOv2 attention run plain
+        # on every rank; the ring strategy streams whatever the length
+        want = expect(flash_attention_packed=0, ring_flash_attention=depth)
+        if got != want:
+            raise AssertionError(f"sharded launches [S=4 224 px] {got}, expected {want}")
+        gate("ring_fused, S=4 224 px", ref, np_outputs(TM, preds), same_answer=True)
+        path["ring_flash_attention"] = got["ring_flash_attention"]
+    return path
+
+
+def sharded_serving_phase(model, dev, card):
+    """A bucketed session under the allgather strategy; the ring strategies'
+    refusal of bucket mode and their exact-mode service."""
+    from omnivggt_tpu_torch import serving as TS
+    from omnivggt_tpu_torch.models import omnivggt as TM
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh
+    from omnivggt_tpu_torch.parallel.sharding import ModelSharding
+
+    mesh = make_mesh(data=1, seq=N_RANKS, device=dev)
+    reqs = {5: request_inputs(5, 31, False), 8: request_inputs(8, 32, True)}
+    bucketed = TS.InferenceSession(model, buckets=(4, 8), sharding=ModelSharding(mesh, "allgather"))
+    exact = TS.InferenceSession(model, buckets=(4, 8), pad_mode="exact")
+
+    def gate(label, ref, got):
+        readings = TM._probe_readings(ref, got)
+        print(f"sharded serving gate [{label}]: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+              + f" (limits pose {POSE_TOL:g}, median relative {REL_TOL:g})")
+        if TM._probe_failures(ref, got, POSE_TOL, REL_TOL):
+            raise AssertionError(f"sharded serving gate failed: {label}")
+
+    for n in (5, 8):
+        out = bucketed.infer(**reqs[n])
+        if out["depth"].shape != (n, IMG, IMG, 1) or not all(
+                np.isfinite(out[k]).all() for k in TM.PROBE_KEYS):
+            raise AssertionError(f"sharded session: S={n} answer malformed or non-finite")
+        gate(f"allgather, buckets (4, 8), S={n} vs an unsharded exact-mode session",
+             exact.infer(**reqs[n]), out)
+    ms = statistics.median(timed_requests(bucketed, reqs[8], 3))
+    print(f"sharded serving request S=8 {IMG}px [allgather, {N_RANKS} logical ranks]: {ms:.2f} ms "
+          f"median of 3; forwards served {sorted(bucketed._served)}; card {card}")
+    ring = ModelSharding(mesh, "ring_fused")
+    try:
+        TS.InferenceSession(model, buckets=(4, 8), sharding=ring)
+    except ValueError as e:
+        print(f"sharded serving: bucket mode under ring_fused refused: {e}")
+    else:
+        raise AssertionError("a bucketed session under ring_fused was not refused")
+    ring_session = TS.InferenceSession(model, sharding=ring, pad_mode="exact")
+    gate("ring_fused, exact mode, S=8", exact.infer(**reqs[8]), ring_session.infer(**reqs[8]))
+
+
 def synthetic_inputs(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -1159,6 +1545,7 @@ def main() -> int:
     from omnivggt_tpu_torch.ops.kernels import build
     from omnivggt_tpu_torch.ops.kernels import conv3x3 as CK
     from omnivggt_tpu_torch.ops.kernels import flash_attention as FK
+    from omnivggt_tpu_torch.ops.kernels import ring_attention as RK
     from omnivggt_tpu_torch.tools import probe_layouts as PL
     from omnivggt_tpu_torch.utils.geometry import (
         pose_encoding_to_extri_intri,
@@ -1166,9 +1553,10 @@ def main() -> int:
     )
 
     t0 = time.perf_counter()
-    logs = build.build_all(FK.SOURCES + (CK.SOURCE, PL.SOURCE))  # every nvcc at once
+    logs = build.build_all(FK.SOURCES + (CK.SOURCE, PL.SOURCE, RK.SOURCE))  # every nvcc at once
     FK.load_kernels()
     CK.load_kernels()
+    RK.load_kernels()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, one process per source: "
           f"{', '.join(sorted(set(SOURCES.values())))})")
     for log in logs.values():
@@ -1179,6 +1567,7 @@ def main() -> int:
     kernel_results = check_kernels(FK, dev)
     kernel_results.update(check_backward(FK, dev))
     kernel_results.update(check_serving_attention(FK, dev))
+    kernel_results.update(check_ring(RK, FK, dev))
     kernel_results.update(check_conv(CK, dev))
     probe_results, probe_launches = probes_phase()
     kernel_results.update(probe_results)
@@ -1271,7 +1660,11 @@ def main() -> int:
         f"({S / fwd_ms * 1e3:.3f} views/s), plain-attention forward {plain_fwd_ms:.2f} ms, "
         f"peak memory {peak_gb:.3f} GB; card {card}"
     )
-    del preds, ref, inputs
+    del preds, ref
+    torch.cuda.empty_cache()
+    ring_launches = sharded_phase(model, cfg, inputs, dev, card, FK, RK)
+    sharded_serving_phase(model, dev, card)
+    del inputs
     torch.cuda.empty_cache()
     serving_launches = serving_phase(model, cfg, dev, card, FK, CK)
     ladder_phase(model, cfg)
@@ -1280,7 +1673,8 @@ def main() -> int:
     train_launches = train_phase(FK, cfg, dev, card)
     # a kernel's launches on the main path that runs it: one train step, or
     # one served S=8 request for the serving kernels; the probes' in their phase
-    path_launches = {**serving_launches, "layout_probes": probe_launches}
+    # the ring wrappers' in the sharded flagship forwards
+    path_launches = {**serving_launches, **ring_launches, "layout_probes": probe_launches}
     path_launches.update({k: n for k, n in train_launches.items() if n})
 
     # per kernel: the largest error over its checked variants; the mean

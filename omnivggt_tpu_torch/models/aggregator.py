@@ -166,6 +166,7 @@ def apply(
     output_layers: Tuple[int, ...],
     dtype=torch.float32,
     attn_impl: str = "auto",
+    sharding=None,
     allow_bounded: bool = True,
     approx_gelu: bool = False,
     pad_tokens: bool = True,
@@ -184,6 +185,9 @@ def apply(
     num_valid_frames * P tokens since the token order is frame-major. Frame
     attention and the patch embedder are per frame and need no mask.
     int8_dense (a trunk_quant mode) and int8_qk: the blocks' fast modes.
+    sharding: a ModelSharding (parallel/sharding.py): the frame blocks and
+    DINOv2 attend under its frame shard, the global blocks under its global
+    shard (which takes the padded frames' mask only under "allgather").
 
     remat: recompute each layer pair in the backward instead of keeping its
     activations (only while grad is enabled). train_generator: a generator
@@ -201,6 +205,8 @@ def apply(
     P = psi + n_patch
     dev = images.device
     aux = aux or AuxInputs()
+    frame_shard = sharding.frame_attn_shard if sharding is not None else None
+    global_shard = sharding.global_attn_shard if sharding is not None else None
 
     mean = torch.tensor(_RESNET_MEAN, dtype=dtype, device=dev)
     std = torch.tensor(_RESNET_STD, dtype=dtype, device=dev)
@@ -210,7 +216,7 @@ def apply(
         patch_tokens = L.patch_embed(p.patch_embed, imgs)
     else:
         patch_tokens = dinov2.apply(
-            p.patch_embed, imgs, attn_impl=attn_impl, approx_gelu=approx_gelu,
+            p.patch_embed, imgs, attn_impl=attn_impl, shard=frame_shard, approx_gelu=approx_gelu,
             int8_dense=int8_dense, int8_qk=int8_qk, pad_tokens=pad_tokens,
         )
 
@@ -274,7 +280,7 @@ def apply(
 
     def frame_step(tokens, i, keep):
         x = L.block(p.frame_blocks[i], tokens.reshape(B * S, P, C), cos_f, sin_f, **kw,
-                    drop_path_rate=dp_rate, drop_path_keep=keep)
+                    shard=frame_shard, drop_path_rate=dp_rate, drop_path_keep=keep)
         x = x.reshape(B, S, P, C)
         # camera re-injection into the camera token, injection group i + 1
         pe_tok = L.linear(p.pose_embeddings[i + 1], pose_enc) * cam_mask_f
@@ -283,7 +289,8 @@ def apply(
 
     def global_step(tokens, i, keep):
         g = L.block(p.global_blocks[i], tokens.reshape(B, S * P, C), cos_g, sin_g, **kw,
-                    drop_path_rate=dp_rate, drop_path_keep=keep, kv_valid=kv_valid_tokens)
+                    shard=global_shard, drop_path_rate=dp_rate, drop_path_keep=keep,
+                    kv_valid=kv_valid_tokens)
         return g.reshape(B, S, P, C)
 
     def pair(tokens, i, keep_first, keep_second):

@@ -81,6 +81,7 @@ def apply(
     images: torch.Tensor,
     *,
     attn_impl: str = "auto",
+    shard=None,
     approx_gelu: bool = False,
     int8_dense=False,
     int8_qk: bool = False,
@@ -88,7 +89,8 @@ def apply(
 ) -> torch.Tensor:
     """(B, H, W, 3) channels-last, mean/std-normalised images -> (B, gh*gw, D)
     final-LayerNorm'd patch tokens, in the images' dtype. int8_dense (a
-    trunk_quant mode) and int8_qk are the blocks' fast modes."""
+    trunk_quant mode) and int8_qk are the blocks' fast modes. shard: an
+    AttnShard (the rows strategy) for the blocks' attention."""
     cfg = p.cfg
     B, H, W, _ = images.shape
     gh, gw = H // cfg.patch_size, W // cfg.patch_size
@@ -111,7 +113,7 @@ def apply(
         x = torch.nn.functional.pad(x, (0, 0, 0, n_pad))
     for blk in p.blocks:
         x = L.block(
-            blk, x, ln_eps=cfg.ln_eps, attn_impl=attn_impl,
+            blk, x, ln_eps=cfg.ln_eps, attn_impl=attn_impl, shard=shard,
             kv_valid=n_valid if n_pad else None, approx_gelu=approx_gelu,
             int8_dense=int8_dense, int8_qk=int8_qk,
         )

@@ -160,6 +160,7 @@ class OmniVGGT(nn.Module):
         camera_gt_index: Optional[List[int]] = None,
         attn_impl: str = "auto",
         num_valid_frames=None,
+        sharding=None,
     ):
         device = next(self.parameters()).device
         images = torch.as_tensor(images, device=device)
@@ -170,7 +171,7 @@ class OmniVGGT(nn.Module):
             depth_gt_index, camera_gt_index, device=device,
         )
         return apply(self, images, self.config, aux, attn_impl=attn_impl,
-                     num_valid_frames=num_valid_frames)
+                     num_valid_frames=num_valid_frames, sharding=sharding)
 
 
 def apply(
@@ -180,6 +181,7 @@ def apply(
     aux: Optional[AuxInputs] = None,
     *,
     attn_impl: str = "auto",
+    sharding=None,
     pad_tokens: bool = True,
     remat: bool = False,
     train_generator: Optional[torch.Generator] = None,
@@ -187,6 +189,10 @@ def apply(
 ):
     """Full forward pass on (B, S, H, W, 3) (or (S, H, W, 3)) channels-last
     images in [0, 1]. Returns the prediction dict (fp32 but `images`).
+
+    sharding: a parallel.sharding.ModelSharding: the aggregator's attention
+    runs under its strategies over the mesh's logical ranks (inference; the
+    ring kernels have no backward).
 
     num_valid_frames: an int or an integer scalar tensor on the images'
     device; frames at or past it are shape padding (bucketed serving) and
@@ -206,6 +212,7 @@ def apply(
         output_layers=needed_layers(cfg),
         dtype=cfg.trunk_dtype,
         attn_impl=attn_impl,
+        sharding=sharding,
         allow_bounded=cfg.bounded_attn_logits,
         approx_gelu=cfg.approx_gelu,
         pad_tokens=pad_tokens,

@@ -145,26 +145,39 @@ def _scale_of(amax, floor):
     return floored / torch.full_like(floored, 127.0)
 
 
-def quant_per_head(x, valid=None):
+def quant_per_head(x, valid=None, amax_reduce=None):
     """Counterpart of `_quant_per_head`: (B, N, H, D) float -> (int8 values
     of the same shape, (B, H) fp32 scales), symmetric max-abs per head,
     x8 = round(x / scale) (half to even). Rows at or past `valid` are left
     out of the max-abs and clipped to +-127, so padded frames cannot move
-    the real frames' grid."""
-    scale = _scale_of(_abs_max_per_head(x, valid), 1e-30)
+    the real frames' grid.
+
+    amax_reduce: a callable applied to the (B, H) max-abs before the scale
+    is formed. The sharded strategies pass the max over the ranks
+    (parallel/attention.py), so a local shard is quantised on the grid of
+    the gathered array, bit for bit (a max over more rows only grows the
+    scale, so nothing needs clipping)."""
+    amax = _abs_max_per_head(x, valid)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    scale = _scale_of(amax, 1e-30)
     x8 = torch.round(x.float() / scale[:, None, :, None])
     if valid is not None:
         x8 = x8.clamp_(-127.0, 127.0)
     return x8.to(torch.int8), scale
 
 
-def quant_token_major(x, valid=None):
+def quant_token_major(x, valid=None, amax_reduce=None):
     """The stream kernel's quantiser (`_flash_packed_stream_forward`):
     (B, N, H, D) float -> (int8 values, (B, H) fp32 scales, (B, H) fp32
     inverse scales), x8 = round(x * (1 / scale)): a multiplication by the
     reciprocal where `quant_per_head` divides. Rows at or past `valid` are
-    left out of the max-abs and clipped."""
-    scale = _scale_of(_abs_max_per_head(x, valid), 1e-30)
+    left out of the max-abs and clipped. amax_reduce: as in
+    `quant_per_head`."""
+    amax = _abs_max_per_head(x, valid)
+    if amax_reduce is not None:
+        amax = amax_reduce(amax)
+    scale = _scale_of(amax, 1e-30)
     inv = 1.0 / scale
     x8 = torch.round(x.float() * inv[:, None, :, None])
     if valid is not None:
@@ -172,11 +185,12 @@ def quant_token_major(x, valid=None):
     return x8.to(torch.int8), scale, inv
 
 
-def quant_k_token_major(k):
+def quant_k_token_major(k, amax_reduce=None):
     """Counterpart of `quant_k_token_major`: (B, Nk, H, D) float ->
     ((B, Nk, H*D) int8 token-major, (B, H) fp32 scales), the `k_quant`
-    argument of `flash_attention_packed_stream`."""
-    k8, scale, _ = quant_token_major(k)
+    argument of `flash_attention_packed_stream`. amax_reduce: as in
+    `quant_per_head` (a local K shard on the gathered array's grid)."""
+    k8, scale, _ = quant_token_major(k, amax_reduce=amax_reduce)
     return k8.reshape(k.shape[0], k.shape[1], -1), scale
 
 

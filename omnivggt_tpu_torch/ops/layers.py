@@ -313,6 +313,7 @@ def attention(
     *,
     ln_eps: float = 1e-5,
     impl: str = "auto",
+    shard=None,
     kv_valid=None,
     allow_bounded: bool = True,
     int8_dense=False,
@@ -322,6 +323,8 @@ def attention(
     per-head-dim q/k LayerNorm, RoPE on q and k from (N, head_dim) tables.
     int8_dense (a trunk_quant mode) runs qkv and proj W8A8; int8_qk asks
     the flash kernels for int8 scores (config.attn_quant, serving only).
+    shard: an AttnShard (parallel/sharding.py) that runs the attention
+    itself under a mesh-parallel strategy; int8_qk is passed to it as is.
 
     The fixed-max softmax is used when qk-norm is present and allow_bounded
     holds: after the norm, |q.k|/sqrt(D) <= sqrt(D)*(max|g_q|+max|b_q|)*
@@ -339,9 +342,14 @@ def attention(
         q = apply_rope(q, rope_cos, rope_sin)
         k = apply_rope(k, rope_cos, rope_sin)
     bounded = allow_bounded and p.q_norm is not None
-    o = scaled_dot_product_attention(
-        q, k, v, impl=impl, kv_valid=kv_valid, bounded_logits=bounded, qk_int8=int8_qk
-    )
+    if shard is not None:
+        o = shard.attend(
+            q, k, v, impl, kv_valid=kv_valid, bounded_logits=bounded, qk_int8=int8_qk
+        )
+    else:
+        o = scaled_dot_product_attention(
+            q, k, v, impl=impl, kv_valid=kv_valid, bounded_logits=bounded, qk_int8=int8_qk
+        )
     return dense(p.proj, o.reshape(B, N, C), q_res)
 
 
@@ -353,6 +361,7 @@ def block(
     *,
     ln_eps: float = 1e-5,
     attn_impl: str = "auto",
+    shard=None,
     kv_valid=None,
     allow_bounded: bool = True,
     approx_gelu: bool = False,
@@ -367,7 +376,7 @@ def block(
     use_dp = drop_path_rate > 0.0 and drop_path_keep is not None
     h = attention(
         p.attn, layer_norm(p.norm1, x, ln_eps), rope_cos, rope_sin,
-        ln_eps=ln_eps, impl=attn_impl, kv_valid=kv_valid,
+        ln_eps=ln_eps, impl=attn_impl, shard=shard, kv_valid=kv_valid,
         allow_bounded=allow_bounded, int8_dense=int8_dense, int8_qk=int8_qk,
     )
     if p.ls1 is not None:

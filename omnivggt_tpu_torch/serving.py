@@ -138,14 +138,24 @@ class InferenceSession:
         """model: an OmniVGGT (its own config and device are used); else one
         is built from `config` on `device` (default "cuda") with random
         weights from `seed`. compress_trunk stores the trunk's weights in
-        bf16 (checkpoint.cast_trunk_params). sharding is refused: this
-        package runs on one card so far."""
+        bf16 (checkpoint.cast_trunk_params). sharding: a
+        parallel.sharding.ModelSharding whose mesh lies on the model's
+        device; every forward then runs under it."""
         from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
 
-        if sharding is not None:
-            raise NotImplementedError("multi-device serving (sharding=) is not ported yet")
         if pad_mode not in ("exact", "bucket"):
             raise ValueError(f"pad_mode must be 'exact' or 'bucket', got {pad_mode}")
+        if (
+            pad_mode == "bucket"
+            and sharding is not None
+            and getattr(sharding, "global_attn", None) in ("ring", "ring_fused")
+        ):
+            raise ValueError(
+                "bucket mode masks padded frames out of attention, which the "
+                "ring strategies do not support; use "
+                "ModelSharding(..., global_attn='allgather') or "
+                "pad_mode='exact'"
+            )
         if model is None:
             model = OmniVGGT(config, device=device, seed=seed)
         if compress_trunk:
@@ -155,6 +165,7 @@ class InferenceSession:
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.buckets = tuple(sorted(buckets))
+        self.sharding = sharding
         self.pad_mode = pad_mode
         self._lock = threading.Lock()  # guards _served
         self._forward_lock = threading.Lock()  # one forward at a time on the device
@@ -283,7 +294,8 @@ class InferenceSession:
             # a device scalar: the kernels' dynamic valid-key variant, no host sync
             nv = torch.tensor(S, dtype=torch.int32, device=dev) if masked else None
             images = torch.as_tensor(stack("images"), device=dev)
-            preds = M.apply(self.model, images, self.model.config, aux, num_valid_frames=nv)
+            preds = M.apply(self.model, images, self.model.config, aux, num_valid_frames=nv,
+                            sharding=self.sharding)
             arrays = {k: v.float().cpu().numpy() for k, v in preds.items()}
         with self._lock:
             served = (*reqs[0]["exec_key"], B)

@@ -362,3 +362,171 @@ def test_int8_dense_and_conv_are_exact_on_the_card(cuda):
         want = TL.qlinear_int8(lin, x)
         got = TL.qlinear_int8(lin.to(cuda), x.to(cuda))
     torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+# ---- the ring kernels and the sharded strategies ---------------------------
+
+
+def _ring_inputs(n, nl, H, D, seed, device, q_scale=3.0, B=1):
+    # q scaled so that the softmax is peaked: the output is of v's size and a
+    # shard read twice or left out shows
+    rng = np.random.default_rng(seed)
+    shape = (B, n * nl, H, D)
+    q = rng.normal(size=shape) * q_scale
+    k, v = rng.normal(size=shape), rng.normal(size=shape)
+    return [torch.tensor(x, dtype=torch.bfloat16, device=device) for x in (q, k, v)]
+
+
+@pytest.mark.parametrize("qk_int8", [False, True])
+@pytest.mark.parametrize("bounded", [False, True])
+@pytest.mark.parametrize(
+    "n,nl,H,D,kw",
+    [
+        (4, 256, 2, 64, dict(block_q=128, block_k=128)),              # kernel 5, one chunk
+        (2, 512, 1, 64, dict(block_q=128, block_k=256, chunk_q=256)),  # kernel 5, two chunks
+        (4, 600, 3, 64, {}),                                          # kernel 6, ragged
+        (8, 75, 2, 128, {}),                                          # kernel 5, shard of two tiles
+        (3, 1100, 2, 128, {}),                                        # kernel 6, ragged, D = 128, B = 2
+        (1, 130, 2, 64, {}),                                          # one rank: no rotation
+    ],
+)
+def test_ring_kernels_match_plain(cuda, n, nl, H, D, kw, bounded, qk_int8):
+    from omnivggt_tpu_torch.ops.kernels import ring_attention as RK
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(seq=n, device=cuda)
+    q, k, v = _ring_inputs(n, nl, H, D, 3, cuda, B=2 if n == 3 else 1)
+    RK.reset_launches()
+    out = RK.ring_flash_attention(q, k, v, mesh, "seq", bounded_logits=bounded,
+                                  qk_int8=qk_int8, **kw)
+    torch.cuda.synchronize()
+    fits = nl < 512 or nl % 512 == 0  # ring_flash_attention's own contract
+    assert RK.launches() == {"ring_flash_attention": int(fits),
+                             "ring_flash_attention_hbm": int(not fits)}
+    # against the plain version on the same (int8) grid: P and the output
+    # rounded to bf16, 2^-7 max|v| as for the other forward kernels
+    ref = RK.ring_attention_plain(q.float(), k.float(), v.float(), n, bounded,
+                                  chunk_q=kw.get("chunk_q"), qk_int8=qk_int8)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    err = (out.float() - ref).abs().max().item()
+    tol = 2.0**-7 * v.float().abs().max().item()
+    assert err <= tol, (err, tol)
+    if qk_int8:  # the card's grids equal the CPU's
+        on_card = RK.quant_ring(q, k, v, n, D**-0.5)
+        on_cpu = RK.quant_ring(q.cpu(), k.cpu(), v.cpu(), n, D**-0.5)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu))
+
+
+def test_ring_rotates_its_slots_and_a_skipped_rotation_shows(cuda):
+    """After the call each rank's last-read slot holds the shard of rank
+    (r + 1) mod n, exactly; the bounded bf16 ring agrees with the head-major
+    kernel within the sums' reordering; with the last rotation left out
+    (a stale slot read twice) the output leaves the tolerance."""
+    from omnivggt_tpu_torch.ops.kernels import ring_attention as RK
+
+    n, nl, H, D = 4, 300, 2, 64
+    q, k, v = _ring_inputs(n, nl, H, D, 4, cuda)
+    out, slots = RK._ring_launch(RK.ring_flash_attention_hbm, q, k, v, n, True, False)
+    bad, _ = RK._ring_launch(RK.ring_flash_attention_hbm, q, k, v, n, True, False,
+                             skip_rotation_at=n - 2)
+    torch.cuda.synchronize()
+    last = (n - 1) % 2
+    for r in range(n):
+        src = (r + 1) % n
+        for kv, x in enumerate((k, v)):
+            want = x[0, src * nl:(src + 1) * nl].transpose(0, 1)  # (H, nl, D)
+            assert torch.equal(slots[r][last, kv], want), (r, kv)
+    ref = RK.ring_attention_plain(q.float(), k.float(), v.float(), n, True)
+    tol = 2.0**-7 * v.float().abs().max().item()
+    assert (out.float() - ref).abs().max().item() <= tol
+    assert (bad.float() - ref).abs().max().item() > tol
+    head_major = FK.flash_attention(q, k, v, bounded_logits=True).float()
+    sharp = RK.reorder_tolerance(head_major, v, n * nl)
+    assert ((out.float() - head_major).abs() <= sharp).all()
+
+
+def test_ring_wrappers_refuse_what_the_kernel_does_not_take(cuda):
+    from omnivggt_tpu_torch.ops.kernels import ring_attention as RK
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(seq=2, device=cuda)
+    q, k, v = _ring_inputs(2, 64, 2, 64, 5, cuda)
+    with pytest.raises(TypeError, match="bf16"):
+        RK.ring_flash_attention(q.float(), k.float(), v.float(), mesh)
+    with pytest.raises(ValueError, match="forward only"):
+        RK.ring_flash_attention(q.requires_grad_(True), k, v, mesh)
+    with pytest.raises(ValueError, match="does not divide"):
+        RK.ring_flash_attention(q[:, :127].detach(), k[:, :127], v[:, :127], mesh)
+
+
+@pytest.mark.parametrize("stream", [False, True])
+def test_allgather_pregathered_int8_k_is_the_whole_arrays_grid(cuda, stream, monkeypatch):
+    """Under allgather + qk_int8 past the packed kernel's key contract, K is
+    quantised per shard on the max over the ranks and gathered as int8: the
+    gathered grid equals the quantiser's on the whole K, and the output is
+    within the forward tolerance of exact attention plus the int8 noise."""
+    from omnivggt_tpu_torch.ops import attention as TA
+    from omnivggt_tpu_torch.parallel import attention as PA
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh
+
+    monkeypatch.setattr(TA, "_STREAM_ATTN", stream)
+    n, nl, H, D = 4, 640, 2, 64
+    mesh = make_mesh(seq=n, device=cuda)
+    q, k, v = _ring_inputs(n, nl, H, D, 6, cuda, q_scale=1.0)
+    seen = []
+    target = "quant_k_token_major" if stream else "quant_per_head"
+    real = getattr(FK, target)
+
+    def spy(x, *args, **kw):
+        out = real(x, *args, **kw)
+        if kw.get("amax_reduce") is not None:  # a K shard on its way to the gather
+            seen.append(out)
+        return out
+
+    monkeypatch.setattr(FK, target, spy)
+    FK.reset_launches()
+    out = PA.allgather_attention(q, k, v, mesh, "seq", impl="flash", bounded_logits=True,
+                                 qk_int8=True)
+    torch.cuda.synchronize()
+    counter = "flash_attention_packed_stream" if stream else "flash_attention_int8"
+    assert FK.launches()[counter] == n and len(seen) == n
+    whole = real(k)
+    assert torch.equal(torch.cat([k8 for k8, _ in seen], dim=1), whole[0])
+    assert all(torch.equal(scale, whole[1]) for _, scale in seen)
+    ref = FK.attention_plain(q.float(), k.float(), v.float(), None, True)
+    assert 0 < (out.float() - ref).abs().max().item() < 5e-2
+
+
+def test_sharded_tiny_model_on_the_card(cuda):
+    """The tiny model at 224 px (261 tokens a frame, so the attention
+    dispatch reaches the kernels) under every strategy against the
+    single-device forward, with the launch counts."""
+    from omnivggt_tpu_torch.config import tiny_test_config
+    from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
+    from omnivggt_tpu_torch.ops.kernels import ring_attention as RK
+    from omnivggt_tpu_torch.parallel import attention as PA
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh
+    from omnivggt_tpu_torch.parallel.sharding import ModelSharding
+
+    import dataclasses
+
+    from omnivggt_tpu_torch.models import omnivggt as TM
+
+    # head dim 64 and a bf16 trunk: what the kernels take
+    cfg = dataclasses.replace(tiny_test_config(embed_dim=128, num_heads=2),
+                              compute_dtype="bfloat16")
+    model = OmniVGGT(cfg, device=cuda, seed=0).eval()
+    mesh = make_mesh(seq=4, device=cuda)
+    images = torch.rand((1, 8, 224, 224, 3), device=cuda)
+    depth = cfg.aggregator.depth
+    with torch.inference_mode():
+        ref = model(images, attn_impl="flash")
+        for strategy in ("allgather", "ring", "ring_fused"):
+            RK.reset_launches()
+            out = model(images, attn_impl="flash", sharding=ModelSharding(mesh, strategy))
+            torch.cuda.synchronize()
+            assert RK.launches()["ring_flash_attention_hbm"] == (
+                depth if strategy == "ring_fused" else 0)
+            a, b = ({k: o[k].float().cpu().numpy() for k in TM.PROBE_KEYS} for o in (ref, out))
+            assert not TM._probe_failures(a, b, 2e-2, 2e-2), strategy
+    assert PA.fused_ring_attention.unfused_fallbacks == 0

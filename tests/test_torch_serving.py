@@ -128,8 +128,15 @@ def test_session_bucketing_and_bad_input(model):
         session.infer(_images(2), camera_gt_index=[0])
     with pytest.raises(ValueError, match="pad_mode"):
         TS.InferenceSession(model, pad_mode="round")
-    with pytest.raises(NotImplementedError, match="sharding"):
-        TS.InferenceSession(model, sharding=object())
+    # a sharding is taken (tests/test_torch_parallel.py serves through one);
+    # bucket mode refuses the ring strategies in the JAX package's words
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh
+    from omnivggt_tpu_torch.parallel.sharding import ModelSharding
+
+    ring = ModelSharding(make_mesh(seq=2, device="cpu"), "ring_fused")
+    with pytest.raises(ValueError, match="ring strategies do not support"):
+        TS.InferenceSession(model, sharding=ring)
+    assert TS.InferenceSession(model, sharding=ring, pad_mode="exact").sharding is ring
     # the default device is cuda: without one, a session that builds its own
     # model raises instead of running on the CPU
     if not torch.cuda.is_available():
