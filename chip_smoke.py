@@ -9,7 +9,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
   3. kernels: each kernel against its plain PyTorch version at the shapes
      the flagship's 518 px, 8-view forward gives it, bf16 inputs, the plain
      version in fp32 from the same inputs; prints errors beside the stated
-     tolerance and the median times of both (CUDA events);
+     tolerance and the median times of both (CUDA events); then the bf16
+     forward kernel (TMA + wgmma) in each form the main path and training
+     run, and at head dim 128: 21 launches on the same inputs bitwise
+     equal (o and LSE), and two planted faults that must leave the
+     tolerance (the last key tile left out; K and V of the next head,
+     through the kernel's test hook);
   4. backward kernels, at the shapes the flagship's S=4 training step
      gives them (global bounded, frame bounded, DINOv2 running-max), plus
      a dynamic kv_valid and a clamp-saturation case: the forward kernel's
@@ -320,6 +325,55 @@ def check_kernels(FK, dev):
         del q, k, v, out
         torch.cuda.empty_cache()
     return results
+
+
+def check_tma_forms(FK, dev):
+    """The bf16 kernel (TMA + wgmma) in each form the main path and
+    training run, plus head dim 128: launched 20 times on the same inputs,
+    o and the LSE must stay bitwise the same (a race in the stage ring
+    would not show as a wrong mean); two planted faults must leave the
+    2^-7 max|v| tolerance: the last key tile left out, and K and V loaded
+    from the next head (the kernel's test hook). q is scaled by 4 so the
+    softmax is peaked and a missing or wrong key shows in o."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    kv_dyn = torch.tensor(1374, dtype=torch.int32, device=dev)
+    # (label, q shape, kv_valid, bounded, packed)
+    cases = [
+        ("global bounded", (1, S * P_TOKENS, 16, 64), None, True, False),
+        ("global running-max", (1, S * P_TOKENS, 16, 64), None, False, False),
+        ("frame bounded", (S, P_TOKENS, 16, 64), None, True, True),
+        ("dino running-max kv 1374", (S, 1376, 16, 64), 1374, False, True),
+        ("dynamic kv_valid 1374", (S, 1376, 16, 64), kv_dyn, True, True),
+        ("head dim 128, running-max", (2, 3000, 8, 128), 2900, False, False),
+    ]
+    for label, shape, kv, bounded, packed in cases:
+        q = (torch.randn(shape, generator=gen, device=dev) * 4).to(torch.bfloat16)
+        k, v = (torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(2))
+        o0, lse0 = FK._launch(q, k, v, kv, bounded, packed, with_lse=True)
+        same = True
+        for _ in range(20):
+            o, lse = FK._launch(q, k, v, kv, bounded, packed, with_lse=True)
+            same = same and torch.equal(o, o0) and torch.equal(lse, lse0)
+        nk = shape[1] if kv is None else int(kv)
+        mode = FK.MODE_TOKEN_MAJOR if packed else FK.MODE_HEAD_MAJOR
+        cut = FK._launch(q, k, v, (nk - 1) // 128 * 128, bounded, packed)
+        wrong_head = FK._launch_fwd(FK.flash_attention, q, k, v, kv, bounded, mode, kv_head_shift=1)
+        torch.cuda.synchronize()
+        ref = FK.attention_plain(q.float(), k.float(), v.float(), kv, bounded)
+        tol = 2.0**-7 * v.float().abs().max().item()
+        errs = [(x.float() - ref).abs().max().item() for x in (o0, cut, wrong_head)]
+        print(f"tma kernel [{label}] q{shape}: 21 launches bitwise equal (o and LSE): {same}; "
+              f"max_abs_err {errs[0]:.3e} tol {tol:.3e}; planted faults (must exceed tol): last "
+              f"key tile left out {errs[1]:.3e}, K/V of the next head {errs[2]:.3e}")
+        if not same:
+            raise AssertionError(f"tma kernel [{label}]: launches on the same inputs differ")
+        if not (np.isfinite(errs[0]) and errs[0] <= tol):
+            raise AssertionError(f"tma kernel [{label}] disagrees with its plain version")
+        if not (errs[1] > tol and errs[2] > tol):
+            raise AssertionError(f"tma kernel [{label}]: a planted fault passes the check")
+        del q, k, v, o0, lse0, o, lse, cut, wrong_head, ref
+        torch.cuda.empty_cache()
 
 
 def ratios(grads, ref, tols):
@@ -1563,8 +1617,15 @@ def main() -> int:
         for line in log.splitlines():  # ptxas: registers and shared memory per kernel
             if "Compiling entry" in line or "Used" in line:
                 print("  " + line.strip()[:160])
+    for d in FK.HEAD_DIMS:
+        threads, smem = FK.tma_launch_shape(d)
+        print(f"  bf16 forward kernel (flash_fwd_*_tma), head dim {d}: {threads} threads, "
+              f"{smem} bytes of dynamic shared memory a block; ptxas' register count above is "
+              f"the launch's, setmaxnreg then gives the producer warpgroup 24 and the two "
+              f"consumer warpgroups 240")
 
     kernel_results = check_kernels(FK, dev)
+    check_tma_forms(FK, dev)
     kernel_results.update(check_backward(FK, dev))
     kernel_results.update(check_serving_attention(FK, dev))
     kernel_results.update(check_ring(RK, FK, dev))

@@ -17,55 +17,76 @@
 //     when the stream flag is on, in a bf16 form and an int8 form whose q
 //     tile is quantised here, once per block, as round(q * qinv) with the
 //     head's inverse scale, against a k quantised token-major outside.
-// All run one device function, attend_tile(), under two grids (head-major:
-// query tiles of one head are neighbours; token-major: the heads of one
-// query tile are neighbours) and three ways of forming the scores. The
-// packed and the stream wrapper share the token-major kernel: its key loop
-// has no length limit, so what tells them apart (the key-length contract,
-// the bounded-only rule, the launch counter) lives in Python. The TPU stream kernel's head pairs, zero-padded q
-// tiles and 128-lane extended V answer its lane tile and are not carried
-// over: a block reads its head's 64 columns out of the token-major rows by
-// stride.
+// Two designs share this file.
 //
-// What bounds it on this card: two matrix products per (64-query, 64-key)
-// tile, 2*64*64*D FLOPs each, against 64*D*2*2 bytes of K and V streamed
-// from L2/HBM per tile. At D=64 that is ~64 FLOP/byte before L2 reuse, so
-// the kernel is compute-bound on the tensor cores once K/V sit in L2 (they
-// do: one head's K+V at N=10992 is 2.8 MB), and its rate is set by how
-// fast mma.sync can be fed from shared memory and by the exp work of the
-// softmax (64*64 exp per tile per block).
+// The bf16 forms (the main path: global attention under the head-major
+// grid, frame and DINOv2 attention under the token-major grid, and the
+// stream wrapper's bf16 form) run one kernel template built for Hopper,
+// tma_attend():
+//   - a block holds 128 query rows of one (batch, head): two consumer
+//     warpgroups of 64 rows (wgmma's M) and one producer warpgroup, of which
+//     one thread issues every load; the producer drops to 24 registers with
+//     setmaxnreg so the consumers can hold 240;
+//   - TMA loads Q once per block and streams 128-key K and V tiles through a
+//     ring of shared-memory stages (3 at D = 64, 2 at D = 128) guarded by
+//     full and empty mbarriers, so the next tiles are in flight while the
+//     tensor cores work on this one. The tensor maps are 4-D over the
+//     (B, N, H, D) tensors as the wrappers pass them (dims D, H, N, B; box
+//     64 columns x 1 head x 128 rows x 1), encoded on the host for every
+//     call; TMA's zero fill stands in for rows past N or Nk;
+//   - S = Q K^T is wgmma with both operands in shared memory (128-byte
+//     swizzle, K-major), accumulated in fp32 registers (64 a thread);
+//   - the softmax stays in registers: scores scaled into log2 units inside
+//     the exponent's argument (one FFMA, then the bare ex2 instruction),
+//     keys at or past min(Nk, kv_valid) set to -1e30 in the last tile only, the
+//     bounded clamp exp(min(s, 80)) at a fixed max of 0 or an online running
+//     max, P rounded to bf16 as the TPU kernel does, each row summed per
+//     thread (2 rows x 32 columns of every 64 x 128 tile) and finished by one
+//     quad shuffle;
+//   - O += P V is wgmma with P from registers (the accumulator's column
+//     pairs are the A fragment) and V from shared memory through the
+//     descriptor's transpose bit: V is never transposed by threads;
+//   - the epilogue divides by l (l > 0 guarded), stores bf16 rows below N
+//     and, when training, the row LSE as before.
+// The two grids differ only in the block order: head-major (query tiles,
+// B*H) keeps one head's query tiles together; token-major (H, query tiles,
+// B) keeps the heads of one query tile together. The primitives (mbarrier,
+// TMA, wgmma, setmaxnreg, the tensor-map encoding) are in sm90.cuh.
 //
-// What the design does about it (simple first; wgmma, TMA and warp
-// specialisation are later work):
-//   - 128 threads = 4 warps; each warp owns 16 query rows and keeps its Q
-//     fragments, its 16x64 score tile and its 16xD output accumulator in
-//     registers, so scores and probabilities never touch shared memory;
-//   - mma.sync.m16n8k16 bf16->fp32 for both products; the fp32 score
-//     fragment is re-packed to bf16 in registers as the A operand of P @ V
-//     (the accumulator layout of m16n8 equals the A layout of m16n8k16),
-//     rounding P to bf16 as the TPU kernel does;
-//   - K is staged row-major and V transposed in shared memory, each row
-//     padded by 8 bf16, so every fragment load is one conflict-free 32-bit
-//     shared load;
-//   - q/k/v/o are read and written through explicit (B, N, H, D) strides,
-//     so neither the TPU's head-major relayout (to_bhnd) nor its token-major
-//     packing exists here;
-//   - keys at or past min(Nk, kv_valid) are loaded as zeros and their
-//     scores set to -1e30; tiles past that bound are never visited;
-//   - bounded mode (qk-normed inputs) uses a fixed max of 0 with the
-//     exp(min(s, 80)) clamp; otherwise an online running max. The TPU's
-//     ones-column row-sum fold is not carried over: each thread sums its
-//     own probabilities and one quad shuffle finishes the row sum;
+// The int8 forms keep the first design, attend_tile(): 64 query rows and
+// 4 warps a block, mma.sync.m16n8k32 s8 scores from int8 tiles staged by
+// threads, then the softmax and P @ V with mma.sync.m16n8k16 and a V tile
+// transposed in shared memory. The TPU stream kernel's head pairs,
+// zero-padded q tiles and 128-lane extended V answer its lane tile and are
+// not carried over: a block reads its head's 64 columns out of the
+// token-major rows by stride.
+//
+// What bounds it on this card: two matrix products per (query, key) tile,
+// 4 N Nk D FLOPs per head, against q, k, v read and o written once. At
+// D = 64 and the flagship's lengths that is compute-bound (0.50 ms of bf16
+// tensor work for the global attention against 0.09 ms of bytes), and with
+// D = 64 the exponentials (one per score, on the special-function units)
+// weigh as much as the products: both products and the softmax of a tile
+// have to overlap with the loads of the next, which is what the producer
+// warpgroup and the stage ring are for. Each consumer warpgroup runs its
+// tiles in order (S, softmax, P V); the SM interleaves one warpgroup's
+// softmax with the other's products by itself. Two schedules that order
+// this by hand, one tile ahead within a warpgroup and a ping-pong of the
+// two warpgroups on named barriers, measured slower on the H100 in the
+// forms tried (PERF.md).
+//
+// The int8 forms in detail:
 //   - the int8 forms stage int8 Q and K tiles (a quarter of the bytes of
 //     the bf16 pair) and run mma.sync.m16n8k32 s8, whose s32 fragment has
 //     the bf16 product's layout, so the softmax and P @ V below it are the
 //     same code; the dequantising scalar is folded into the log2 scale;
-//   - when training, the bf16 entry points also write the row log-sum-exp
-//     (the TPU kernel's return_lse output) to a (B, H, N) fp32 tensor,
-//     from the running max and row sum already in registers; the backward
-//     kernels (flash_attention_bwd.cu) rebuild P from it.
+//   - K is staged row-major and V transposed in shared memory, each row
+//     padded by 8 bf16, so every fragment load is one conflict-free 32-bit
+//     shared load; keys at or past min(Nk, kv_valid) load as zeros and
+//     their scores are set to -1e30.
 
 #include "flash_common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -76,12 +97,290 @@ constexpr int kScoresBf16 = 0;    // bf16 q and k
 constexpr int kScoresInt8 = 1;    // int8 q and k, quantised by the caller
 constexpr int kScoresInt8QIn = 2; // int8 k from the caller, bf16 q quantised here
 
-struct Params {
-  const void* q;  // bf16, or int8 with kScoresInt8
-  const void* k;  // bf16, or int8 with either int8 form
-  const __nv_bfloat16* v;
+// ---- bf16: TMA + wgmma ------------------------------------------------------
+
+constexpr int kTmaRows = 128;        // query rows a block, keys a tile
+constexpr int kConsumers = 2;        // consumer warpgroups of 64 query rows
+constexpr int kTmaThreads = 128 * (kConsumers + 1);
+constexpr int kBoxBytes = kTmaRows * 128;  // one 64-column box of 128 rows
+
+template <int D>
+struct TmaSmem {
+  static constexpr int kStages = D == 64 ? 3 : 2;
+  static constexpr int kTile = kTmaRows * D * 2;  // bytes of a Q, K or V tile
+  static constexpr int kK = kTile;                // Q at 0
+  static constexpr int kV = kK + kStages * kTile;
+  static constexpr int kBars = kV + kStages * kTile;
+  static constexpr int kBytes = kBars + (1 + 3 * kStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+};
+
+struct TmaParams {
+  CUtensorMap q_map, k_map, v_map;  // (D, H, N, B) maps, see sm90.cuh
   __nv_bfloat16* o;
   float* lse;  // optional (B, H, N) natural-log row LSE, for the backward
+  long long o_sb, o_sn, o_sh;
+  int B, H, N, Nk;
+  int kv_static;          // valid keys when kv_dynamic is null (<= Nk)
+  const int* kv_dynamic;  // optional device scalar: valid-key count
+  float scale_log2;       // D^-0.5 * log2(e)
+  int kv_head_shift;      // 0; a test hook that plants a fault (K and V
+                          // read from head (h + shift) % H)
+};
+
+// One block: 128 query rows of head h of batch b, starting at row q0.
+template <int D, bool kBounded>
+__device__ __forceinline__ void tma_attend(const TmaParams& p, int b, int h, int q0) {
+  using L = TmaSmem<D>;
+  constexpr int kS = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* qs = smem;
+  uint8_t* ks = smem + L::kK;
+  uint8_t* vs = smem + L::kV;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + kS;
+  uint64_t* empty = v_full + kS;
+
+  // producer and consumers read the same count, so they agree on the tiles
+  int n_eff = p.kv_dynamic ? min(p.Nk, *p.kv_dynamic) : p.kv_static;
+  n_eff = max(n_eff, 0);
+  const int n_tiles = (n_eff + kTmaRows - 1) / kTmaRows;
+
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < kS; ++s) {
+      sm90::mbar_init(&k_full[s], 1);
+      sm90::mbar_init(&v_full[s], 1);
+      sm90::mbar_init(&empty[s], 128 * kConsumers);
+    }
+    sm90::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    // producer: one thread issues every TMA load
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * kConsumers) {
+      sm90::prefetch_tensor_map(&p.q_map);
+      sm90::prefetch_tensor_map(&p.k_map);
+      sm90::prefetch_tensor_map(&p.v_map);
+      const int kh = (h + p.kv_head_shift) % p.H;
+      sm90::mbar_arrive_expect_tx(q_full, L::kTile);
+#pragma unroll
+      for (int box = 0; box < D / 64; ++box)
+        sm90::tma_load_4d(qs + box * kBoxBytes, &p.q_map, q_full, box * 64, h, q0, b);
+      for (int it = 0; it < n_tiles; ++it) {
+        const int s = it % kS;
+        sm90::mbar_wait(&empty[s], ((it / kS) & 1) ^ 1);
+        sm90::mbar_arrive_expect_tx(&k_full[s], L::kTile);
+#pragma unroll
+        for (int box = 0; box < D / 64; ++box)
+          sm90::tma_load_4d(ks + s * L::kTile + box * kBoxBytes, &p.k_map, &k_full[s], box * 64,
+                            kh, it * kTmaRows, b);
+        sm90::mbar_arrive_expect_tx(&v_full[s], L::kTile);
+#pragma unroll
+        for (int box = 0; box < D / 64; ++box)
+          sm90::tma_load_4d(vs + s * L::kTile + box * kBoxBytes, &p.v_map, &v_full[s], box * 64,
+                            kh, it * kTmaRows, b);
+      }
+    }
+  } else {
+    sm90::setmaxnreg_inc<240>();
+    const int t = threadIdx.x % 128;
+    const int g = (t % 32) >> 2;  // accumulator row group
+    const int tq = t & 3;         // thread in group
+    const int row_lo = q0 + wg * 64 + (t / 32) * 16 + g;  // rows row_lo, row_lo + 8
+
+    float acc[D / 2];  // O: m64nD accumulator
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m_run[2] = {kNegInf, kNegInf};  // running max (log2 units)
+    float l_run[2] = {0.f, 0.f};          // this thread's share of the row sums
+
+    // One tile after the other: the two consumer warpgroups interleave on
+    // the SM by themselves (one's softmax beside the other's products).
+    sm90::mbar_wait(q_full, 0);
+    for (int it = 0; it < n_tiles; ++it) {
+      const int s = it % kS;
+      const uint32_t parity = (it / kS) & 1;
+      const uint8_t* kt = ks + s * L::kTile;
+      const uint8_t* vt = vs + s * L::kTile;
+
+      // S = Q K^T: 64 rows x 128 keys, D / 16 steps
+      float sc[64];
+      sm90::mbar_wait(&k_full[s], parity);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+        sm90::wgmma_ss_m64n128k16(sc, sm90::desc_sw128(qs + off + wg * 64 * 128, 16, 1024),
+                                  sm90::desc_sw128(kt + off, 16, 1024), kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(sc);
+
+      // mask keys at or past n_eff in the last tile (raw scores); the scale
+      // into log2 units is folded into the exponent's argument
+      const int k0 = it * kTmaRows;
+      if (k0 + kTmaRows > n_eff) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          if (k0 + (i / 4) * 8 + tq * 2 + (i & 1) >= n_eff) sc[i] = kNegInf;
+        }
+      }
+      if (kBounded) {
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          sc[i] = sm90::exp2_ftz(fminf(sc[i] * p.scale_log2, kClampLog2));
+          l_run[(i >> 1) & 1] += sc[i];
+        }
+      } else {
+        // the row max of the raw scores, scaled after (the scale is > 0)
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        }
+        float corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float m_new = fmaxf(m_run[r], mx[r] * p.scale_log2);
+          corr[r] = sm90::exp2_ftz(m_run[r] - m_new);
+          m_run[r] = m_new;
+          l_run[r] *= corr[r];
+        }
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+#pragma unroll
+        for (int i = 0; i < 64; ++i) {
+          sc[i] = sm90::exp2_ftz(fmaf(sc[i], p.scale_log2, -m_run[(i >> 1) & 1]));
+          l_run[(i >> 1) & 1] += sc[i];
+        }
+      }
+
+      // P in bf16: column groups 2kk and 2kk + 1 are the A operand of step kk
+      uint32_t pa[8][4];
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
+      }
+
+      // O += P V: 128 keys in 8 steps; V read through the transpose bit
+      sm90::mbar_wait(&v_full[s], parity);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const uint64_t dv = sm90::desc_sw128(vt + kk * 16 * 128, kBoxBytes, 1024);
+        if constexpr (D == 64) {
+          sm90::wgmma_rs_m64n64k16(acc, pa[kk], dv);
+        } else {
+          sm90::wgmma_rs_m64n128k16(acc, pa[kk], dv);
+        }
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(acc);
+      sm90::mbar_arrive(&empty[s]);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
+      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
+    }
+    const float inv[2] = {l_run[0] > 0.f ? 1.f / l_run[0] : 0.f,
+                          l_run[1] > 0.f ? 1.f / l_run[1] : 0.f};
+
+    if (p.lse != nullptr && tq == 0) {
+      // lse = ln(sum_k exp(s_k)) = (m + log2 l) ln 2 in log2 units; bounded
+      // mode's max is fixed at 0, so lse = ln l, the TPU kernel's contract.
+      // A row with every key masked gets +1e30, so the backward's
+      // p = exp(s - lse) is 0 there instead of NaN.
+      float* lb = p.lse + ((long long)b * p.H + h) * p.N;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = row_lo + 8 * r;
+        if (row < p.N) {
+          const float lse2 = kBounded ? log2f(l_run[r]) : m_run[r] + log2f(l_run[r]);
+          lb[row] = l_run[r] > 0.f ? lse2 * kLn2 : -kNegInf;
+        }
+      }
+    }
+
+    __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_lo + 8 * r;
+      if (row < p.N) {
+        __nv_bfloat16* orow = ob + (long long)row * p.o_sn;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          *reinterpret_cast<uint32_t*>(orow + j * 8 + tq * 2) =
+              pack_bf16(acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
+      }
+    }
+  }
+}
+
+// counterpart of _flash_kernel (bf16): grid (query tiles, B*H)
+template <int D, bool kBounded>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    flash_fwd_head_major_tma(const __grid_constant__ TmaParams p) {
+  const int bh = blockIdx.y;
+  tma_attend<D, kBounded>(p, bh / p.H, bh % p.H, blockIdx.x * kTmaRows);
+}
+
+// counterpart of _flash_packed_kernel and of _flash_packed_stream_kernel
+// (bf16): grid (H, query tiles, B). The key loop streams 128-key tiles
+// whatever the key length, so the TPU's two token-major kernels (whole key
+// axis in one block up to 2048 keys; key axis streamed beyond) are one
+// kernel here, and the Python wrappers keep their two contracts and launch
+// counters.
+template <int D, bool kBounded>
+__global__ void __launch_bounds__(kTmaThreads, 1)
+    flash_fwd_token_major_tma(const __grid_constant__ TmaParams p) {
+  tma_attend<D, kBounded>(p, blockIdx.z, blockIdx.x, blockIdx.y * kTmaRows);
+}
+
+constexpr int kModeHeadMajor = 0, kModeTokenMajor = 1;
+
+template <int D, bool kBounded>
+cudaError_t launch_tma(const TmaParams& p, int mode, cudaStream_t stream) {
+  const int bytes = TmaSmem<D>::kAlloc;
+  const int q_tiles = (p.N + kTmaRows - 1) / kTmaRows;
+  cudaError_t err;
+  if (mode == kModeHeadMajor) {
+    err = cudaFuncSetAttribute(flash_fwd_head_major_tma<D, kBounded>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    flash_fwd_head_major_tma<D, kBounded>
+        <<<dim3(q_tiles, p.B * p.H), kTmaThreads, bytes, stream>>>(p);
+  } else {
+    err = cudaFuncSetAttribute(flash_fwd_token_major_tma<D, kBounded>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return err;
+    flash_fwd_token_major_tma<D, kBounded>
+        <<<dim3(p.H, q_tiles, p.B), kTmaThreads, bytes, stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+// ---- int8: mma.sync ---------------------------------------------------------
+
+struct Params {
+  const int8_t* q;  // int8 (kScoresInt8), or bf16 read as such (kScoresInt8QIn)
+  const int8_t* k;
+  const __nv_bfloat16* v;
+  __nv_bfloat16* o;
   // element strides of the batch, token and head axes; the last axis is
   // contiguous and every stride is a multiple of 8 (16-byte vectors)
   long long q_sb, q_sn, q_sh;
@@ -91,8 +390,7 @@ struct Params {
   int B, H, N, Nk;
   int kv_static;          // valid keys when kv_dynamic is null (<= Nk)
   const int* kv_dynamic;  // optional device scalar: valid-key count
-  float scale_log2;       // D^-0.5 * log2(e)
-  const float* c;         // int8 forms: (B, H) q_scale * k_scale * D^-0.5
+  const float* c;         // (B, H) q_scale * k_scale * D^-0.5
   const float* qinv;      // kScoresInt8QIn: (B, H) 1 / q_scale
   int8_t* q8_out;         // kScoresInt8QIn: optional contiguous (B, N, H, D)
                           // copy of the quantised q, for checking the grid
@@ -101,6 +399,7 @@ struct Params {
 // One block: 64 query rows of head h of batch b, starting at row q0.
 template <int D, bool kBounded, int kQ>
 __device__ __forceinline__ void attend_tile(const Params& p, int b, int h, int q0) {
+  static_assert(kQ == kScoresInt8 || kQ == kScoresInt8QIn, "int8 forms only");
   __shared__ __align__(16) __nv_bfloat16 ks[kBlockK * (D + kPad)];
   __shared__ __align__(16) __nv_bfloat16 vt[D * (kBlockK + kPad)];
   // the int8 tiles (64 x (D + kPadS8) bytes) fit in the bf16 K buffer
@@ -115,26 +414,20 @@ __device__ __forceinline__ void attend_tile(const Params& p, int b, int h, int q
   n_eff = max(n_eff, 0);
 
   // q and k strides count elements of their own type
-  const __nv_bfloat16* qb = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const int8_t* q8b = static_cast<const int8_t*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const int8_t* k8b = static_cast<const int8_t*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const int8_t* k8b = p.k + b * p.k_sb + h * p.k_sh;
   const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
 
-  // Q tile -> shared (borrowing the K buffer) -> A fragments in registers
-  uint32_t qf[D / 16][4];
+  // Q tile -> shared -> A fragments in registers
   uint32_t qf8[D / 32][4];
-  if constexpr (kQ == kScoresBf16) {
-    load_rows<D>(ks, qb, p.q_sn, q0, p.N);
-    __syncthreads();
-    load_a_fragments<D>(qf, ks, r0, t);
-  } else if constexpr (kQ == kScoresInt8) {
-    load_rows_s8<D>(ks8, q8b, p.q_sn, q0, p.N);
+  if constexpr (kQ == kScoresInt8) {
+    load_rows_s8<D>(ks8, p.q + b * p.q_sb + h * p.q_sh, p.q_sn, q0, p.N);
     __syncthreads();
     load_a_fragments_s8<D>(qf8, ks8, r0, t);
   } else {
     // bf16 Q tile (borrowing the V buffer) -> round(q * qinv), clipped to
     // +-127 (rows the scale did not see may exceed it), half to even
+    const __nv_bfloat16* qb =
+        reinterpret_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
     load_rows<D>(vt, qb, p.q_sn, q0, p.N);
     __syncthreads();
     const float qinv = p.qinv[b * p.H + h];
@@ -157,9 +450,8 @@ __device__ __forceinline__ void attend_tile(const Params& p, int b, int h, int q
     load_a_fragments_s8<D>(qf8, ks8, r0, t);
   }
   __syncthreads();
-  // scores -> log2 units: the softmax scale, or the head's dequantising c
-  float score_mul = p.scale_log2;
-  if constexpr (kQ != kScoresBf16) score_mul = p.c[b * p.H + h] * kLog2e;
+  // scores -> log2 units by the head's dequantising c
+  const float score_mul = p.c[b * p.H + h] * kLog2e;
 
   float acc[D / 8][4];
 #pragma unroll
@@ -168,22 +460,13 @@ __device__ __forceinline__ void attend_tile(const Params& p, int b, int h, int q
   float l_run[2] = {0.f, 0.f};          // this thread's share of the row sums
 
   for (int k0 = 0; k0 < n_eff; k0 += kBlockK) {
-    if constexpr (kQ == kScoresBf16) {
-      load_rows<D>(ks, kb, p.k_sn, k0, n_eff);
-    } else {
-      load_rows_s8<D>(ks8, k8b, p.k_sn, k0, n_eff);
-    }
+    load_rows_s8<D>(ks8, k8b, p.k_sn, k0, n_eff);
     load_rows_transposed<D>(vt, vb, p.v_sn, k0, n_eff);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 keys
     float s[kBlockK / 8][4];
-    if constexpr (kQ == kScoresBf16) {
-      mma_rows_by_tile<D>(s, qf, ks, g, t);
-    } else {
-      mma_rows_by_tile_s8<D>(s, qf8, ks8, g, t);
-    }
-
+    mma_rows_by_tile_s8<D>(s, qf8, ks8, g, t);
     // scale into log2 units and mask keys at or past n_eff
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -253,54 +536,29 @@ __device__ __forceinline__ void attend_tile(const Params& p, int b, int h, int q
   const float inv0 = l_run[0] > 0.f ? 1.f / l_run[0] : 0.f;
   const float inv1 = l_run[1] > 0.f ? 1.f / l_run[1] : 0.f;
 
-  if (p.lse != nullptr && t == 0) {
-    // lse = ln(sum_k exp(s_k)) = (m + log2 l) ln 2 in log2 units; bounded
-    // mode's max is fixed at 0, so lse = ln l, the TPU kernel's contract.
-    // A row with every key masked gets +1e30, so the backward's
-    // p = exp(s - lse) is 0 there instead of NaN.
-    float* lb = p.lse + ((long long)b * p.H + h) * p.N;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = q0 + r0 + 8 * r;
-      if (row < p.N) {
-        const float lse2 = kBounded ? log2f(l_run[r]) : m_run[r] + log2f(l_run[r]);
-        lb[row] = l_run[r] > 0.f ? lse2 * kLn2 : -kNegInf;
-      }
-    }
-  }
-
   store_rows<D>(p.o + b * p.o_sb + h * p.o_sh, p.o_sn, acc, inv0, inv1, q0 + r0, p.N, t);
 }
 
-// counterpart of _flash_kernel: grid (query tiles, B*H)
+// counterpart of _flash_kernel's qk_int8 form: grid (query tiles, B*H)
 template <int D, bool kBounded, int kQ>
 __global__ void __launch_bounds__(kThreads) flash_fwd_head_major(Params p) {
   const int bh = blockIdx.y;
   attend_tile<D, kBounded, kQ>(p, bh / p.H, bh % p.H, blockIdx.x * kBlockQ);
 }
 
-// counterpart of _flash_packed_kernel and of _flash_packed_stream_kernel:
-// grid (H, query tiles, B). The key loop streams 64-key tiles whatever the
-// key length, so the TPU's two token-major kernels (whole key axis in one
-// block up to 2048 keys; key axis streamed beyond) are one kernel here, and
-// the Python wrappers keep their two contracts and launch counters.
+// counterpart of _flash_packed_stream_kernel's int8 form: grid (H, query
+// tiles, B)
 template <int D, bool kBounded, int kQ>
 __global__ void __launch_bounds__(kThreads) flash_fwd_token_major(Params p) {
   attend_tile<D, kBounded, kQ>(p, blockIdx.z, blockIdx.x, blockIdx.y * kBlockQ);
 }
 
-constexpr int kModeHeadMajor = 0, kModeTokenMajor = 1;
-
 template <int D, bool kBounded>
-bool launch(const Params& p, int mode, int qk, cudaStream_t stream) {
+bool launch_int8(const Params& p, int mode, int qk, cudaStream_t stream) {
   const int q_tiles = (p.N + kBlockQ - 1) / kBlockQ;
   const dim3 token_major(p.H, q_tiles, p.B), head_major(q_tiles, p.B * p.H);
-  if (mode == kModeHeadMajor && qk == kScoresBf16) {
-    flash_fwd_head_major<D, kBounded, kScoresBf16><<<head_major, kThreads, 0, stream>>>(p);
-  } else if (mode == kModeHeadMajor && qk == kScoresInt8) {
+  if (mode == kModeHeadMajor && qk == kScoresInt8) {
     flash_fwd_head_major<D, kBounded, kScoresInt8><<<head_major, kThreads, 0, stream>>>(p);
-  } else if (mode == kModeTokenMajor && qk == kScoresBf16) {
-    flash_fwd_token_major<D, kBounded, kScoresBf16><<<token_major, kThreads, 0, stream>>>(p);
   } else if (mode == kModeTokenMajor && kBounded && D == 64 && qk == kScoresInt8QIn) {
     flash_fwd_token_major<64, true, kScoresInt8QIn><<<token_major, kThreads, 0, stream>>>(p);
   } else {
@@ -311,28 +569,67 @@ bool launch(const Params& p, int mode, int qk, cudaStream_t stream) {
 
 }  // namespace
 
+// The bf16 kernel's dynamic shared memory in bytes for a head dim (64 or
+// 128; 0 otherwise) and its threads a block, for the build report.
+extern "C" int omnivggt_flash_attention_tma_smem_bytes(int head_dim) {
+  return head_dim == 64 ? TmaSmem<64>::kAlloc : head_dim == 128 ? TmaSmem<128>::kAlloc : 0;
+}
+
+extern "C" int omnivggt_flash_attention_tma_threads() { return kTmaThreads; }
+
 // mode: 0 head-major grid, 1 token-major grid (the packed and the stream
 // wrappers).
-// qk: 0 bf16 scores; 1 int8 q and k (head-major only) with c; 2 int8 k and a
-// bf16 q quantised in the kernel by qinv (token-major, bounded, head dim 64:
-// the stream wrapper's int8 form) with c, q8_out
+// qk: 0 bf16 scores (TMA + wgmma); 1 int8 q and k (head-major only) with c;
+// 2 int8 k and a bf16 q quantised in the kernel by qinv (token-major,
+// bounded, head dim 64: the stream wrapper's int8 form) with c, q8_out
 // optionally receiving the quantised q as contiguous (B, N, H, D) int8.
 // strides: 12 element strides, (batch, token, head) for q, k, v, o in turn,
 // q's and k's counting elements of their own type.
 // lse: null, or a contiguous (B, H, N) fp32 output for the backward (bf16
 // scores only).
+// kv_head_shift: 0 on every real call (a test hook that plants a fault: the
+// bf16 forms read K and V from head (h + shift) % H).
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int omnivggt_flash_attention_fwd(
     int mode, int bounded, int head_dim, int qk, const void* q, const void* k,
     const void* v, void* o, void* lse, const void* c, const void* qinv,
     void* q8_out, const long long* strides, int B, int H, int N, int Nk,
-    int kv_static, const void* kv_dynamic, float scale, void* stream) {
+    int kv_static, const void* kv_dynamic, float scale, void* stream,
+    int kv_head_shift) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (head_dim != 64 && head_dim != 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (qk == kScoresBf16) {
+    TmaParams p;
+    const bool maps =
+        sm90::encode_bnhd_map(&p.q_map, q, B, N, H, head_dim, strides[0], strides[1],
+                              strides[2], kTmaRows) &&
+        sm90::encode_bnhd_map(&p.k_map, k, B, Nk, H, head_dim, strides[3], strides[4],
+                              strides[5], kTmaRows) &&
+        sm90::encode_bnhd_map(&p.v_map, v, B, Nk, H, head_dim, strides[6], strides[7],
+                              strides[8], kTmaRows);
+    if (!maps || mode < kModeHeadMajor || mode > kModeTokenMajor)
+      return static_cast<int>(cudaErrorInvalidValue);
+    p.o = static_cast<__nv_bfloat16*>(o);
+    p.lse = static_cast<float*>(lse);
+    p.o_sb = strides[9]; p.o_sn = strides[10]; p.o_sh = strides[11];
+    p.B = B; p.H = H; p.N = N; p.Nk = Nk;
+    p.kv_static = kv_static;
+    p.kv_dynamic = static_cast<const int*>(kv_dynamic);
+    p.scale_log2 = scale * kLog2e;
+    p.kv_head_shift = ((kv_head_shift % H) + H) % H;
+    cudaError_t err;
+    if (head_dim == 64) {
+      err = bounded ? launch_tma<64, true>(p, mode, s) : launch_tma<64, false>(p, mode, s);
+    } else {
+      err = bounded ? launch_tma<128, true>(p, mode, s) : launch_tma<128, false>(p, mode, s);
+    }
+    return static_cast<int>(err);
+  }
   Params p;
-  p.q = q;
-  p.k = k;
+  p.q = static_cast<const int8_t*>(q);
+  p.k = static_cast<const int8_t*>(k);
   p.v = static_cast<const __nv_bfloat16*>(v);
   p.o = static_cast<__nv_bfloat16*>(o);
-  p.lse = static_cast<float*>(lse);
   p.q_sb = strides[0]; p.q_sn = strides[1]; p.q_sh = strides[2];
   p.k_sb = strides[3]; p.k_sn = strides[4]; p.k_sh = strides[5];
   p.v_sb = strides[6]; p.v_sn = strides[7]; p.v_sh = strides[8];
@@ -340,20 +637,18 @@ extern "C" int omnivggt_flash_attention_fwd(
   p.B = B; p.H = H; p.N = N; p.Nk = Nk;
   p.kv_static = kv_static;
   p.kv_dynamic = static_cast<const int*>(kv_dynamic);
-  p.scale_log2 = scale * kLog2e;
   p.c = static_cast<const float*>(c);
   p.qinv = static_cast<const float*>(qinv);
   p.q8_out = static_cast<int8_t*>(q8_out);
-  if (qk != kScoresBf16 && (p.c == nullptr || p.lse != nullptr))
+  if (p.c == nullptr || lse != nullptr || kv_head_shift != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (qk == kScoresInt8QIn && p.qinv == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   bool ok = false;
   if (head_dim == 64) {
-    ok = bounded ? launch<64, true>(p, mode, qk, s) : launch<64, false>(p, mode, qk, s);
-  } else if (head_dim == 128) {
-    ok = bounded ? launch<128, true>(p, mode, qk, s) : launch<128, false>(p, mode, qk, s);
+    ok = bounded ? launch_int8<64, true>(p, mode, qk, s) : launch_int8<64, false>(p, mode, qk, s);
+  } else {
+    ok = bounded ? launch_int8<128, true>(p, mode, qk, s) : launch_int8<128, false>(p, mode, qk, s);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());

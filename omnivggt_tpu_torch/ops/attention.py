@@ -1,4 +1,4 @@
-"""Scaled dot-product attention over (B, N, H, D) with two implementations.
+"""Scaled dot-product attention over (B, N, H, D) with three implementations.
 
 Counterpart of omnivggt_tpu/ops/attention.py:
 
@@ -8,6 +8,10 @@ Counterpart of omnivggt_tpu/ops/attention.py:
     keys at or past it with -1e30. Unlike `_attention_xla`, P @ V runs in
     fp32 (no bf16 rounding of P), as in the kernels, so the kernel path and
     this reference path round only at their outputs.
+  - "blockwise": streaming softmax over key blocks of BLOCK_K in plain
+    torch ops, with a running (max, denominator, fp32 accumulator) carry
+    (the counterpart of `_attention_blockwise`): memory O(N * BLOCK_K),
+    any device, differentiable by autograd.
   - "flash": the Hopper kernels (ops/kernels/flash_attention.py), in the
     JAX package's order: the token-major packed kernel when the key axis
     fits its contract (Nk <= PACKED_MAX_KEYS, head dim 64 or 128: frame and
@@ -16,9 +20,12 @@ Counterpart of omnivggt_tpu/ops/attention.py:
     token-major streaming kernel when `stream_eligible`, else the
     head-major kernel (global attention), each of the last two in its int8
     form under qk_int8.
-  - "auto": "flash" for CUDA tensors with N >= 1024, else "plain". The
-    length split is the JAX package's; its TPU-measured row and score-byte
-    thresholds are not carried over until they are measured on the H100.
+  - "auto": "flash" for CUDA tensors with N >= 1024; otherwise the JAX
+    package's branches off the TPU: "plain" while N <= 4096 and the fp32
+    score tensor B * H * N^2 * 4 stays within 8e9 bytes
+    (OMNIVGGT_XLA_MAX_SCORE_BYTES, the JAX package's name), else
+    "blockwise". The JAX package's TPU-measured row threshold is not
+    carried over until it is measured on the H100.
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import torch
 
 from omnivggt_tpu_torch.ops.kernels.flash_attention import (
     HEAD_DIMS,
+    NEG_INF,
     PACKED_MAX_KEYS,
     flash_attention,
     flash_attention_packed,
@@ -39,6 +47,11 @@ from omnivggt_tpu_torch.ops.kernels.flash_attention import (
 )
 
 FLASH_MIN_SEQ = 1024
+# sequences at or below this length, whose fp32 score tensor stays within
+# the byte cap, materialise their scores ("plain"); longer ones stream keys
+PLAIN_MAX_SEQ = 4096
+PLAIN_MAX_SCORE_BYTES = int(float(os.environ.get("OMNIVGGT_XLA_MAX_SCORE_BYTES", "8e9")))
+BLOCK_K = 1024
 
 # The token-major streaming kernel for long (global-attention) key axes is
 # off by default, as in the JAX package, whose TPU measurements had it lose
@@ -75,13 +88,48 @@ def attention_plain(q, k, v, kv_valid=None):
     return kernel_plain(q, k, v, kv_valid, bounded_logits=False)
 
 
+def attention_blockwise(q, k, v, kv_valid=None, block_k: int = BLOCK_K):
+    """(B, N, H, D) attention streamed over key blocks: each block's fp32
+    scores update a running row max m, denominator l and fp32 accumulator,
+    rescaled by exp(m_old - m_new); output acc / l in q's dtype. Keys at or
+    past a tensor kv_valid score -1e30; a static kv_valid slices K/V first,
+    and the last block is shorter rather than padded, so no padded key
+    enters a sum. Memory O(N * block_k) per block; differentiable by
+    autograd (the max is a constant shift, taken without a gradient)."""
+    if kv_valid is not None and not isinstance(kv_valid, torch.Tensor):
+        k, v = k[:, : int(kv_valid)], v[:, : int(kv_valid)]
+        kv_valid = None
+    B, N, H, D = q.shape
+    qf = q.float() * D**-0.5
+    m = torch.full((B, H, N), NEG_INF, dtype=torch.float32, device=q.device)
+    den = torch.zeros((B, H, N), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, N, D), dtype=torch.float32, device=q.device)
+    for k0 in range(0, k.shape[1], block_k):
+        kb, vb = k[:, k0 : k0 + block_k].float(), v[:, k0 : k0 + block_k].float()
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kb)
+        if kv_valid is not None:
+            key = k0 + torch.arange(kb.shape[1], device=q.device)
+            s = s.masked_fill(key >= kv_valid, NEG_INF)
+        m_new = torch.maximum(m, s.detach().amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        den = den * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p, vb)
+        m = m_new
+    return (acc / den[..., None]).transpose(1, 2).to(q.dtype)
+
+
 def resolve_impl(q: torch.Tensor, impl: str = "auto") -> str:
-    """The implementation "auto" picks for this query tensor."""
+    """The implementation "auto" picks for this query tensor (its shape and
+    device only: a meta tensor will do)."""
     if impl != "auto":
         return impl
-    if q.device.type == "cuda" and q.shape[1] >= FLASH_MIN_SEQ:
+    B, N, H, _ = q.shape
+    if q.device.type == "cuda" and N >= FLASH_MIN_SEQ:
         return "flash"
-    return "plain"
+    if N <= PLAIN_MAX_SEQ and B * H * N * N * 4 <= PLAIN_MAX_SCORE_BYTES:
+        return "plain"
+    return "blockwise"
 
 
 def scaled_dot_product_attention(
@@ -93,13 +141,15 @@ def scaled_dot_product_attention(
     kv_valid: optional valid-key prefix (Python int or integer tensor).
     bounded_logits: caller-guaranteed |scores| far below 80 (qk-normed
     inputs), which lets the kernels run at a fixed softmax max; the plain
-    implementation ignores it.
+    and blockwise implementations ignore it.
     qk_int8: int8 scores in the flash kernels that have an int8 form
-    (serving only); the plain implementation and the packed kernel ignore
-    it, as in the JAX package."""
+    (serving only); the plain and blockwise implementations and the packed
+    kernel ignore it, as in the JAX package."""
     impl = resolve_impl(q, impl)
     if impl == "plain":
         return attention_plain(q, k, v, kv_valid)
+    if impl == "blockwise":
+        return attention_blockwise(q, k, v, kv_valid)
     if impl == "flash":
         if packed_eligible(q.shape, k.shape[1]):
             return flash_attention_packed(

@@ -258,13 +258,17 @@ def lse_tolerance(q, k, lse, kv_valid=None):
     """(B, H, N) bound on the difference between two fp32 computations of
     the forward's row LSE from the same inputs (the kernel's and
     attention_plain's), each with unit roundoff u = 2^-24: the row sum of
-    nk positive terms moves by at most (nk - 1) u of itself, and the
-    rescaling by the running max by at most 3 u per 64-key tile; each
-    term's exponent moves by at most 2 (D + 1) u A, A = scale |q_i| max_j
-    |k_j| >= scale sum_d |q_d k_d| (the dot product's fp32 accumulation,
-    truncating on the tensor cores, and the scale); exp, log and
-    (m + log2 l) ln 2 add a few u of |lse|. Both sides:
-    2 u (17/16 nk + 2 (D + 1) A + 4 |lse| + 8)."""
+    nk positive terms moves by at most (nk - 1) u of itself (the kernel
+    sums fewer in sequence: in every 64 x 128 wgmma tile a thread holds
+    2 rows x 32 columns and adds its nk / 4 terms of a row, then one quad
+    shuffle adds the four partial sums), and the rescaling by the running
+    max by at most 3 u per key tile, 3/128 nk u over 128-key tiles (the
+    bound keeps the 3/64 nk u of the earlier 64-key tiles, which covers
+    it); each term's exponent moves by at most 2 (D + 1) u A, A = scale
+    |q_i| max_j |k_j| >= scale sum_d |q_d k_d| (the dot product's fp32
+    accumulation, truncating on the tensor cores in D / 16 steps of 16, and
+    the scale); exp, log and (m + log2 l) ln 2 add a few u of |lse|. Both
+    sides: 2 u (17/16 nk + 2 (D + 1) A + 4 |lse| + 8)."""
     D = q.shape[-1]
     nk = k.shape[1] if kv_valid is None else max(min(int(kv_valid), k.shape[1]), 1)
     k_max = k[:, :nk].float().norm(dim=-1).amax(dim=1)  # (B, H)
@@ -349,6 +353,7 @@ def _libraries_locked():
         i32, i32, i32, i32,     # B, H, N, Nk
         i32, ptr,               # kv_static, kv_dynamic
         f32, ptr,               # scale, stream
+        i32,                    # kv_head_shift (a test hook, 0)
     ]
     bwd_args = [
         i32, i32,                            # bounded, D
@@ -369,6 +374,16 @@ def load_kernels() -> str:
     otherwise build at first launch); returns the compiler logs, empty
     where a library was cached."""
     return _libraries()[3]
+
+
+def tma_launch_shape(head_dim: int) -> tuple:
+    """(threads a block, dynamic shared-memory bytes a block) of the bf16
+    forward kernel at this head dim, as its source computes them."""
+    lib, _ = build.load(SOURCES[0])
+    threads, smem = lib.omnivggt_flash_attention_tma_threads, lib.omnivggt_flash_attention_tma_smem_bytes
+    threads.argtypes, smem.argtypes = [], [ctypes.c_int]
+    threads.restype = smem.restype = ctypes.c_int
+    return threads(), smem(int(head_dim))
 
 
 def _on_cpu(*tensors) -> bool:
@@ -416,7 +431,9 @@ def _check(q, k, v, packed=False, qk=SCORES_BF16):
         )
     if D not in HEAD_DIMS:
         raise ValueError(f"the Hopper kernels take head dim in {HEAD_DIMS}, got {D}")
-    if (max(B, math.ceil(N / 64)) if packed else B * H) > _MAX_GRID_YZ:
+    # query tiles: 128 rows in the bf16 kernel, 64 in the int8 forms
+    rows = 128 if qk == SCORES_BF16 else 64
+    if (max(B, math.ceil(N / rows)) if packed else B * H) > _MAX_GRID_YZ:
         raise ValueError(f"grid too large for (B, N, H) = {(B, N, H)}")
     return B, N, H, D, Nk
 
@@ -452,9 +469,11 @@ def _raise_on(err, what):
 
 
 def _launch_fwd(counter, q, k, v, kv_valid, bounded_logits, mode, with_lse=False,
-                qk=SCORES_BF16, c=None, qinv=None, q8_out=None):
+                qk=SCORES_BF16, c=None, qinv=None, q8_out=None, kv_head_shift=0):
     """One forward kernel launch, counted on `counter`: o, or (o, lse)
-    with_lse. qk, c, qinv, q8_out: the int8 forms (see the source)."""
+    with_lse. qk, c, qinv, q8_out: the int8 forms (see the source).
+    kv_head_shift: 0; a test hook that plants a fault (the bf16 kernel
+    reads K and V of head (h + shift) % H)."""
     B, N, H, D, Nk = _check(q, k, v, mode != MODE_HEAD_MAJOR, qk)
     q, k, v = (_vector_aligned(x) for x in (q, k, v))
     o = torch.empty((B, N, H, D), dtype=torch.bfloat16, device=q.device)
@@ -482,7 +501,7 @@ def _launch_fwd(counter, q, k, v, kv_valid, bounded_logits, mode, with_lse=False
             *(None if x is None else x.data_ptr() for x in scales),
             None if q8_out is None else q8_out.data_ptr(),
             _strides(q, k, v, o),
-            B, H, N, Nk, kv_static, kv_ptr, D ** -0.5, stream,
+            B, H, N, Nk, kv_static, kv_ptr, D ** -0.5, stream, kv_head_shift,
         )
     _raise_on(err, "flash-attention forward")
     counter.launches += 1

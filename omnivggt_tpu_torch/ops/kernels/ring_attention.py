@@ -225,7 +225,16 @@ def reorder_tolerance(ref, v, n_keys: int):
     each row sum l adds n_keys / 4 terms per thread in fp32, which moves
     the quotient by at most 2 (n_keys / 4) 2^-24 of itself; and rounding
     two such values to bf16 can land them one bf16 step apart, at most
-    2^-7 of the value."""
+    2^-7 of the value. Both counts hold for the mma.sync kernels (16 x 64
+    tiles: a thread adds 16 of a row's 64 keys a tile) and for the wgmma
+    head-major kernel (64 x 128 tiles: a thread holds 2 rows x 32 columns,
+    n_keys / 4 of a row's terms in all, and P @ V steps 16 keys at a time
+    too). Not in the bound: the two kernels' score products (mma.sync,
+    wgmma) may round a score differently, and a P that then crosses a bf16
+    rounding boundary moves o by 2^-8 p / l |v|; that takes an ulp of S to
+    land on a boundary, a chance of about 2^-16 per score, and the card's
+    readings stay where they were with the mma.sync kernel (worst err/tol
+    0.909 at the flagship shape)."""
     steps = n_keys / 16
     return (2 * steps * 2.0**-23 * v.float().abs().max()
             + (2.0**-7 + 2 * (n_keys / 4) * 2.0**-24) * ref.float().abs())

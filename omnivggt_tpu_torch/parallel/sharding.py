@@ -39,7 +39,8 @@ class AttnShard:
         """The attention impl each rank's compute will use for the query
         tensor q (B, N, H, D): the ring strategies always run the streaming
         recurrence ("flash"); rows and allgather run the attention dispatch
-        on the rank's own slice, which can resolve to "plain"."""
+        on the rank's own slice, which can resolve to "plain" or
+        "blockwise"."""
         if self.kind in ("ring", "ring_fused"):
             return "flash"
         n = self._ranks()

@@ -113,6 +113,93 @@ def test_launch_counters(cuda):
     assert FK.flash_attention_bwd_dq.launches == FK.flash_attention_bwd_dkv.launches == 0
 
 
+def _kv(kv_valid, device):
+    return torch.tensor(217, device=device) if kv_valid == "device" else kv_valid
+
+
+@pytest.mark.parametrize("packed", [False, True])
+@pytest.mark.parametrize("bounded", [False, True])
+@pytest.mark.parametrize(
+    "shape,n_keys,kv_valid",
+    [
+        ((2, 333, 3, 64), 333, None),  # N not a multiple of 128
+        ((1, 200, 2, 64), 77, None),  # Nk < 128
+        ((2, 300, 2, 64), 300, 1),
+        ((2, 300, 2, 64), 300, 256),  # a multiple of 128
+        ((2, 300, 2, 64), 300, 290),  # inside the last tile
+        ((2, 300, 2, 64), 300, "device"),
+        ((1, 260, 2, 128), 260, None),
+        ((2, 300, 2, 128), 384, "device"),
+    ],
+)
+def test_tma_kernel_and_lse_match_plain(cuda, shape, n_keys, kv_valid, bounded, packed):
+    """The bf16 kernel (TMA + wgmma, 128-row tiles) on both grids against
+    attention_plain: o within 2^-7 max|v|, the LSE row by row within
+    FK.lse_tolerance."""
+    q, k, v = _qkv(shape, n_keys, 5, cuda)
+    kv = _kv(kv_valid, cuda)
+    o, lse = FK._launch(q, k, v, kv, bounded, packed, with_lse=True)
+    torch.cuda.synchronize()
+    _check(o, q, k, v, kv, bounded)
+    _, lse_ref = FK.attention_plain(q.float(), k.float(), v.float(), kv, bounded, return_lse=True)
+    tol = FK.lse_tolerance(q, k, lse_ref, kv)
+    assert ((lse - lse_ref).abs() <= tol).all(), ((lse - lse_ref).abs() / tol).max().item()
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_tma_kernel_with_no_valid_key(cuda, packed):
+    """kv_valid = 0 (static or on the device): no key tile is visited, o is
+    0 and the LSE +1e30, so the backward's p = exp(s - lse) is 0."""
+    q, k, v = _qkv((1, 150, 2, 64), 150, 8, cuda)
+    for kv in (0, torch.tensor(0, device=cuda)):
+        for bounded in (False, True):
+            o, lse = FK._launch(q, k, v, kv, bounded, packed, with_lse=True)
+            torch.cuda.synchronize()
+            assert (o == 0).all() and (lse == 1e30).all()
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_tma_kernel_reads_strided_views(cuda, D):
+    """q, k, v as views of one (B, N, 3, H, D) qkv tensor, and as
+    (B, H, N, D) tensors seen as (B, N, H, D): the tensor maps take the
+    strides as they are."""
+    rng = np.random.default_rng(9)
+    B, N, H = 2, 300, 3
+    qkv = torch.tensor(rng.normal(size=(B, N, 3, H, D)), dtype=torch.bfloat16, device=cuda)
+    views = [qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]]
+    heads_first = [x.transpose(1, 2).contiguous().transpose(1, 2) for x in views]
+    for q, k, v in (views, heads_first):
+        for packed in (False, True):
+            for bounded in (False, True):
+                o = FK._launch(q, k, v, 250, bounded, packed)
+                torch.cuda.synchronize()
+                _check(o, q, k, v, 250, bounded)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_tma_kernel_is_deterministic(cuda, D):
+    """20 launches on the same inputs give bitwise the same o and LSE (a
+    race in the stage ring would not show as a wrong mean)."""
+    q, k, v = _qkv((2, 700, 4, D), 700, 6, cuda)
+    for packed, bounded, kv in ((False, True, None), (True, False, torch.tensor(650, device=cuda))):
+        o0, lse0 = FK._launch(q, k, v, kv, bounded, packed, with_lse=True)
+        for _ in range(20):
+            o, lse = FK._launch(q, k, v, kv, bounded, packed, with_lse=True)
+            assert torch.equal(o, o0) and torch.equal(lse, lse0)
+
+
+def test_tma_kernel_wrong_head_fails_the_tolerance(cuda):
+    """A planted fault (K and V loaded from the next head) must leave the
+    2^-7 max|v| tolerance."""
+    q, k, v = _qkv((1, 300, 4, 64), 300, 7, cuda)
+    for mode in (FK.MODE_HEAD_MAJOR, FK.MODE_TOKEN_MAJOR):
+        o = FK._launch_fwd(FK.flash_attention, q, k, v, None, True, mode, kv_head_shift=1)
+        torch.cuda.synchronize()
+        ref = FK.attention_plain(q.float(), k.float(), v.float(), None, True)
+        err = (o.float() - ref).abs().max().item()
+        assert err > 2.0**-7 * v.float().abs().max().item()
+
+
 def _check_backward(q, k, v, o, lse, do, kv_valid, bounded, grads):
     """The kernel's LSE against attention_plain's within FK.lse_tolerance,
     and grads (dq, dk, dv) against attention_backward_plain in fp32 from

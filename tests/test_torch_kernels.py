@@ -114,10 +114,14 @@ def test_plain_attention_matches_xla_attention():
 
 
 def test_dispatch(monkeypatch):
-    """"auto" is plain on CPU whatever the length; "flash" takes the packed
-    kernel up to PACKED_MAX_KEYS keys and the head-major kernel past it."""
+    """"auto" is plain on CPU up to PLAIN_MAX_SEQ tokens and blockwise past
+    it (tests/test_torch_blockwise.py holds the rule against the JAX
+    package's); "flash" takes the packed kernel up to PACKED_MAX_KEYS keys
+    and the head-major kernel past it; an impl the port does not have
+    raises."""
     q = torch.zeros(1, 2048, 1, 64)
     assert TA.resolve_impl(q, "auto") == "plain"
+    assert TA.resolve_impl(torch.zeros(1, 8192, 1, 64, device="meta"), "auto") == "blockwise"
     assert TA.resolve_impl(torch.zeros(1, 4, 1, 64, device="meta"), "auto") == "plain"
     called = []
     monkeypatch.setattr(TA, "flash_attention", lambda *a, **kw: called.append("head_major"))
@@ -127,7 +131,7 @@ def test_dispatch(monkeypatch):
         TA.scaled_dot_product_attention(q, kv, kv, impl="flash")
     assert called == ["packed", "head_major"]
     with pytest.raises(ValueError):
-        TA.scaled_dot_product_attention(q, q, q, impl="blockwise")
+        TA.scaled_dot_product_attention(q, q, q, impl="xla")
 
 
 def test_wrappers_never_fall_back_off_the_cpu():

@@ -1,10 +1,21 @@
 """Shared helpers for the PyTorch-port parity tests (tests/test_torch_*.py).
 
-Inputs are made with numpy from a seed and go through both packages; the
-port's weights come from the JAX package's `init` through
-omnivggt_tpu_torch.checkpoint.params_from_jax.
+Inputs are made with numpy from a seed and go through both packages. The
+tiny models' weights come, by default, from the port's own seeded init and
+reach the JAX package through its loader,
+omnivggt_tpu.checkpoint.convert_state_dict (lossless, strict): that costs
+no compilation, where the JAX package's `init` under jit compiles for ~25 s
+per config and process. `weights="jax"` takes the JAX package's init
+instead, bridged with params_from_jax. Once made, a config's weights are
+kept for the process, and every test gets a fresh model and a fresh copy of
+the params.
+
+The tests run in several worker processes at once, each with one torch
+thread: the tiny tensors gain nothing from intra-op threads, and a pool of
+threads per worker oversubscribes the cores.
 """
 
+import copy
 import functools
 from unittest import mock
 
@@ -16,6 +27,7 @@ import torch
 import jax.numpy as jnp
 
 from omnivggt_tpu import config as JC
+from omnivggt_tpu.checkpoint import convert_state_dict
 from omnivggt_tpu.models import omnivggt as JM
 from omnivggt_tpu.models.aggregator import AuxInputs as JAux
 from omnivggt_tpu.train import losses as JLS
@@ -25,6 +37,8 @@ from omnivggt_tpu_torch.models import omnivggt as TM
 from omnivggt_tpu_torch.models.aggregator import AuxInputs as TAux
 from omnivggt_tpu_torch.train import losses as TLS
 from omnivggt_tpu_torch.train import step as TTS
+
+torch.set_num_threads(1)
 
 ATOL = 5e-4  # the JAX suite's module tolerance (tests/test_models.py)
 OUTPUT_KEYS = ("pose_enc", "depth", "depth_conf", "world_points", "world_points_conf")
@@ -51,14 +65,30 @@ def jax_init(init_fn, seed, cfg):
     return to_np(jax.jit(init_fn, static_argnums=1)(jax.random.PRNGKey(seed), cfg))
 
 
-def tiny_pair(seed=0, **kw):
-    """(jax cfg, port cfg, JAX params as numpy, port model loaded from them)
-    for tiny_test_config(**kw)."""
+@functools.lru_cache(maxsize=None)
+def _tiny_weights(seed, weights, kw_items):
+    """(port state dict, JAX params as numpy) of tiny_test_config(**kw):
+    the port's seeded init (weights="port") or the JAX package's
+    (weights="jax"), made once per process."""
+    kw = dict(kw_items)
     jcfg, tcfg = JC.tiny_test_config(**kw), TC.tiny_test_config(**kw)
-    params = jax_init(JM.init, seed, jcfg)
+    if weights == "jax":
+        params = jax_init(JM.init, seed, jcfg)
+        return params_from_jax(params, tcfg), params
+    model = TM.OmniVGGT(tcfg, device="cpu", seed=seed)
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    return state, to_np(convert_state_dict({k: v.numpy() for k, v in state.items()}, jcfg))
+
+
+def tiny_pair(seed=0, weights="port", **kw):
+    """(jax cfg, port cfg, JAX params as numpy, port model) for
+    tiny_test_config(**kw), the same weights on both sides (see the module
+    docstring); a fresh model and a fresh copy of the params each call."""
+    jcfg, tcfg = JC.tiny_test_config(**kw), TC.tiny_test_config(**kw)
+    state, params = _tiny_weights(seed, weights, tuple(sorted(kw.items())))
     model = TM.OmniVGGT(tcfg, device="cpu", seed=None)
-    model.load_state_dict(params_from_jax(params, tcfg), strict=True)
-    return jcfg, tcfg, params, model.eval()
+    model.load_state_dict(state, strict=True)
+    return jcfg, tcfg, copy.deepcopy(params), model.eval()
 
 
 def random_cameras(rng, B, S):
