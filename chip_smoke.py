@@ -77,7 +77,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      within RK.reorder_tolerance (the order of the fp32 sums only); every
      rank's last-read slot must hold its right neighbour's shard exactly;
      quant_ring's grids on the card equal to the CPU's; with the last
-     rotation left out the output must leave the tolerance; times beside
+     rotation left out the output must leave the tolerance; the bf16 forms
+     (ring_step_tma, the TMA + wgmma tile) 21 launches bitwise equal (the
+     int8 forms two), and two planted faults of that tile (the last key
+     tile of every shard left out; K and V of the next head) must leave the
+     tolerance in every case; times beside
      the plain version's, SDPA over the whole sequence, and the bound,
      whose bytes include the rotation ((n - 1) shards of K and V read and
      written once each);
@@ -165,7 +169,8 @@ N_RANKS = 4  # logical ranks of the sharded phases
 FAMILIES = (
     ("flash_fwd_head_major", ("flash_fwd_head_major",)),
     ("flash_fwd_token_major", ("flash_fwd_token_major",)),
-    ("ring_step / ring_stage", ("ring_step", "ring_stage")),
+    ("ring_step_tma (bf16 ring, TMA + wgmma)", ("ring_step_tma",)),
+    ("ring_step (int8 ring) / ring_stage", ("ring_step", "ring_stage")),
     ("conv3x3 kernel", ("conv3x3_bf16", "conv3x3_fp32")),
     ("flash_bwd_dq", ("flash_bwd_dq",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv",)),
@@ -1261,12 +1266,23 @@ def check_ring(RK, FK, dev):
         torch.cuda.synchronize()
         if RK.launches() != {vmem: int(name == vmem), hbm: int(name == hbm)}:
             raise AssertionError(f"ring [{label}]: dispatched to {RK.launches()}, expected {name}")
-        again, slots = RK._ring_launch(wrapper, q, k, v, n, bounded, int8, chunk_q=chunk)
+        # the bf16 forms (the TMA + wgmma tile) 21 launches in all, the int8
+        # forms two: every repeat bitwise equal to the first
+        repeats = 1 if int8 else 20
+        same = True
+        for _ in range(repeats):
+            again, slots = RK._ring_launch(wrapper, q, k, v, n, bounded, int8, chunk_q=chunk)
+            same = same and torch.equal(out, again)
         bad, _ = RK._ring_launch(wrapper, q, k, v, n, bounded, int8, chunk_q=chunk,
                                  skip_rotation_at=n - 2)
+        # the new tile's planted faults: the last key tile of every shard
+        # left out; K and V of the next head
+        tile_faults = [] if int8 else [
+            RK._ring_launch(wrapper, q, k, v, n, bounded, int8, chunk_q=chunk, **hook)[0]
+            for hook in (dict(drop_last_key_tile=True), dict(kv_head_shift=1))]
         torch.cuda.synchronize()
-        if not torch.equal(out, again):
-            raise AssertionError(f"ring [{label}]: two runs on the same inputs differ")
+        if not same:
+            raise AssertionError(f"ring [{label}]: {repeats + 1} runs on the same inputs differ")
 
         # every rank's last-read slot holds its right neighbour's shard
         held_k, held_v = k, v
@@ -1292,11 +1308,16 @@ def check_ring(RK, FK, dev):
         tol = 2.0**-7 * v.float().abs().max().item()
         err = (out.float() - ref).abs().max().item()
         fault_err = (bad.float() - ref).abs().max().item()
+        tile_errs = [(x.float() - ref).abs().max().item() for x in tile_faults]
         line = (f"kernel {name} [{label}] q(1, {N}, {H}, {D}) over {n} ranks, nl {nl}: "
                 f"max_abs_err {err:.3e} tol {tol:.3e} (2^-7 max|v|, against "
                 f"ring_attention_plain{' on the grids of quant_ring (equal to the CPU grids: True)' if int8 else ''}); "
+                f"{repeats + 1} launches bitwise equal: {same}; "
                 f"slots rotated (last-read slot == right neighbour's shard, exactly): {turned}; "
-                f"planted fault (last rotation left out) {fault_err:.3e} (must exceed tol)")
+                f"planted faults (must exceed tol): last rotation left out {fault_err:.3e}")
+        if tile_errs:
+            line += (f", last key tile of every shard left out {tile_errs[0]:.3e}, "
+                     f"K/V of the next head {tile_errs[1]:.3e}")
         sharp_ok = True
         if bounded and not int8:
             head_major = FK.flash_attention(q, k, v, bounded_logits=True).float()
@@ -1306,7 +1327,7 @@ def check_ring(RK, FK, dev):
             line += (f"; against the head-major kernel: worst err/tol {ratio:.3f} "
                      f"(RK.reorder_tolerance: the order of the fp32 sums and one bf16 step)")
             del head_major
-        del ref, bad
+        del ref, bad, tile_faults
 
         ms = median_ms(run, 10)
         plain_ms = median_ms(
@@ -1328,8 +1349,8 @@ def check_ring(RK, FK, dev):
             raise AssertionError(f"{name} [{label}] disagrees with its plain version")
         if not turned:
             raise AssertionError(f"{name} [{label}]: the slots do not hold the rotated shards")
-        if not fault_err > tol:
-            raise AssertionError(f"{name} [{label}]: the planted fault passes the check")
+        if not (fault_err > tol and all(e > tol for e in tile_errs)):
+            raise AssertionError(f"{name} [{label}]: a planted fault passes the check")
         r = results[name]
         r["errs"].append(err)
         if on_path:

@@ -50,8 +50,11 @@
 //     and, when training, the row LSE as before.
 // The two grids differ only in the block order: head-major (query tiles,
 // B*H) keeps one head's query tiles together; token-major (H, query tiles,
-// B) keeps the heads of one query tile together. The primitives (mbarrier,
-// TMA, wgmma, setmaxnreg, the tensor-map encoding) are in sm90.cuh.
+// B) keeps the heads of one query tile together. The tile (its shared
+// memory, the producer's loop, the consumer's step over a key tile, the
+// store of o) is attend_sm90.cuh's, which the ring kernel
+// (ring_attention.cu) runs too; the primitives (mbarrier, TMA, wgmma,
+// setmaxnreg, the tensor-map encoding) are in sm90.cuh.
 //
 // The int8 forms keep the first design, attend_tile(): 64 query rows and
 // 4 warps a block, mma.sync.m16n8k32 s8 scores from int8 tiles staged by
@@ -85,8 +88,7 @@
 //     shared load; keys at or past min(Nk, kv_valid) load as zeros and
 //     their scores are set to -1e30.
 
-#include "flash_common.cuh"
-#include "sm90.cuh"
+#include "attend_sm90.cuh"
 
 namespace {
 
@@ -99,21 +101,12 @@ constexpr int kScoresInt8QIn = 2; // int8 k from the caller, bf16 q quantised he
 
 // ---- bf16: TMA + wgmma ------------------------------------------------------
 
-constexpr int kTmaRows = 128;        // query rows a block, keys a tile
-constexpr int kConsumers = 2;        // consumer warpgroups of 64 query rows
-constexpr int kTmaThreads = 128 * (kConsumers + 1);
-constexpr int kBoxBytes = kTmaRows * 128;  // one 64-column box of 128 rows
+using attend::kConsumers;
+using attend::kRows;
+constexpr int kTmaThreads = attend::kThreads;
 
 template <int D>
-struct TmaSmem {
-  static constexpr int kStages = D == 64 ? 3 : 2;
-  static constexpr int kTile = kTmaRows * D * 2;  // bytes of a Q, K or V tile
-  static constexpr int kK = kTile;                // Q at 0
-  static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBars = kV + kStages * kTile;
-  static constexpr int kBytes = kBars + (1 + 3 * kStages) * 8;
-  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
-};
+using TmaSmem = attend::Smem<D>;
 
 struct TmaParams {
   CUtensorMap q_map, k_map, v_map;  // (D, H, N, B) maps, see sm90.cuh
@@ -128,72 +121,31 @@ struct TmaParams {
                           // read from head (h + shift) % H)
 };
 
-// One block: 128 query rows of head h of batch b, starting at row q0.
+// One block: 128 query rows of head h of batch b, starting at row q0; the
+// tile and its pipeline are attend_sm90.cuh's.
 template <int D, bool kBounded>
 __device__ __forceinline__ void tma_attend(const TmaParams& p, int b, int h, int q0) {
-  using L = TmaSmem<D>;
-  constexpr int kS = L::kStages;
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
-  uint8_t* qs = smem;
-  uint8_t* ks = smem + L::kK;
-  uint8_t* vs = smem + L::kV;
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
-  uint64_t* k_full = q_full + 1;
-  uint64_t* v_full = k_full + kS;
-  uint64_t* empty = v_full + kS;
+  const attend::Tiles t = attend::carve_tiles<D>();
 
   // producer and consumers read the same count, so they agree on the tiles
   int n_eff = p.kv_dynamic ? min(p.Nk, *p.kv_dynamic) : p.kv_static;
   n_eff = max(n_eff, 0);
-  const int n_tiles = (n_eff + kTmaRows - 1) / kTmaRows;
-
-  if (threadIdx.x == 0) {
-    sm90::mbar_init(q_full, 1);
-    for (int s = 0; s < kS; ++s) {
-      sm90::mbar_init(&k_full[s], 1);
-      sm90::mbar_init(&v_full[s], 1);
-      sm90::mbar_init(&empty[s], 128 * kConsumers);
-    }
-    sm90::fence_barrier_init();
-  }
-  __syncthreads();
+  const int n_tiles = (n_eff + kRows - 1) / kRows;
 
   const int wg = threadIdx.x / 128;
   if (wg == kConsumers) {
     // producer: one thread issues every TMA load
     sm90::setmaxnreg_dec<24>();
     if (threadIdx.x == 128 * kConsumers) {
-      sm90::prefetch_tensor_map(&p.q_map);
-      sm90::prefetch_tensor_map(&p.k_map);
-      sm90::prefetch_tensor_map(&p.v_map);
       const int kh = (h + p.kv_head_shift) % p.H;
-      sm90::mbar_arrive_expect_tx(q_full, L::kTile);
-#pragma unroll
-      for (int box = 0; box < D / 64; ++box)
-        sm90::tma_load_4d(qs + box * kBoxBytes, &p.q_map, q_full, box * 64, h, q0, b);
-      for (int it = 0; it < n_tiles; ++it) {
-        const int s = it % kS;
-        sm90::mbar_wait(&empty[s], ((it / kS) & 1) ^ 1);
-        sm90::mbar_arrive_expect_tx(&k_full[s], L::kTile);
-#pragma unroll
-        for (int box = 0; box < D / 64; ++box)
-          sm90::tma_load_4d(ks + s * L::kTile + box * kBoxBytes, &p.k_map, &k_full[s], box * 64,
-                            kh, it * kTmaRows, b);
-        sm90::mbar_arrive_expect_tx(&v_full[s], L::kTile);
-#pragma unroll
-        for (int box = 0; box < D / 64; ++box)
-          sm90::tma_load_4d(vs + s * L::kTile + box * kBoxBytes, &p.v_map, &v_full[s], box * 64,
-                            kh, it * kTmaRows, b);
-      }
+      attend::produce<D>(t, &p.q_map, h, q0, b, &p.k_map, kh, b, &p.v_map, kh, b, n_tiles);
     }
   } else {
     sm90::setmaxnreg_inc<240>();
-    const int t = threadIdx.x % 128;
-    const int g = (t % 32) >> 2;  // accumulator row group
-    const int tq = t & 3;         // thread in group
-    const int row_lo = q0 + wg * 64 + (t / 32) * 16 + g;  // rows row_lo, row_lo + 8
+    const int tid = threadIdx.x % 128;
+    const int g = (tid % 32) >> 2;  // accumulator row group
+    const int tq = tid & 3;         // thread in group
+    const int row_lo = q0 + wg * 64 + (tid / 32) * 16 + g;  // rows row_lo, row_lo + 8
 
     float acc[D / 2];  // O: m64nD accumulator
 #pragma unroll
@@ -203,100 +155,11 @@ __device__ __forceinline__ void tma_attend(const TmaParams& p, int b, int h, int
 
     // One tile after the other: the two consumer warpgroups interleave on
     // the SM by themselves (one's softmax beside the other's products).
-    sm90::mbar_wait(q_full, 0);
-    for (int it = 0; it < n_tiles; ++it) {
-      const int s = it % kS;
-      const uint32_t parity = (it / kS) & 1;
-      const uint8_t* kt = ks + s * L::kTile;
-      const uint8_t* vt = vs + s * L::kTile;
+    sm90::mbar_wait(t.q_full, 0);
+    for (int it = 0; it < n_tiles; ++it)
+      attend::consume_tile<D, kBounded>(t, wg, tq, it, n_eff, p.scale_log2, acc, m_run, l_run);
 
-      // S = Q K^T: 64 rows x 128 keys, D / 16 steps
-      float sc[64];
-      sm90::mbar_wait(&k_full[s], parity);
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-        sm90::wgmma_ss_m64n128k16(sc, sm90::desc_sw128(qs + off + wg * 64 * 128, 16, 1024),
-                                  sm90::desc_sw128(kt + off, 16, 1024), kk > 0);
-      }
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-      sm90::fence_regs(sc);
-
-      // mask keys at or past n_eff in the last tile (raw scores); the scale
-      // into log2 units is folded into the exponent's argument
-      const int k0 = it * kTmaRows;
-      if (k0 + kTmaRows > n_eff) {
-#pragma unroll
-        for (int i = 0; i < 64; ++i) {
-          if (k0 + (i / 4) * 8 + tq * 2 + (i & 1) >= n_eff) sc[i] = kNegInf;
-        }
-      }
-      if (kBounded) {
-#pragma unroll
-        for (int i = 0; i < 64; ++i) {
-          sc[i] = sm90::exp2_ftz(fminf(sc[i] * p.scale_log2, kClampLog2));
-          l_run[(i >> 1) & 1] += sc[i];
-        }
-      } else {
-        // the row max of the raw scores, scaled after (the scale is > 0)
-        float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-        for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        }
-        float corr[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          const float m_new = fmaxf(m_run[r], mx[r] * p.scale_log2);
-          corr[r] = sm90::exp2_ftz(m_run[r] - m_new);
-          m_run[r] = m_new;
-          l_run[r] *= corr[r];
-        }
-#pragma unroll
-        for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
-#pragma unroll
-        for (int i = 0; i < 64; ++i) {
-          sc[i] = sm90::exp2_ftz(fmaf(sc[i], p.scale_log2, -m_run[(i >> 1) & 1]));
-          l_run[(i >> 1) & 1] += sc[i];
-        }
-      }
-
-      // P in bf16: column groups 2kk and 2kk + 1 are the A operand of step kk
-      uint32_t pa[8][4];
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) pa[kk][j] = pack_bf16(sc[8 * kk + 2 * j], sc[8 * kk + 2 * j + 1]);
-      }
-
-      // O += P V: 128 keys in 8 steps; V read through the transpose bit
-      sm90::mbar_wait(&v_full[s], parity);
-      sm90::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint64_t dv = sm90::desc_sw128(vt + kk * 16 * 128, kBoxBytes, 1024);
-        if constexpr (D == 64) {
-          sm90::wgmma_rs_m64n64k16(acc, pa[kk], dv);
-        } else {
-          sm90::wgmma_rs_m64n128k16(acc, pa[kk], dv);
-        }
-      }
-      sm90::wgmma_commit();
-      sm90::wgmma_wait<0>();
-      sm90::fence_regs(acc);
-      sm90::mbar_arrive(&empty[s]);
-    }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 1);
-      l_run[r] += __shfl_xor_sync(0xffffffffu, l_run[r], 2);
-    }
+    attend::quad_sum(l_run);
     const float inv[2] = {l_run[0] > 0.f ? 1.f / l_run[0] : 0.f,
                           l_run[1] > 0.f ? 1.f / l_run[1] : 0.f};
 
@@ -316,18 +179,7 @@ __device__ __forceinline__ void tma_attend(const TmaParams& p, int b, int h, int
       }
     }
 
-    __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = row_lo + 8 * r;
-      if (row < p.N) {
-        __nv_bfloat16* orow = ob + (long long)row * p.o_sn;
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          *reinterpret_cast<uint32_t*>(orow + j * 8 + tq * 2) =
-              pack_bf16(acc[4 * j + 2 * r] * inv[r], acc[4 * j + 2 * r + 1] * inv[r]);
-      }
-    }
+    attend::store_rows<D>(p.o + b * p.o_sb + h * p.o_sh, p.o_sn, acc, inv, row_lo, p.N, tq);
   }
 }
 
@@ -336,7 +188,7 @@ template <int D, bool kBounded>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     flash_fwd_head_major_tma(const __grid_constant__ TmaParams p) {
   const int bh = blockIdx.y;
-  tma_attend<D, kBounded>(p, bh / p.H, bh % p.H, blockIdx.x * kTmaRows);
+  tma_attend<D, kBounded>(p, bh / p.H, bh % p.H, blockIdx.x * kRows);
 }
 
 // counterpart of _flash_packed_kernel and of _flash_packed_stream_kernel
@@ -348,7 +200,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1)
 template <int D, bool kBounded>
 __global__ void __launch_bounds__(kTmaThreads, 1)
     flash_fwd_token_major_tma(const __grid_constant__ TmaParams p) {
-  tma_attend<D, kBounded>(p, blockIdx.z, blockIdx.x, blockIdx.y * kTmaRows);
+  tma_attend<D, kBounded>(p, blockIdx.z, blockIdx.x, blockIdx.y * kRows);
 }
 
 constexpr int kModeHeadMajor = 0, kModeTokenMajor = 1;
@@ -356,7 +208,7 @@ constexpr int kModeHeadMajor = 0, kModeTokenMajor = 1;
 template <int D, bool kBounded>
 cudaError_t launch_tma(const TmaParams& p, int mode, cudaStream_t stream) {
   const int bytes = TmaSmem<D>::kAlloc;
-  const int q_tiles = (p.N + kTmaRows - 1) / kTmaRows;
+  const int q_tiles = (p.N + kRows - 1) / kRows;
   cudaError_t err;
   if (mode == kModeHeadMajor) {
     err = cudaFuncSetAttribute(flash_fwd_head_major_tma<D, kBounded>,
@@ -602,11 +454,11 @@ extern "C" int omnivggt_flash_attention_fwd(
     TmaParams p;
     const bool maps =
         sm90::encode_bnhd_map(&p.q_map, q, B, N, H, head_dim, strides[0], strides[1],
-                              strides[2], kTmaRows) &&
+                              strides[2], kRows) &&
         sm90::encode_bnhd_map(&p.k_map, k, B, Nk, H, head_dim, strides[3], strides[4],
-                              strides[5], kTmaRows) &&
+                              strides[5], kRows) &&
         sm90::encode_bnhd_map(&p.v_map, v, B, Nk, H, head_dim, strides[6], strides[7],
-                              strides[8], kTmaRows);
+                              strides[8], kRows);
     if (!maps || mode < kModeHeadMajor || mode > kModeTokenMajor)
       return static_cast<int>(cudaErrorInvalidValue);
     p.o = static_cast<__nv_bfloat16*>(o);

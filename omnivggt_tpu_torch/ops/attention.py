@@ -5,9 +5,11 @@ Counterpart of omnivggt_tpu/ops/attention.py:
   - "plain": materialised scores with an fp32 softmax (the counterpart of
     `_attention_xla`). A static (Python int) kv_valid slices K/V, so the
     softmax reduces over exactly the valid keys; a tensor kv_valid masks
-    keys at or past it with -1e30. Unlike `_attention_xla`, P @ V runs in
-    fp32 (no bf16 rounding of P), as in the kernels, so the kernel path and
-    this reference path round only at their outputs.
+    keys at or past it with -1e30. As in `_attention_xla`, the normalised
+    probabilities are rounded to v's dtype before P @ V, which accumulates
+    in fp32: bf16 inputs give bf16 P, fp32 inputs an fp32 P @ V. (The
+    kernels and their plain versions round the unnormalised P, as the TPU
+    kernels do, and divide by the row sum last.)
   - "blockwise": streaming softmax over key blocks of BLOCK_K in plain
     torch ops, with a running (max, denominator, fp32 accumulator) carry
     (the counterpart of `_attention_blockwise`): memory O(N * BLOCK_K),
@@ -41,9 +43,6 @@ from omnivggt_tpu_torch.ops.kernels.flash_attention import (
     flash_attention,
     flash_attention_packed,
     flash_attention_packed_stream,
-)
-from omnivggt_tpu_torch.ops.kernels.flash_attention import (
-    attention_plain as kernel_plain,
 )
 
 FLASH_MIN_SEQ = 1024
@@ -80,12 +79,19 @@ def stream_eligible(q_shape, n_keys: int, bounded: bool) -> bool:
 
 
 def attention_plain(q, k, v, kv_valid=None):
-    """(B, N, H, D) attention with fp32 scores, softmax and P @ V; output in
-    q's dtype. A static kv_valid slices K/V first."""
+    """(B, N, H, D) attention with fp32 scores and softmax, the
+    probabilities rounded to v's dtype, P @ V accumulated in fp32 (the
+    arithmetic of `_attention_xla`); output in q's dtype. A static kv_valid
+    slices K/V first. Differentiable by autograd."""
     if kv_valid is not None and not isinstance(kv_valid, torch.Tensor):
         k, v = k[:, : int(kv_valid)], v[:, : int(kv_valid)]
         kv_valid = None
-    return kernel_plain(q, k, v, kv_valid, bounded_logits=False)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()).mul_(q.shape[-1] ** -0.5)
+    if kv_valid is not None:
+        s.masked_fill_(torch.arange(k.shape[1], device=q.device) >= kv_valid, NEG_INF)
+    probs = torch.softmax(s, dim=-1)
+    del s  # one (B, H, N, Nk) fp32 tensor at a time beside the rounded copy
+    return torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float()).to(q.dtype)
 
 
 def attention_blockwise(q, k, v, kv_valid=None, block_k: int = BLOCK_K):

@@ -65,6 +65,7 @@ import functools
 import math
 import threading
 
+import numpy as np
 import torch
 
 from omnivggt_tpu_torch.ops.kernels import build
@@ -75,6 +76,9 @@ PACKED_MAX_KEYS = 2048
 HEAD_DIMS = (64, 128)
 NEG_INF = -1e30
 BOUNDED_CLAMP = 80.0
+# fp32(1 / 127), the constant XLA multiplies by where the JAX package
+# divides an int8 scale by 127.0 under jit (exact in a Python float)
+INV_127 = float(np.float32(1.0) / np.float32(127.0))
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu")
 _MAX_GRID_YZ = 65535
 
@@ -93,7 +97,9 @@ def _scores(q, k, kv_valid, bounded_logits):
 def _softmax_pv(s, v, kv_valid, bounded_logits, dtype, return_lse=False):
     """The softmax of fp32 scaled scores (B, H, N, Nk), modified in place,
     times v: masked past kv_valid, at a fixed max of 0 with the clamp when
-    bounded, else at the row max; output (B, N, H, D) in `dtype`."""
+    bounded, else at the row max; P rounded to v's dtype before P @ V (as
+    `_attention_xla` and the TPU kernels round it; a no-op for fp32 v), the
+    row sums from the unrounded P; output (B, N, H, D) in `dtype`."""
     if kv_valid is not None:
         key = torch.arange(v.shape[1], device=v.device)
         s.masked_fill_(key >= kv_valid, NEG_INF)
@@ -104,7 +110,8 @@ def _softmax_pv(s, v, kv_valid, bounded_logits, dtype, return_lse=False):
         m = s.detach().amax(dim=-1, keepdim=True)
         p = s.sub_(m).exp_()
     denom = p.sum(dim=-1)  # (B, H, N)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / denom.transpose(1, 2).unsqueeze(-1)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float())
+    o = pv / denom.transpose(1, 2).unsqueeze(-1)
     o = o.to(dtype)
     if not return_lse:
         return o
@@ -116,7 +123,8 @@ def _softmax_pv(s, v, kv_valid, bounded_logits, dtype, return_lse=False):
 
 def attention_plain(q, k, v, kv_valid=None, bounded_logits=False, return_lse=False):
     """Plain PyTorch version of both forward kernels: (B, N, H, D) ->
-    (B, N, H, D) in q's dtype, from materialised fp32 scores. With
+    (B, N, H, D) in q's dtype, from materialised fp32 scores, P rounded to
+    v's dtype before P @ V as the kernels round it. With
     return_lse, also the (B, H, N) fp32 row log-sum-exp of the scores.
 
     Differentiable by autograd (the row max is taken without a gradient,
@@ -137,12 +145,14 @@ def _abs_max_per_head(x, valid):
 
 
 def _scale_of(amax, floor):
-    """max-abs -> the int8 step, max(amax, floor) / 127, as a true division:
-    on CUDA tensors PyTorch turns a division by a Python scalar into a
-    multiplication by its reciprocal, which can land one ulp off and move
-    the int8 grid away from the CPU's (and the JAX package's)."""
+    """max-abs -> the int8 step, max(amax, floor) / 127, computed as the
+    jitted JAX package computes it: XLA rewrites the division by the
+    constant into a multiplication by fp32(1 / 127) (`INV_127`), which
+    lands one ulp off a true division for ~4% of inputs. One IEEE fp32
+    multiplication rounds alike on the CPU and the card, so the card's grid
+    equals the CPU's and the JAX package's."""
     floored = amax.clamp_min(floor)
-    return floored / torch.full_like(floored, 127.0)
+    return floored * torch.full_like(floored, INV_127)
 
 
 def quant_per_head(x, valid=None, amax_reduce=None):

@@ -33,10 +33,14 @@ On CUDA tensors both wrappers launch csrc/ring_attention.cu (one staging
 launch and one launch per ring step with the ranks as a grid axis; the
 rotation is done by dedicated blocks of the step's own launch; see the
 source) or raise; they take bf16 with head dim 64 or 128 and return bf16.
-On the card the two TPU kernels are one `__global__`: the wrappers keep
-their contracts, their dispatch and their launch counters here. On CPU
+On the card the two TPU kernels are the same kernels: the bf16 forms run
+`ring_step_tma` (the bf16 forward kernel's TMA + wgmma tile, 128 query
+rows a block), the int8 forms `ring_step` (mma.sync, 64 rows a block); the
+wrappers keep their contracts, their dispatch and their launch counters
+here. On CPU
 tensors they compute `ring_attention_plain`: per-rank shards in a list, the
-(m, l, acc) carry step by step in fp32, the rotation as a rotation of the
+(m, l, acc) carry step by step in fp32, P rounded to v's dtype before
+P @ V as the TPU kernels round it, the rotation as a rotation of the
 list, chunked as the first kernel is, padded and masked as the second is.
 Neither wrapper has a backward (the TPU kernels have none): a gradient asked
 of them on CUDA raises. The TPU wrappers' `interpret` and `handshake`
@@ -136,13 +140,14 @@ def quant_ring(q, k, v, n_ranks: int, scale: float):
     return q8.reshape(B, N, H, D), k8, v8, c
 
 
-def _ring_plain(qs, ks, vs, score_mul, out_mul, bounded, chunk, nl_pad):
+def _ring_plain(qs, ks, vs, score_mul, out_mul, bounded, chunk, nl_pad, p_dtype):
     """The ring in plain fp32 torch ops. qs, ks, vs: per-rank lists of fp32
     (B, nl, H, D) shards. score_mul: per-rank (B, H) tensors or one float;
-    out_mul: a (B, H) tensor or None (the int8 form, whose probabilities
-    are rounded to bf16 before P @ V as the TPU kernel rounds them to its
-    converted v's type; the row sums stay fp32). Returns the per-rank fp32
-    outputs."""
+    out_mul: a (B, H) tensor or None (the int8 form). p_dtype: the type the
+    probabilities are rounded to before P @ V, as the TPU kernels round
+    them to their v tiles' type (bf16 for bf16 v and for the int8 form's
+    converted v; fp32, no rounding, for fp32 v); the row sums stay fp32.
+    Returns the per-rank fp32 outputs."""
     n = len(qs)
     B, nl, H, D = qs[0].shape
     pad = nl_pad - nl
@@ -173,7 +178,7 @@ def _ring_plain(qs, ks, vs, score_mul, out_mul, bounded, chunk, nl_pad):
                     corr = (m[r] - m_new).exp()
                     l[r], acc[r], m[r] = l[r] * corr, acc[r] * corr[..., None], m_new
                 l[r] = l[r] + p.sum(-1)
-                acc[r] = acc[r] + (p.bfloat16().float() if out_mul is not None else p) @ vr
+                acc[r] = acc[r] + p.to(p_dtype).float() @ vr
             if step + 1 < n:
                 # every shard moves to its right neighbour: rank r now holds
                 # what rank r - 1 held
@@ -207,10 +212,12 @@ def ring_attention_plain(q, k, v, n_ranks: int, bounded_logits: bool = False,
         table = c.reshape(n_ranks, B, H, 2)
         score_mul, out_mul = [table[r, :, :, 0] for r in range(n_ranks)], table[0, :, :, 1]
         q, k, v = q8, k8, v8
+        p_dtype = torch.bfloat16  # the kernels' int8 v converts to bf16
     else:
-        score_mul, out_mul = scale, None
+        score_mul, out_mul, p_dtype = scale, None, v.dtype
     qs, ks, vs = (list(x.float().chunk(n_ranks, dim=1)) for x in (q, k, v))
-    outs = _ring_plain(qs, ks, vs, score_mul, out_mul, bool(bounded_logits), chunk, nl_pad)
+    outs = _ring_plain(qs, ks, vs, score_mul, out_mul, bool(bounded_logits), chunk, nl_pad,
+                       p_dtype)
     return torch.cat(outs, dim=1).to(out_dtype)
 
 
@@ -225,16 +232,17 @@ def reorder_tolerance(ref, v, n_keys: int):
     each row sum l adds n_keys / 4 terms per thread in fp32, which moves
     the quotient by at most 2 (n_keys / 4) 2^-24 of itself; and rounding
     two such values to bf16 can land them one bf16 step apart, at most
-    2^-7 of the value. Both counts hold for the mma.sync kernels (16 x 64
-    tiles: a thread adds 16 of a row's 64 keys a tile) and for the wgmma
-    head-major kernel (64 x 128 tiles: a thread holds 2 rows x 32 columns,
-    n_keys / 4 of a row's terms in all, and P @ V steps 16 keys at a time
-    too). Not in the bound: the two kernels' score products (mma.sync,
-    wgmma) may round a score differently, and a P that then crosses a bf16
-    rounding boundary moves o by 2^-8 p / l |v|; that takes an ulp of S to
-    land on a boundary, a chance of about 2^-16 per score, and the card's
-    readings stay where they were with the mma.sync kernel (worst err/tol
-    0.909 at the flagship shape)."""
+    2^-7 of the value. The counts hold for the wgmma tile that the bf16
+    ring and the head-major kernel share (64 x 128 tiles: a thread holds 2
+    rows x 32 columns, n_keys / 4 of a row's terms in all, and P @ V steps
+    16 keys at a time) and for the mma.sync tiles (16 x 64: a thread adds
+    16 of a row's 64 keys a tile). Not in the bound: two score products
+    that sum the same D terms in another order may round a score
+    differently, and a P that then crosses a bf16 rounding boundary moves o
+    by 2^-8 p / l |v|; that takes an ulp of S to land on a boundary, a
+    chance of about 2^-16 per score (worst err/tol on the H100 at the
+    flagship shape: 0.909 with the ring on mma.sync and on the wgmma tile
+    alike)."""
     steps = n_keys / 16
     return (2 * steps * 2.0**-23 * v.float().abs().max()
             + (2.0**-7 + 2 * (n_keys / 4) * 2.0**-24) * ref.float().abs())
@@ -261,6 +269,7 @@ def _library_locked():
         ctypes.POINTER(ctypes.c_longlong),  # 12 strides
         i32, i32, i32, i32, i32, i32,   # B, H, nl, q0, q_rows, n_ranks
         i32, ctypes.c_float, ptr,       # skip_rotation_at, scale, stream
+        i32, i32,                       # kv_head_shift, drop_last_key_tile
     ]
     fn.restype = ctypes.c_int
     return fn, log
@@ -277,11 +286,13 @@ def _pointer_table(tensors):
 
 
 def _ring_launch(counter, q, k, v, n_ranks, bounded_logits, qk_int8, chunk_q=None,
-                 skip_rotation_at=-1):
+                 skip_rotation_at=-1, kv_head_shift=0, drop_last_key_tile=False):
     """The ring on CUDA tensors, counted on `counter`: returns (o, slots),
     slots the per-rank ring buffers (2, 2, B*H, nl, D) as the last pass left
-    them. skip_rotation_at: a step whose rotation is left out, for the
-    checks' planted fault."""
+    them. Planted faults for the checks (-1 / 0 / False on every real
+    call): skip_rotation_at, a step whose rotation is left out; and, bf16
+    only, kv_head_shift (K and V read from head (h + shift) % H) and
+    drop_last_key_tile (the last 128-key tile of every shard left out)."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (B, N, H, D) shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
@@ -306,10 +317,12 @@ def _ring_launch(counter, q, k, v, n_ranks, bounded_logits, qk_int8, chunk_q=Non
     def shards(x):
         return [x[:, r * nl:(r + 1) * nl] for r in range(n_ranks)]
 
-    # every rank's own buffers: its ring slots and its softmax state
+    # every rank's own buffers: its ring slots and its softmax state, for
+    # whole 128-row query tiles (the state's layout is the kernel's own)
+    rows = _round_up(chunk, 128)
     slots = [torch.empty((2, 2, B * H, nl, D), dtype=k.dtype, device=dev) for _ in range(n_ranks)]
-    acc = [torch.empty((B * H, chunk, D), dtype=torch.float32, device=dev) for _ in range(n_ranks)]
-    ml = [torch.empty((2, B * H, chunk), dtype=torch.float32, device=dev) for _ in range(n_ranks)]
+    acc = [torch.empty((B * H, rows, D), dtype=torch.float32, device=dev) for _ in range(n_ranks)]
+    ml = [torch.empty((2, B * H, rows), dtype=torch.float32, device=dev) for _ in range(n_ranks)]
     tables = [_pointer_table(shards(x)) for x in (q, k, v, o)]
     tables += [_pointer_table(x) for x in (slots, acc, ml)]
     c_table = _pointer_table(list(table)) if qk_int8 else None
@@ -320,7 +333,8 @@ def _ring_launch(counter, q, k, v, n_ranks, bounded_logits, qk_int8, chunk_q=Non
             err = fn(
                 int(bool(bounded_logits)), D, int(bool(qk_int8)), *tables, c_table,
                 _strides(q, k, v, o), B, H, nl, q0, min(chunk, nl - q0), n_ranks,
-                skip_rotation_at, D**-0.5, stream,
+                skip_rotation_at, D**-0.5, stream, int(kv_head_shift),
+                int(bool(drop_last_key_tile)),
             )
             _raise_on(err, "ring attention")
     counter.launches += 1

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from omnivggt_tpu_torch.ops.attention import scaled_dot_product_attention
+from omnivggt_tpu_torch.ops.kernels.flash_attention import _scale_of
 from omnivggt_tpu_torch.ops.rope import apply_rope
 
 
@@ -130,12 +131,9 @@ def _int8_matmul(a: torch.Tensor, b_t: torch.Tensor) -> torch.Tensor:
 
 
 def _int8_step(amax: torch.Tensor) -> torch.Tensor:
-    """max-abs -> the int8 step max(amax, 1e-12) / 127, as a true division
-    (on CUDA tensors a division by a Python scalar becomes a multiplication
-    by its reciprocal, one ulp off now and then, which would move the int8
-    grid away from the CPU's)."""
-    floored = amax.clamp_min(1e-12)
-    return floored / torch.full_like(floored, 127.0)
+    """max-abs -> the int8 step max(amax, 1e-12) / 127, as the jitted JAX
+    package computes it (a multiplication by fp32(1 / 127): `_scale_of`)."""
+    return _scale_of(amax, 1e-12)
 
 
 def _quantise_weight(w: torch.Tensor):

@@ -467,22 +467,25 @@ def _ring_inputs(n, nl, H, D, seed, device, q_scale=3.0, B=1):
 @pytest.mark.parametrize("qk_int8", [False, True])
 @pytest.mark.parametrize("bounded", [False, True])
 @pytest.mark.parametrize(
-    "n,nl,H,D,kw",
+    "n,nl,B,H,D,kw",
     [
-        (4, 256, 2, 64, dict(block_q=128, block_k=128)),              # kernel 5, one chunk
-        (2, 512, 1, 64, dict(block_q=128, block_k=256, chunk_q=256)),  # kernel 5, two chunks
-        (4, 600, 3, 64, {}),                                          # kernel 6, ragged
-        (8, 75, 2, 128, {}),                                          # kernel 5, shard of two tiles
-        (3, 1100, 2, 128, {}),                                        # kernel 6, ragged, D = 128, B = 2
-        (1, 130, 2, 64, {}),                                          # one rank: no rotation
+        (4, 256, 1, 2, 64, dict(block_q=128, block_k=128)),              # kernel 5, one chunk
+        (2, 512, 1, 1, 64, dict(block_q=128, block_k=256, chunk_q=256)),  # kernel 5, two chunks
+        (4, 600, 1, 3, 64, {}),                     # kernel 6, ragged
+        (4, 300, 1, 2, 64, {}),                     # ragged: 2 whole key tiles and 44 keys
+        (2, 40, 1, 2, 64, {}),                      # nl < 128: one key tile, mostly zero fill
+        (8, 75, 1, 2, 128, {}),                     # kernel 5, D = 128, 8 ranks, nl < 128
+        (3, 1100, 2, 2, 128, {}),                   # kernel 6, ragged, D = 128, B = 2
+        (8, 300, 2, 2, 128, {}),                    # 8 ranks, D = 128, B = 2, ragged
+        (1, 130, 1, 2, 64, {}),                     # one rank: no rotation
     ],
 )
-def test_ring_kernels_match_plain(cuda, n, nl, H, D, kw, bounded, qk_int8):
+def test_ring_kernels_match_plain(cuda, n, nl, B, H, D, kw, bounded, qk_int8):
     from omnivggt_tpu_torch.ops.kernels import ring_attention as RK
     from omnivggt_tpu_torch.parallel.mesh import make_mesh
 
     mesh = make_mesh(seq=n, device=cuda)
-    q, k, v = _ring_inputs(n, nl, H, D, 3, cuda, B=2 if n == 3 else 1)
+    q, k, v = _ring_inputs(n, nl, H, D, 3, cuda, B=B)
     RK.reset_launches()
     out = RK.ring_flash_attention(q, k, v, mesh, "seq", bounded_logits=bounded,
                                   qk_int8=qk_int8, **kw)
@@ -530,6 +533,43 @@ def test_ring_rotates_its_slots_and_a_skipped_rotation_shows(cuda):
     head_major = FK.flash_attention(q, k, v, bounded_logits=True).float()
     sharp = RK.reorder_tolerance(head_major, v, n * nl)
     assert ((out.float() - head_major).abs() <= sharp).all()
+
+
+@pytest.mark.parametrize("bounded", [False, True])
+@pytest.mark.parametrize("n,nl,D", [(4, 300, 64), (2, 100, 128)])
+def test_ring_planted_faults_fail_the_tolerance(cuda, n, nl, D, bounded):
+    """The bf16 ring tile's two test hooks plant faults that must leave the
+    2^-7 max|v| tolerance: the last key tile of every shard left out, and
+    K and V read from the next head."""
+    from omnivggt_tpu_torch.ops.kernels import ring_attention as RK
+
+    q, k, v = _ring_inputs(n, nl, 2, D, 8, cuda)
+    ref = RK.ring_attention_plain(q.float(), k.float(), v.float(), n, bounded)
+    tol = 2.0**-7 * v.float().abs().max().item()
+    wrapper = RK.ring_flash_attention_hbm
+    sound, _ = RK._ring_launch(wrapper, q, k, v, n, bounded, False)
+    cut, _ = RK._ring_launch(wrapper, q, k, v, n, bounded, False, drop_last_key_tile=True)
+    shifted, _ = RK._ring_launch(wrapper, q, k, v, n, bounded, False, kv_head_shift=1)
+    torch.cuda.synchronize()
+    errs = [(x.float() - ref).abs().max().item() for x in (sound, cut, shifted)]
+    assert errs[0] <= tol < min(errs[1:]), (errs, tol)
+    with pytest.raises(RuntimeError):  # the int8 forms have no such hooks
+        RK._ring_launch(wrapper, q, k, v, n, bounded, True, kv_head_shift=1)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_ring_kernel_is_deterministic(cuda, D):
+    """21 launches of the bf16 ring on the same inputs give bitwise the same
+    output (a race in the stage ring or in the state between the steps
+    would not show as a wrong mean)."""
+    from omnivggt_tpu_torch.ops.kernels import ring_attention as RK
+
+    q, k, v = _ring_inputs(4, 300, 2, D, 9, cuda, B=2)
+    for bounded in (True, False):
+        o0, _ = RK._ring_launch(RK.ring_flash_attention_hbm, q, k, v, 4, bounded, False)
+        for _ in range(20):
+            o, _ = RK._ring_launch(RK.ring_flash_attention_hbm, q, k, v, 4, bounded, False)
+            assert torch.equal(o, o0)
 
 
 def test_ring_wrappers_refuse_what_the_kernel_does_not_take(cuda):

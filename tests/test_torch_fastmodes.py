@@ -120,15 +120,23 @@ def test_forward_under_each_candidate_matches_jax(pair, images, name):
         assert max(float((out_t[k] - parity[k]).abs().max()) for k in OUTPUT_KEYS) > 0
 
 
-@pytest.mark.parametrize("modes", [dict(attn_quant="int8"),
-                                   dict(attn_quant="int8", trunk_quant="int8", approx_gelu=True)],
-                         ids=["attn_quant", "attn_and_trunk_quant"])
+@pytest.mark.parametrize(
+    "modes,weights",
+    [(dict(attn_quant="int8"), "jax"),
+     (dict(attn_quant="int8", trunk_quant="int8", approx_gelu=True), "jax"),
+     (dict(attn_quant="int8", trunk_quant="int8", approx_gelu=True), "port")],
+    ids=["attn_quant", "attn_and_trunk_quant", "attn_and_trunk_quant-port_weights"])
 @pytest.mark.parametrize("nv", [None, 2])
-def test_int8_scores_through_the_model_match_jax(pair, images, modes, nv):
+def test_int8_scores_through_the_model_match_jax(pair, images, modes, weights, nv):
     """attn_impl="flash": every attention of the tiny model (head dim 32)
     runs the head-major kernel's int8 form, Pallas in interpret mode there
     and the plain int8 version here, with padded frames left out of the
-    quantisers' scales (nv = 2 of 3 frames)."""
+    quantisers' scales (nv = 2 of 3 frames). Also on the port's own seed-0
+    init (weights="port"), whose int8 steps land where XLA's jitted
+    multiplication by fp32(1/127) puts them only since the port multiplies
+    too (a true division read pose 1.24e-2 there)."""
+    if weights == "port":
+        pair = tiny_pair(seed=0, weights="port")
     out_j, out_t = _both(pair, images, modes, nv=nv, attn_impl="flash")
     _assert_close(out_j, out_t, modes, valid=nv)
     # int8 scores are in use: the result differs from the bf16-score forward

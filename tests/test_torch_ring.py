@@ -78,7 +78,9 @@ def test_ring_plain_matches_jax_kernel(case):
 
 def _jax_quant_ring(q, k, v, nl_pad):
     """`_quant_ring` as the kernels' wrappers call it: per device, on the
-    head-major, zero-padded shard, under a shard_map over the ring axis."""
+    head-major, zero-padded shard, under a shard_map over the ring axis,
+    jitted as the model runs it (XLA then turns the step's / 127.0 into a
+    multiplication by fp32(1/127), as the port computes it)."""
     D = q.shape[-1]
     spec = P(None, "seq", None, None)
 
@@ -91,8 +93,9 @@ def _jax_quant_ring(q, k, v, nl_pad):
         return q8[None], k8[None], v8[None], c[None]
 
     out = P("seq")
-    return shard_map(per_device, mesh=_jax_mesh(), in_specs=(spec,) * 3,
-                     out_specs=(out,) * 4, check_vma=False)(*(jnp.asarray(x) for x in (q, k, v)))
+    return jax.jit(shard_map(per_device, mesh=_jax_mesh(), in_specs=(spec,) * 3,
+                             out_specs=(out,) * 4, check_vma=False))(
+        *(jnp.asarray(x) for x in (q, k, v)))
 
 
 @pytest.mark.parametrize(

@@ -55,32 +55,39 @@ def test_quantisers_give_the_jax_int8_grids(valid):
     """All three quantisers produce the JAX package's int8 values exactly
     (round half to even; the head-major one divides by the scale, the
     token-major ones multiply by its reciprocal), with the rows past
-    `valid` left out of the scales and clipped."""
+    `valid` left out of the scales and clipped. The JAX side runs jitted,
+    as the model runs it (under jit XLA turns the step's / 127.0 into a
+    multiplication by fp32(1/127); the port does the same)."""
     q, k, _ = _qkv()
     q[:, VALID:] *= 7.0  # padded rows hold garbage well past the real range
     B, N, H, D = SHAPE
     _, kv_t = _kv(valid)
-    x8, scale = FA._quant_per_head(FA.to_bhnd(jnp.asarray(q)), valid=valid)
+    x8, scale = jax.jit(lambda x: FA._quant_per_head(FA.to_bhnd(x), valid=valid))(jnp.asarray(q))
     y8, y_scale = FK.quant_per_head(t(q), kv_t)
     assert y8.dtype == torch.int8
     np.testing.assert_array_equal(y8.numpy(), _head_major(x8, B, H))
     np.testing.assert_array_equal(y_scale.numpy(), np.asarray(scale).reshape(B, H))
 
     # the stream kernel's q grid: round(q * qinv), as its kernel body does
-    qa = jnp.abs(jnp.asarray(q))
-    if valid is not None:
-        qa = jnp.where(jnp.arange(N)[None, :, None, None] < valid, qa, 0.0)
-    q_scale = jnp.maximum(jnp.max(qa, axis=(1, 3)), 1e-30) / 127.0
-    qinv = jnp.repeat(1.0 / q_scale, D, axis=-1)[:, None, :]
-    r = jnp.round(jnp.asarray(q).reshape(B, N, H * D) * qinv)
-    if valid is not None:
-        r = jnp.clip(r, -127.0, 127.0)
+    @jax.jit
+    def stream_q(q):
+        qa = jnp.abs(q)
+        if valid is not None:
+            qa = jnp.where(jnp.arange(N)[None, :, None, None] < valid, qa, 0.0)
+        q_scale = jnp.maximum(jnp.max(qa, axis=(1, 3)), 1e-30) / 127.0
+        qinv = jnp.repeat(1.0 / q_scale, D, axis=-1)[:, None, :]
+        r = jnp.round(q.reshape(B, N, H * D) * qinv)
+        if valid is not None:
+            r = jnp.clip(r, -127.0, 127.0)
+        return r, q_scale, 1.0 / q_scale
+
+    r, q_scale, q_inv = stream_q(jnp.asarray(q))
     z8, z_scale, z_inv = FK.quant_token_major(t(q), kv_t)
     np.testing.assert_array_equal(z8.numpy().reshape(B, N, H * D), np.asarray(r).astype(np.int8))
     np.testing.assert_array_equal(z_scale.numpy(), np.asarray(q_scale))
-    np.testing.assert_array_equal(z_inv.numpy(), np.asarray(1.0 / q_scale))
+    np.testing.assert_array_equal(z_inv.numpy(), np.asarray(q_inv))
     if valid is None:
-        k8, k_scale = FA.quant_k_token_major(jnp.asarray(k))
+        k8, k_scale = jax.jit(FA.quant_k_token_major)(jnp.asarray(k))
         a8, a_scale = FK.quant_k_token_major(t(k))
         np.testing.assert_array_equal(a8.numpy(), np.asarray(k8))
         np.testing.assert_array_equal(a_scale.numpy(), np.asarray(k_scale))
