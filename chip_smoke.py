@@ -26,7 +26,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      mean |ref|; on the training
      shapes two planted faults (delta = 0, the last key tile skipped)
      must fail those tolerances; times beside the plain version's and
-     F.scaled_dot_product_attention's forward+backward (a yardstick only);
+     F.scaled_dot_product_attention's backward alone (the gradient of one
+     saved forward; the library time of the same function) and its
+     forward+backward (yardsticks only);
   5. flagship forward: the 1.2B OmniVGGTConfig() at S=8, 518x518, seeded
      random weights (trunk stored in bf16), synthetic images with GT
      cameras and depth for some frames, through model(...) with the kernels
@@ -50,9 +52,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the streaming kernel (bf16 and int8) at the global-attention shape
      with a static key axis and a dynamic valid prefix, the 3x3 convolution
      kernel at the DPT heads' shape (fp32 and bf16, ReLU on and off, one
-     ragged channels-last case), each against its plain version with one
-     planted fault that must fail; every quantiser's int8 grid on the card
-     equal to the CPU's; the layout probes;
+     ragged channels-last case), each against its plain version with
+     planted faults that must fail (the int8 forms, on the TMA + wgmma tile
+     with s8 scores: 21 launches bitwise equal, and three faults: one
+     head's dequantising scalar for all heads, the last key tile left out,
+     K and V of the next head); the q grid the stream kernel makes equal to
+     quant_token_major's; every quantiser's int8 grid on the card equal to
+     the CPU's; the layout probes;
   8. serving, after 5 on the same model: a bucketed InferenceSession
      (buckets 4 and 8) under attn_quant = trunk_quant = int8, bf16 heads,
      tanh GELU and the head-conv kernel answers requests of 3, 5 and 8
@@ -273,6 +279,31 @@ def sdpa_ms(q, k, v, kv, do=None):
     )
 
 
+def sdpa_backward_ms(q, k, v, kv, do, reps=20):
+    """The backward alone of F.scaled_dot_product_attention on the same
+    inputs (keys cut to the valid prefix): each rep runs one SDPA forward
+    untimed, then CUDA events around its backward (the gradient of q, k
+    and v), after a warm-up; the median. The library time of the same
+    function as the two backward kernels together; a yardstick only, never
+    called by the port."""
+    F = torch.nn.functional
+    n = k.shape[1] if kv is None else int(kv)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                  for x in (q, k[:, :n], v[:, :n]))
+    dot = do.transpose(1, 2).contiguous()
+    times = []
+    for rep in range(reps + 1):
+        out = F.scaled_dot_product_attention(qt, kt, vt)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.autograd.grad(out, (qt, kt, vt), dot)
+        end.record()
+        torch.cuda.synchronize()
+        if rep:
+            times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
 def check_kernels(FK, dev):
     """Each kernel vs its plain version at the main path's shapes."""
     gen = torch.Generator(device=dev)
@@ -476,6 +507,7 @@ def check_backward(FK, dev):
             lambda: FK.flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv, bounded), 20)
         plain_ms = median_ms(lambda: FK.attention_backward_plain(q, k, v, o, do, lse, kv, bounded), 5)
         lib_ms = sdpa_ms(q, k, v, kv, do)
+        lib_bwd_ms = sdpa_backward_ms(q, k, v, kv, do)
         nk = N if kv is None else int(kv)
         tile = 2 * B * H * D  # bytes of one bf16 token row over all heads, per token
         rows = 4 * B * H * N  # bytes of one fp32 (B, H, N) row vector
@@ -493,7 +525,8 @@ def check_backward(FK, dev):
             " the LSE difference summed over the terms: FK.backward_tolerance)"
             f" | dq {dq_ms:.3f} ms (bound {bnd_dq[0]:.4f}, {bnd_dq[1]}), "
             f"dkv {dkv_ms:.3f} ms (bound {bnd_dkv[0]:.4f}, {bnd_dkv[1]}), "
-            f"plain backward {plain_ms:.3f} ms, sdpa fwd+bwd {lib_ms:.3f} ms"
+            f"plain backward {plain_ms:.3f} ms, sdpa backward alone {lib_bwd_ms:.3f} ms "
+            f"(fwd+bwd {lib_ms:.3f} ms)"
         )
         for fault, r in faults.items():
             print(f"  planted fault [{label}] {fault}: err/tol lse {r[0]:.3g}, dq {r[1]:.3g}, "
@@ -510,7 +543,7 @@ def check_backward(FK, dev):
                 results[n]["ms"].append(ms)
                 results[n]["plain_ms"].append(plain_ms)
                 results[n]["bound"].append(bnd)
-                results[n]["library_ms"].append(lib_ms)
+                results[n]["library_ms"].append(lib_bwd_ms)
         del q, k, v, do, o, lse, dq, dk, dv, delta
         torch.cuda.empty_cache()
     return results
@@ -708,44 +741,72 @@ def check_serving_attention(FK, dev):
         ref_st = FK.attention_stream_plain(*f, kv, True)
         del f
 
-        # head-major int8
-        out = FK.flash_attention(q, k, v, kv, True, qk_int8=True)
+        # the int8 forms (the TMA + wgmma tile, s8 scores), each through its
+        # wrapper, then launched 21 times on its grid (bitwise the same o),
+        # and with three planted faults on the same grid: c of head 0 for
+        # every head, the last key tile left out, K and V of the next head
+        cut = (nk - 1) // 128 * 128
         q8, q_scale = FK.quant_per_head(q, kv)
         k8, k_scale = FK.quant_per_head(k, kv)
         c = q_scale * k_scale * D**-0.5
-        c_head0 = c[:, :1].expand(B, H).contiguous()
-        bad = FK._launch_fwd(FK.flash_attention_int8, q8, k8, v, kv, True, FK.MODE_HEAD_MAJOR,
-                             qk=FK.SCORES_INT8, c=c_head0)
-        torch.cuda.synchronize()
-        checks = [("flash_attention_int8", "head-major int8", err_to(out, ref_hm),
-                   err_to(out, exact), err_to(bad, ref_hm), "c of head 0 for every head")]
-        del q8, k8, out, bad
+        q8_plain, qt_scale, q_inv = FK.quant_token_major(q, kv)
+        kt8, kt_scale, _ = FK.quant_token_major(k, kv)
+        ct = qt_scale * kt_scale * D**-0.5
+        int8_forms = {
+            "head-major int8": (
+                "flash_attention_int8", ref_hm,
+                lambda: FK.flash_attention(q, k, v, kv, True, qk_int8=True),
+                lambda n_keys, c_, shift: FK._launch_fwd(
+                    FK.flash_attention_int8, q8, k8, v, n_keys, True, FK.MODE_HEAD_MAJOR,
+                    qk=FK.SCORES_INT8, c=c_, kv_head_shift=shift), c),
+            "stream int8": (
+                "flash_attention_packed_stream", ref_st,
+                lambda: FK.flash_attention_packed_stream(q, k, v, kv, qk_int8=True),
+                lambda n_keys, c_, shift: FK._launch_fwd(
+                    FK.flash_attention_packed_stream, q, kt8, v, n_keys, True,
+                    FK.MODE_TOKEN_MAJOR, qk=FK.SCORES_INT8_Q_IN, c=c_, qinv=q_inv,
+                    kv_head_shift=shift), ct),
+        }
+        checks = []
+        for form, (name, ref, wrapper, launch, c_form) in int8_forms.items():
+            out = wrapper()
+            o0 = launch(kv, c_form, 0)
+            same = torch.equal(o0, out)
+            for _ in range(20):
+                same = same and torch.equal(launch(kv, c_form, 0), o0)
+            faults = {
+                "c of head 0 for every head": launch(kv, c_form[:, :1].expand(B, H).contiguous(), 0),
+                "last key tile left out": launch(cut, c_form, 0),
+                "K/V of the next head": launch(kv, c_form, 1),
+            }
+            torch.cuda.synchronize()
+            fault_errs = {f: err_to(x, ref) for f, x in faults.items()}
+            print(f"{form} [{label}] q{shape} (TMA + wgmma, s8 scores): the wrapper's o and 21 "
+                  f"launches on its grid bitwise equal: {same}; planted faults (must exceed "
+                  f"tol {tol:.3e}): " + ", ".join(f"{f} {e:.3e}" for f, e in fault_errs.items()))
+            if not same:
+                raise AssertionError(f"{form} [{label}]: launches on the same inputs differ")
+            checks.append((name, form, err_to(out, ref), err_to(out, exact), fault_errs))
+            del out, o0, faults
 
-        # stream, bf16 form; fault: the last key tile skipped
-        out = FK.flash_attention_packed_stream(q, k, v, kv)
-        bad = FK.flash_attention_packed_stream(q, k, v, (nk - 1) // 64 * 64)
-        torch.cuda.synchronize()
-        checks.append(("flash_attention_packed_stream", "stream bf16", err_to(out, exact),
-                       err_to(out, exact), err_to(bad, exact), "last key tile skipped"))
-
-        # stream, int8 form, and the q grid made inside the kernel
+        # the stream kernel's in-kernel q grid
         q8_out = torch.empty(shape, dtype=torch.int8, device=dev)
-        out = FK._stream_int8(q, k, v, kv, None, q8_out=q8_out)
-        q8_plain, q_scale, q_inv = FK.quant_token_major(q, kv)
-        k8, k_scale, _ = FK.quant_token_major(k, kv)
-        c = q_scale * k_scale * D**-0.5
-        bad = FK._launch_fwd(FK.flash_attention_packed_stream, q, k8, v, kv, True, FK.MODE_TOKEN_MAJOR,
-                             qk=FK.SCORES_INT8_Q_IN, c=c[:, :1].expand(B, H).contiguous(),
-                             qinv=q_inv)
+        FK._stream_int8(q, k, v, kv, None, q8_out=q8_out)
         torch.cuda.synchronize()
         grid_equal = torch.equal(q8_out, q8_plain)
         print(f"stream int8 [{label}]: the q grid made in the kernel equals quant_token_major's "
               f"int8 values: {grid_equal}")
         if not grid_equal:
             raise AssertionError("the streaming kernel quantises q to another grid")
-        checks.append(("flash_attention_packed_stream", "stream int8", err_to(out, ref_st),
-                       err_to(out, exact), err_to(bad, ref_st), "c of head 0 for every head"))
-        del q8_out, q8_plain, k8, out, bad, exact, ref_hm, ref_st
+        del q8, k8, q8_out, q8_plain, kt8
+
+        # stream, bf16 form; fault: the last key tile skipped
+        out = FK.flash_attention_packed_stream(q, k, v, kv)
+        bad = FK.flash_attention_packed_stream(q, k, v, (nk - 1) // 64 * 64)
+        torch.cuda.synchronize()
+        checks.append(("flash_attention_packed_stream", "stream bf16", err_to(out, exact),
+                       err_to(out, exact), {"last key tile skipped": err_to(bad, exact)}))
+        del out, bad, exact, ref_hm, ref_st
         torch.cuda.empty_cache()
 
         runs = {
@@ -763,7 +824,7 @@ def check_serving_attention(FK, dev):
         }
         lib_ms = sdpa_ms(q, k, v, None if kv is None else nk)
         io_bytes = 2 * B * H * D * (2 * N + 2 * nk)  # bf16 q, k, v read, o written once
-        for name, form, err, to_exact, fault_err, fault in checks:
+        for name, form, err, to_exact, fault_errs in checks:
             kernel, plain, quant = runs[form]
             ms, plain_ms = median_ms(kernel, 20), median_ms(plain, 3)
             quant_ms = median_ms(quant, 10) if quant else 0.0
@@ -773,15 +834,16 @@ def check_serving_attention(FK, dev):
             print(
                 f"kernel {name} [{form}, {label}] q{shape}: max_abs_err {err:.3e} tol {tol:.3e} "
                 f"(2^-7 max|v|, against the plain version on the same grid); to exact attention "
-                f"{to_exact:.3e} (reported); planted fault ({fault}) {fault_err:.3e} (must exceed "
-                f"tol) | wrapper {ms:.3f} ms of which the quantisation passes (plain torch ops) "
+                f"{to_exact:.3e} (reported); planted faults (must exceed tol): "
+                + ", ".join(f"{f} {e:.3e}" for f, e in fault_errs.items())
+                + f" | wrapper {ms:.3f} ms of which the quantisation passes (plain torch ops) "
                 f"{quant_ms:.3f} ms, plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
                 f"sdpa {lib_ms:.3f} ms"
             )
             if not (np.isfinite(err) and err <= tol):
                 raise AssertionError(f"{name} [{form}, {label}] disagrees with its plain version")
-            if not fault_err > tol:
-                raise AssertionError(f"{name} [{form}, {label}]: the planted fault passes the check")
+            if not all(e > tol for e in fault_errs.values()):
+                raise AssertionError(f"{name} [{form}, {label}]: a planted fault passes the check")
             r = results[name]
             r["errs"].append(err)
             r["ms"].append(ms)
@@ -1638,12 +1700,16 @@ def main() -> int:
         for line in log.splitlines():  # ptxas: registers and shared memory per kernel
             if "Compiling entry" in line or "Used" in line:
                 print("  " + line.strip()[:160])
+    forms = (("bf16", FK.SCORES_BF16), ("int8 q and k", FK.SCORES_INT8),
+             ("int8 k, q quantised in the kernel", FK.SCORES_INT8_Q_IN))
     for d in FK.HEAD_DIMS:
-        threads, smem = FK.tma_launch_shape(d)
-        print(f"  bf16 forward kernel (flash_fwd_*_tma), head dim {d}: {threads} threads, "
-              f"{smem} bytes of dynamic shared memory a block; ptxas' register count above is "
-              f"the launch's, setmaxnreg then gives the producer warpgroup 24 and the two "
-              f"consumer warpgroups 240")
+        for form, qk in forms:
+            threads, smem = FK.tma_launch_shape(d, qk)
+            if smem:
+                print(f"  forward kernel (flash_fwd_*_tma), {form}, head dim {d}: {threads} "
+                      f"threads, {smem} bytes of dynamic shared memory a block")
+    print("  ptxas' register count above is the launch's; setmaxnreg then gives the producer "
+          "warpgroup 24 and the two consumer warpgroups 240")
 
     kernel_results = check_kernels(FK, dev)
     check_tma_forms(FK, dev)

@@ -1,25 +1,39 @@
-// The bf16 attention tile of the Hopper kernels, one copy for the two
-// sources that run it: flash_attention.cu (tma_attend, under the head-major
-// and the token-major grids) and ring_attention.cu (ring_attend, one ring
-// step of a sequence sharded over ranks). Each block holds 128 query rows
-// of one (batch, head): two consumer warpgroups of 64 rows (wgmma's M) and
-// one producer warpgroup, of which one thread issues every TMA load.
+// The attention tile of the Hopper kernels, one copy for the two sources
+// that run it: flash_attention.cu (tma_attend, under the head-major and the
+// token-major grids, bf16 and int8 scores) and ring_attention.cu
+// (ring_attend, one bf16 ring step of a sequence sharded over ranks). Each
+// block holds 128 query rows of one (batch, head): two consumer warpgroups
+// of 64 rows (wgmma's M) and one producer warpgroup, of which one thread
+// issues every TMA load.
 //
-// Here are the parts the two kernels share:
+// Here are the parts the kernels share:
 //   - the block's shared memory (Q, a ring of K and V stages, the full and
 //     empty mbarriers) and the barriers' initialisation;
 //   - the producer: Q once, then 128-key K and V tiles through the stage
-//     ring (3 stages at D = 64, 2 at D = 128), each a 4-D TMA box of 64
-//     columns x 1 head x 128 rows x 1 batch at coordinates the caller
-//     names, so the same loop reads (B, N, H, D) inputs and a ring buffer
-//     viewed as (4 B H, nl, 1, D); rows past a map's extent load as zeros;
-//   - the consumer's step over one key tile: S = Q K^T by wgmma SS (both
-//     operands in shared memory, 128-byte swizzle), keys at or past n_eff
-//     scored -1e30, the softmax in registers with the scale folded into the
+//     ring, each a 4-D TMA box (or two) of columns x 1 head x 128 rows x 1
+//     batch at coordinates the caller names, so the same loop reads
+//     (B, N, H, D) inputs and a ring buffer viewed as (4 B H, nl, 1, D);
+//     rows past a map's extent load as zeros;
+//   - the consumer's step over one key tile, in two forms that differ only
+//     in the score product:
+//       bf16: S = Q K^T by wgmma SS (both operands in shared memory,
+//       128-byte swizzle), keys at or past n_eff scored -1e30;
+//       int8: S = Q K^T by wgmma SS s8 -> s32 (int8 rows of D bytes under
+//       a D-byte swizzle), exact; the accumulator starts at the float bits
+//       of 1.5 * 2^23, so each s32 entry holds the bits of the float
+//       1.5 * 2^23 + s and one FADD gives s exactly (|s| <= 127^2 D < 2^22),
+//       without the conversion instruction, which issues at the rate of
+//       the exponential; the last tile scales by the head's dequantising
+//       scalar before it masks, so a scalar of 0 (all-zero q and k) leaves
+//       the masked keys at -1e30;
+//     then the softmax in registers with the scale folded into the
 //     exponent's argument (one FFMA, then ex2.approx.ftz), the bounded
 //     clamp exp(min(s, 80)) at a fixed max of 0 or an online running max,
 //     P rounded to bf16 and packed in place as the A fragment, O += P V by
 //     wgmma RS with V read through the descriptor's transpose bit;
+//   - quantise_q: the int8 form whose q arrives as bf16 (the stream
+//     kernel's) rounds each warpgroup's 64 rows to the int8 grid into a
+//     tile that the score product reads;
 //   - the quad reduction of the row sums and the bf16 store of o rows.
 // What the callers keep: the grid, the coordinates, where the softmax
 // state starts and ends (registers for a whole key axis; device memory
@@ -39,22 +53,40 @@ using flash::pack_bf16;
 constexpr int kRows = 128;       // query rows a block, keys a tile
 constexpr int kConsumers = 2;    // consumer warpgroups of 64 query rows
 constexpr int kThreads = 128 * (kConsumers + 1);
-constexpr int kBoxBytes = kRows * 128;  // one 64-column box of 128 rows
+constexpr int kBoxBytes = kRows * 128;  // one 64-column bf16 box of 128 rows
 
-template <int D>
+// how the scores are formed
+constexpr int kScoresBf16 = 0;     // bf16 q and k
+constexpr int kScoresInt8 = 1;     // int8 q and k, quantised by the caller
+constexpr int kScoresInt8QIn = 2;  // int8 k from the caller, bf16 q quantised here
+
+// the int8 scores' accumulator start: the float bits of 1.5 * 2^23
+constexpr uint32_t kScoreBias = 0x4B400000u;
+constexpr float kScoreBiasF = 12582912.0f;
+
+// Bytes of the block's shared memory: Q as loaded (int8 for kScoresInt8,
+// else bf16), kScoresInt8QIn's int8 Q tile, kStages K stages (int8 for the
+// int8 forms), kStages bf16 V stages, then the barriers. Every tile starts
+// 1024-byte aligned.
+template <int D, int kForm = kScoresBf16>
 struct Smem {
-  static constexpr int kStages = D == 64 ? 3 : 2;
-  static constexpr int kTile = kRows * D * 2;  // bytes of a Q, K or V tile
-  static constexpr int kK = kTile;             // Q at 0
-  static constexpr int kV = kK + kStages * kTile;
-  static constexpr int kBars = kV + kStages * kTile;
+  static constexpr bool kS8 = kForm != kScoresBf16;
+  static constexpr int kStages = kS8 ? (D == 64 ? 4 : 3) : (D == 64 ? 3 : 2);
+  static constexpr int kQTile = kRows * D * (kForm == kScoresInt8 ? 1 : 2);
+  static constexpr int kKTile = kRows * D * (kS8 ? 1 : 2);
+  static constexpr int kVTile = kRows * D * 2;
+  static constexpr int kQ8 = kQTile;  // kScoresInt8QIn: the int8 Q the consumers write
+  static constexpr int kK = kQ8 + (kForm == kScoresInt8QIn ? kRows * D : 0);
+  static constexpr int kV = kK + kStages * kKTile;
+  static constexpr int kBars = kV + kStages * kVTile;
   static constexpr int kBytes = kBars + (1 + 3 * kStages) * 8;
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
 };
 
 // The block's tiles and barriers in dynamic shared memory.
 struct Tiles {
-  uint8_t* qs;
+  uint8_t* qs;  // Q as loaded
+  uint8_t* qa;  // Q as the score product reads it (int8 Q for the int8 forms)
   uint8_t* ks;
   uint8_t* vs;
   uint64_t* q_full;
@@ -65,15 +97,16 @@ struct Tiles {
 
 // Carves the dynamic shared memory (1024-byte aligned for the swizzle) and
 // initialises the barriers; every thread of the block calls it.
-template <int D>
+template <int D, int kForm = kScoresBf16>
 __device__ __forceinline__ Tiles carve_tiles() {
-  using L = Smem<D>;
+  using L = Smem<D, kForm>;
   constexpr int kS = L::kStages;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
   Tiles t;
   t.qs = smem;
+  t.qa = kForm == kScoresInt8QIn ? smem + L::kQ8 : smem;
   t.ks = smem + L::kK;
   t.vs = smem + L::kV;
   t.q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
@@ -93,79 +126,90 @@ __device__ __forceinline__ Tiles carve_tiles() {
   return t;
 }
 
+// One 128-row tile of an operand at (h, row, b) of `map`: bf16 as D / 64
+// boxes of 64 columns, int8 as one box of D columns.
+template <int D, bool kInt8>
+__device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
+                                          int h, int row, int b) {
+  constexpr int kBoxes = kInt8 ? 1 : D / 64;
+  constexpr int kCols = D / kBoxes;
+#pragma unroll
+  for (int box = 0; box < kBoxes; ++box)
+    sm90::tma_load_4d(dst + box * kRows * kCols * (kInt8 ? 1 : 2), map, bar, box * kCols, h, row,
+                      b);
+}
+
 // The producer thread: the Q tile at (qh, q_row, qb) of q_map once, then
 // key tiles it = 0 .. n_tiles - 1, K at (kh, it * 128, kb) of k_map and V
 // at (vh, it * 128, vb) of v_map, each into stage it % kStages once the
 // consumers have released it.
-template <int D>
+template <int D, int kForm = kScoresBf16>
 __device__ __forceinline__ void produce(const Tiles& t, const CUtensorMap* q_map, int qh,
                                         int q_row, int qb, const CUtensorMap* k_map, int kh,
                                         int kb, const CUtensorMap* v_map, int vh, int vb,
                                         int n_tiles) {
-  using L = Smem<D>;
+  using L = Smem<D, kForm>;
   constexpr int kS = L::kStages;
   sm90::prefetch_tensor_map(q_map);
   sm90::prefetch_tensor_map(k_map);
   sm90::prefetch_tensor_map(v_map);
-  sm90::mbar_arrive_expect_tx(t.q_full, L::kTile);
-#pragma unroll
-  for (int box = 0; box < D / 64; ++box)
-    sm90::tma_load_4d(t.qs + box * kBoxBytes, q_map, t.q_full, box * 64, qh, q_row, qb);
+  sm90::mbar_arrive_expect_tx(t.q_full, L::kQTile);
+  load_tile<D, kForm == kScoresInt8>(t.qs, q_map, t.q_full, qh, q_row, qb);
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % kS;
     sm90::mbar_wait(&t.empty[s], ((it / kS) & 1) ^ 1);
-    sm90::mbar_arrive_expect_tx(&t.k_full[s], L::kTile);
-#pragma unroll
-    for (int box = 0; box < D / 64; ++box)
-      sm90::tma_load_4d(t.ks + s * L::kTile + box * kBoxBytes, k_map, &t.k_full[s], box * 64,
-                        kh, it * kRows, kb);
-    sm90::mbar_arrive_expect_tx(&t.v_full[s], L::kTile);
-#pragma unroll
-    for (int box = 0; box < D / 64; ++box)
-      sm90::tma_load_4d(t.vs + s * L::kTile + box * kBoxBytes, v_map, &t.v_full[s], box * 64,
-                        vh, it * kRows, vb);
+    sm90::mbar_arrive_expect_tx(&t.k_full[s], L::kKTile);
+    load_tile<D, L::kS8>(t.ks + s * L::kKTile, k_map, &t.k_full[s], kh, it * kRows, kb);
+    sm90::mbar_arrive_expect_tx(&t.v_full[s], L::kVTile);
+    load_tile<D, false>(t.vs + s * L::kVTile, v_map, &t.v_full[s], vh, it * kRows, vb);
   }
 }
 
-// Consumer warpgroup wg, thread tq of its quad: key tile `it` (keys from
-// it * 128) into the softmax state. acc is the m64nD accumulator of O,
-// m_run the running max of the thread's two rows in log2 units, l_run the
-// thread's share of their row sums. Keys at or past n_eff are masked (in
-// the last tile only); the raw scores' scale into log2 units is folded
-// into the exponent's argument. The caller has waited for Q.
-template <int D, bool kBounded>
-__device__ __forceinline__ void consume_tile(const Tiles& t, int wg, int tq, int it, int n_eff,
-                                             float scale_log2, float (&acc)[D / 2],
-                                             float (&m_run)[2], float (&l_run)[2]) {
-  using L = Smem<D>;
-  constexpr int kS = L::kStages;
-  const int s = it % kS;
-  const uint32_t parity = (it / kS) & 1;
-  const uint8_t* kt = t.ks + s * L::kTile;
-  const uint8_t* vt = t.vs + s * L::kTile;
-
-  // S = Q K^T: 64 rows x 128 keys, D / 16 steps
-  float sc[64];
-  sm90::mbar_wait(&t.k_full[s], parity);
-  sm90::wgmma_fence();
+// kScoresInt8QIn, consumer warpgroup wg: its 64 rows of the bf16 Q tile
+// (loaded, the caller has waited) to round(q * qinv), half to even,
+// clipped to +-127 (rows the scale did not see may exceed it), into the
+// int8 Q tile in the layout the score product reads. q8 (a test hook):
+// null, or where row r of the tile goes (row stride q8_sn bytes, rows
+// below n_rows). Ends with the warpgroup's writes visible to wgmma.
+template <int D>
+__device__ __forceinline__ void quantise_q(const Tiles& t, int wg, float qinv, int8_t* q8,
+                                           long long q8_sn, int n_rows) {
+  constexpr int kGroups = D / 4;  // 4-value groups a row
+  const int tid = threadIdx.x % 128;
+#pragma unroll 4
+  for (int i = tid; i < 64 * kGroups; i += 128) {
+    const int r = wg * 64 + i / kGroups, c = (i % kGroups) * 4;
+    // 4 bf16 values, 8 bytes inside one 16-byte chunk of the swizzled row
+    const uint2 x = *reinterpret_cast<const uint2*>(
+        t.qs + (c / 64) * kBoxBytes + sm90::swizzled<128>(r * 128 + (c % 64) * 2));
+    uint32_t packed = 0u;
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-    sm90::wgmma_ss_m64n128k16(sc, sm90::desc_sw128(t.qs + off + wg * 64 * 128, 16, 1024),
-                              sm90::desc_sw128(kt + off, 16, 1024), kk > 0);
-  }
-  sm90::wgmma_commit();
-  sm90::wgmma_wait<0>();
-  sm90::fence_regs(sc);
-
-  // mask keys at or past n_eff in the last tile (raw scores)
-  const int k0 = it * kRows;
-  if (k0 + kRows > n_eff) {
-#pragma unroll
-    for (int i = 0; i < 64; ++i) {
-      if (k0 + (i / 4) * 8 + tq * 2 + (i & 1) >= n_eff) sc[i] = kNegInf;
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t w = j < 2 ? x.x : x.y;
+      const float q = __uint_as_float((j & 1) ? (w & 0xffff0000u) : (w << 16));  // exact
+      int v8 = __float2int_rn(__fmul_rn(q, qinv));
+      v8 = max(-127, min(127, v8));
+      packed |= (static_cast<uint32_t>(v8) & 0xffu) << (8 * j);
     }
+    *reinterpret_cast<uint32_t*>(t.qa + sm90::swizzled<D>(r * D + c)) = packed;
+    if (q8 != nullptr && r < n_rows) *reinterpret_cast<uint32_t*>(q8 + r * q8_sn + c) = packed;
   }
+  sm90::fence_proxy_async_shared();
+  sm90::bar_sync<128>(1 + wg);
+}
+
+// The softmax of one tile's scores sc (keys past n_eff already at -1e30)
+// into the state, in units that scale_log2 takes to log2 units, then
+// O += P V from stage s; releases the stage. acc is the m64nD accumulator
+// of O, m_run the running max of the thread's two rows in log2 units,
+// l_run the thread's share of their row sums.
+template <int D, bool kBounded, int kForm>
+__device__ __forceinline__ void softmax_pv(const Tiles& t, int s, uint32_t parity,
+                                           float (&sc)[64], float scale_log2,
+                                           float (&acc)[D / 2], float (&m_run)[2],
+                                           float (&l_run)[2]) {
+  using L = Smem<D, kForm>;
+  const uint8_t* vt = t.vs + s * L::kVTile;
   if (kBounded) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) {
@@ -173,7 +217,7 @@ __device__ __forceinline__ void consume_tile(const Tiles& t, int wg, int tq, int
       l_run[(i >> 1) & 1] += sc[i];
     }
   } else {
-    // the row max of the raw scores, scaled after (the scale is > 0)
+    // the row max of the raw scores, scaled after (the scale is >= 0)
     float mx[2] = {kNegInf, kNegInf};
 #pragma unroll
     for (int i = 0; i < 64; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
@@ -212,7 +256,7 @@ __device__ __forceinline__ void consume_tile(const Tiles& t, int wg, int tq, int
   sm90::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) {
-    const uint64_t dv = sm90::desc_sw128(vt + kk * 16 * 128, kBoxBytes, 1024);
+    const uint64_t dv = sm90::desc_sw<128>(vt + kk * 16 * 128, kBoxBytes, 1024);
     if constexpr (D == 64) {
       sm90::wgmma_rs_m64n64k16(acc, pa[kk], dv);
     } else {
@@ -223,6 +267,90 @@ __device__ __forceinline__ void consume_tile(const Tiles& t, int wg, int tq, int
   sm90::wgmma_wait<0>();
   sm90::fence_regs(acc);
   sm90::mbar_arrive(&t.empty[s]);
+}
+
+// Consumer warpgroup wg, thread tq of its quad, bf16 scores: key tile `it`
+// (keys from it * 128) into the softmax state (see softmax_pv). Keys at or
+// past n_eff are masked (in the last tile only); the raw scores' scale
+// into log2 units is folded into the exponent's argument. The caller has
+// waited for Q.
+template <int D, bool kBounded>
+__device__ __forceinline__ void consume_tile(const Tiles& t, int wg, int tq, int it, int n_eff,
+                                             float scale_log2, float (&acc)[D / 2],
+                                             float (&m_run)[2], float (&l_run)[2]) {
+  using L = Smem<D>;
+  constexpr int kS = L::kStages;
+  const int s = it % kS;
+  const uint32_t parity = (it / kS) & 1;
+  const uint8_t* kt = t.ks + s * L::kKTile;
+
+  // S = Q K^T: 64 rows x 128 keys, D / 16 steps
+  float sc[64];
+  sm90::mbar_wait(&t.k_full[s], parity);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+    sm90::wgmma_ss_m64n128k16(sc, sm90::desc_sw<128>(t.qa + off + wg * 64 * 128, 16, 1024),
+                              sm90::desc_sw<128>(kt + off, 16, 1024), kk > 0);
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(sc);
+
+  // mask keys at or past n_eff in the last tile (raw scores)
+  const int k0 = it * kRows;
+  if (k0 + kRows > n_eff) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      if (k0 + (i / 4) * 8 + tq * 2 + (i & 1) >= n_eff) sc[i] = kNegInf;
+    }
+  }
+  softmax_pv<D, kBounded, kScoresBf16>(t, s, parity, sc, scale_log2, acc, m_run, l_run);
+}
+
+// The same step with int8 scores (kForm kScoresInt8 or kScoresInt8QIn):
+// scale_log2 is the head's dequantising scalar c times log2(e).
+template <int D, bool kBounded, int kForm>
+__device__ __forceinline__ void consume_tile_s8(const Tiles& t, int wg, int tq, int it,
+                                                int n_eff, float scale_log2,
+                                                float (&acc)[D / 2], float (&m_run)[2],
+                                                float (&l_run)[2]) {
+  static_assert(kForm == kScoresInt8 || kForm == kScoresInt8QIn, "int8 forms only");
+  using L = Smem<D, kForm>;
+  constexpr int kS = L::kStages;
+  const int s = it % kS;
+  const uint32_t parity = (it / kS) & 1;
+  const uint8_t* kt = t.ks + s * L::kKTile;
+
+  // S = Q K^T: 64 rows x 128 keys, D / 32 steps of 32 bytes along the
+  // D-byte rows; 8-row groups 8 D bytes apart
+  uint32_t si[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) si[i] = kScoreBias;
+  sm90::mbar_wait(&t.k_full[s], parity);
+  sm90::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 32; ++kk) {
+    sm90::wgmma_ss_m64n128k32_s8(si, sm90::desc_sw<D>(t.qa + wg * 64 * D + kk * 32, 16, 8 * D),
+                                 sm90::desc_sw<D>(kt + kk * 32, 16, 8 * D));
+  }
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(si);
+  float sc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) sc[i] = __uint_as_float(si[i]) - kScoreBiasF;  // exact
+
+  // the last tile: scaled, then keys at or past n_eff masked
+  const int k0 = it * kRows;
+  if (k0 + kRows > n_eff) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      sc[i] = k0 + (i / 4) * 8 + tq * 2 + (i & 1) >= n_eff ? kNegInf : sc[i] * scale_log2;
+    scale_log2 = 1.f;
+  }
+  softmax_pv<D, kBounded, kForm>(t, s, parity, sc, scale_log2, acc, m_run, l_run);
 }
 
 // The row sums of the thread's two rows, summed over its quad (every

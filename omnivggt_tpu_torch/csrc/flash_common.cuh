@@ -1,6 +1,8 @@
-// Device helpers shared by the flash-attention forward (flash_attention.cu)
-// and backward (flash_attention_bwd.cu) kernels: tile sizes, bf16 packing,
-// the mma.sync.m16n8k16 bf16 -> fp32 product and the strided tile loads.
+// Device helpers of the mma.sync kernels, the flash-attention backward
+// (flash_attention_bwd.cu) and the ring's int8 step (ring_attention.cu):
+// tile sizes, bf16 packing, the mma.sync.m16n8k16 bf16 -> fp32 and
+// m16n8k32 s8 -> s32 products and the strided tile loads. The Hopper tile
+// (attend_sm90.cuh) takes the constants and pack_bf16 from here.
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t):
 //   A (16x16, row): a0 (row g, k 2t..2t+1), a1 (row g+8, same k),

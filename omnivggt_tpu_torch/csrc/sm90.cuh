@@ -17,6 +17,12 @@
 //     axis 1024 bytes apart (stride byte offset), 64-column boxes along the
 //     output axis one box apart (leading byte offset); a 16-deep step moves
 //     the start address by 16 rows = 2048 bytes.
+// int8 (K-major only: 8-bit wgmma has no transpose) rows of D = 64 or 128
+// bytes, one TMA box of D columns x rows under a D-byte swizzle: row r at
+// r * D bytes, 16-byte chunk c stored at (c ^ ((r * D / 128) % (D / 16)))
+// (`swizzled`); 8-row groups 8 D bytes apart (stride byte offset), a
+// 32-deep step moves the start address by 32 bytes within the row. The s32
+// accumulator of an m64nN s8 product has the fp32 one's register layout.
 // wgmma accumulator of an m64nN tile (thread t of the warpgroup, warp
 // w = t / 32, g = (t % 32) / 4, q = t % 4): d[i] holds row
 // 16 w + g + 8 ((i / 2) % 2), column 8 (i / 4) + 2 q + i % 2. The A operand
@@ -117,14 +123,41 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
+// ---- shared memory written by threads, read by TMA's layouts ---------------
+
+// the byte offset at which TMA stores byte `off` of a tile (1024-byte
+// aligned) under a kSwizzle-byte swizzle (64 or 128): the 16-byte chunk
+// bits from bit 4 XOR the bits from bit 7 (CUTLASS's Swizzle<2,4,3>,
+// Swizzle<3,4,3>)
+template <int kSwizzle>
+__device__ __forceinline__ uint32_t swizzled(uint32_t off) {
+  static_assert(kSwizzle == 64 || kSwizzle == 128, "64- or 128-byte swizzle");
+  return off ^ (((off >> 7) & (kSwizzle / 16 - 1)) << 4);
+}
+
+// makes this thread's writes to shared memory visible to the async proxy
+// (wgmma's operand reads, TMA); a barrier follows before the reads
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// named barrier `id` (1..15; 0 is __syncthreads) over kCount threads
+template <int kCount>
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kCount) : "memory");
+}
+
 // ---- wgmma ------------------------------------------------------------------
 
-// shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes
-__device__ __forceinline__ uint64_t desc_sw128(const void* smem, uint32_t lbo, uint32_t sbo) {
+// shared-memory matrix descriptor, kSwizzle-byte swizzle (128 or 64);
+// offsets in bytes
+template <int kSwizzle>
+__device__ __forceinline__ uint64_t desc_sw(const void* smem, uint32_t lbo, uint32_t sbo) {
+  static_assert(kSwizzle == 64 || kSwizzle == 128, "64- or 128-byte swizzle");
   uint64_t d = (smem_u32(smem) & 0x3FFFFu) >> 4;
   d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16;
   d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32;
-  d |= 1ull << 62;  // layout type: 128-byte swizzle
+  d |= (kSwizzle == 128 ? 1ull : 2ull) << 62;  // layout type: 1 128-byte, 2 64-byte swizzle
   return d;
 }
 
@@ -147,6 +180,12 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // d (m64n128, fp32) = a (smem, K-major) * b (smem, K-major)^T, plus d when
@@ -183,6 +222,42 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t a, 
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (m64n128, s32) += a (smem, K-major) * b (smem, K-major)^T, both int8
+// under the swizzle their descriptors name; exact integer sums
+__device__ __forceinline__ void wgmma_ss_m64n128k32_s8(uint32_t (&d)[64], uint64_t a,
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(a), "l"(b), "r"(1));
 }
 
 // d (m64n64, fp32) += a (registers, bf16 fragments) * b (smem, MN-major:
@@ -272,25 +347,42 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A 4-D bf16 map over a (B, N, H, D) tensor given by its base pointer and
-// its batch, token and head strides in elements (the last axis contiguous):
-// dims (D, H, N, B) innermost first, box (64 columns, 1 head, `rows` tokens,
-// 1 batch), 128-byte swizzle, out-of-range rows read as zeros. Returns false
-// where the driver refuses the map (unaligned base or strides).
-inline bool encode_bnhd_map(CUtensorMap* map, const void* base, int B, int N, int H, int D,
-                            long long sb, long long sn, long long sh, int rows) {
+// A 4-D map over a (B, N, H, D) tensor given by its base pointer and its
+// batch, token and head strides in elements (the last axis contiguous):
+// dims (D, H, N, B) innermost first, box (`cols` columns, 1 head, `rows`
+// tokens, 1 batch), out-of-range rows read as zeros. Returns false where
+// the driver refuses the map (unaligned base or strides).
+inline bool encode_bnhd(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                        const void* base, int B, int N, int H, int D, long long sb,
+                        long long sn, long long sh, int cols, int rows,
+                        CUtensorMapSwizzle swizzle) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2, static_cast<cuuint64_t>(sn) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(rows), 1};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * elem_bytes,
+                                 static_cast<cuuint64_t>(sn) * elem_bytes,
+                                 static_cast<cuuint64_t>(sb) * elem_bytes};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows), 1};
   const cuuint32_t element_strides[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-            box, element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, element_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16: boxes of 64 columns (128 bytes), 128-byte swizzle
+inline bool encode_bnhd_map(CUtensorMap* map, const void* base, int B, int N, int H, int D,
+                            long long sb, long long sn, long long sh, int rows) {
+  return encode_bnhd(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, B, N, H, D, sb, sn, sh, 64,
+                     rows, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// int8 (D = 64 or 128): one box of all D columns (D bytes), D-byte swizzle
+inline bool encode_bnhd_map_s8(CUtensorMap* map, const void* base, int B, int N, int H, int D,
+                               long long sb, long long sn, long long sh, int rows) {
+  if (D != 64 && D != 128) return false;
+  return encode_bnhd(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, base, B, N, H, D, sb, sn, sh, D, rows,
+                     D == 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 }  // namespace sm90

@@ -80,6 +80,7 @@ BOUNDED_CLAMP = 80.0
 # divides an int8 scale by 127.0 under jit (exact in a Python float)
 INV_127 = float(np.float32(1.0) / np.float32(127.0))
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu")
+QUERY_TILE = 128  # query rows a block of the forward kernel
 _MAX_GRID_YZ = 65535
 
 
@@ -386,14 +387,15 @@ def load_kernels() -> str:
     return _libraries()[3]
 
 
-def tma_launch_shape(head_dim: int) -> tuple:
-    """(threads a block, dynamic shared-memory bytes a block) of the bf16
-    forward kernel at this head dim, as its source computes them."""
+def tma_launch_shape(head_dim: int, qk: int = 0) -> tuple:
+    """(threads a block, dynamic shared-memory bytes a block) of the
+    forward kernel at this head dim and score form (`SCORES_*`), as its
+    source computes them; 0 bytes where the pair has no kernel."""
     lib, _ = build.load(SOURCES[0])
     threads, smem = lib.omnivggt_flash_attention_tma_threads, lib.omnivggt_flash_attention_tma_smem_bytes
-    threads.argtypes, smem.argtypes = [], [ctypes.c_int]
+    threads.argtypes, smem.argtypes = [], [ctypes.c_int, ctypes.c_int]
     threads.restype = smem.restype = ctypes.c_int
-    return threads(), smem(int(head_dim))
+    return threads(), smem(int(head_dim), int(qk))
 
 
 def _on_cpu(*tensors) -> bool:
@@ -441,9 +443,8 @@ def _check(q, k, v, packed=False, qk=SCORES_BF16):
         )
     if D not in HEAD_DIMS:
         raise ValueError(f"the Hopper kernels take head dim in {HEAD_DIMS}, got {D}")
-    # query tiles: 128 rows in the bf16 kernel, 64 in the int8 forms
-    rows = 128 if qk == SCORES_BF16 else 64
-    if (max(B, math.ceil(N / rows)) if packed else B * H) > _MAX_GRID_YZ:
+    # query tiles of 128 rows in every form; the token-major grid puts them on y
+    if (max(B, math.ceil(N / QUERY_TILE)) if packed else B * H) > _MAX_GRID_YZ:
         raise ValueError(f"grid too large for (B, N, H) = {(B, N, H)}")
     return B, N, H, D, Nk
 
@@ -482,8 +483,8 @@ def _launch_fwd(counter, q, k, v, kv_valid, bounded_logits, mode, with_lse=False
                 qk=SCORES_BF16, c=None, qinv=None, q8_out=None, kv_head_shift=0):
     """One forward kernel launch, counted on `counter`: o, or (o, lse)
     with_lse. qk, c, qinv, q8_out: the int8 forms (see the source).
-    kv_head_shift: 0; a test hook that plants a fault (the bf16 kernel
-    reads K and V of head (h + shift) % H)."""
+    kv_head_shift: 0; a test hook that plants a fault (every form reads K
+    and V of head (h + shift) % H)."""
     B, N, H, D, Nk = _check(q, k, v, mode != MODE_HEAD_MAJOR, qk)
     q, k, v = (_vector_aligned(x) for x in (q, k, v))
     o = torch.empty((B, N, H, D), dtype=torch.bfloat16, device=q.device)

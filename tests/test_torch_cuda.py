@@ -349,6 +349,157 @@ def test_stream_kernel_matches_plain(cuda, kv_valid, qk_int8):
             assert torch.equal(again, out)
 
 
+def _int8_launch(form, q, k, v, kv_valid, bounded, kv_head_shift=0):
+    """One launch of an int8 form on the grid its wrapper makes: "head-major"
+    from quant_per_head's q and k, "stream" (bounded) from the bf16 q, which
+    the kernel quantises, and quant_token_major's k."""
+    D = q.shape[-1]
+    if form == "head-major":
+        (q8, q_scale), (k8, k_scale) = FK.quant_per_head(q, kv_valid), FK.quant_per_head(k, kv_valid)
+        return FK._launch_fwd(FK.flash_attention_int8, q8, k8, v, kv_valid, bounded,
+                              FK.MODE_HEAD_MAJOR, qk=FK.SCORES_INT8, c=q_scale * k_scale * D**-0.5,
+                              kv_head_shift=kv_head_shift)
+    _, q_scale, q_inv = FK.quant_token_major(q, kv_valid)
+    k8, k_scale, _ = FK.quant_token_major(k, kv_valid)
+    return FK._launch_fwd(FK.flash_attention_packed_stream, q, k8, v, kv_valid, True,
+                          FK.MODE_TOKEN_MAJOR, qk=FK.SCORES_INT8_Q_IN,
+                          c=q_scale * k_scale * D**-0.5, qinv=q_inv, kv_head_shift=kv_head_shift)
+
+
+def _int8_reference(form, q, k, v, kv_valid, bounded):
+    f = [x.float() for x in (q, k, v)]
+    if form == "head-major":
+        return FK.attention_plain_int8(*f, kv_valid, bounded)
+    return FK.attention_stream_plain(*f, kv_valid, True)
+
+
+def _int8_err_tol(form, out, q, k, v, kv_valid, bounded):
+    """(max error against the plain version on the same int8 grid, 2^-7
+    max|v|): the integer scores are exact on both sides, so the bf16
+    kernels' tolerance holds."""
+    ref = _int8_reference(form, q, k, v, kv_valid, bounded)
+    assert out.dtype == torch.bfloat16 and out.shape == q.shape
+    return (out.float() - ref).abs().max().item(), 2.0**-7 * v.float().abs().max().item()
+
+
+# (form, bounded, shape): the stream form is bounded with head dim 64 only
+INT8_FORMS = [("head-major", True, (2, 333, 3, 64)), ("head-major", False, (1, 1100, 2, 64)),
+              ("head-major", True, (2, 300, 2, 128)), ("head-major", False, (1, 129, 2, 128)),
+              ("stream", True, (2, 333, 4, 64)), ("stream", True, (1, 1100, 2, 64))]
+
+
+@pytest.mark.parametrize("kv_valid", [None, 1, 128, "last tile", "device"])
+@pytest.mark.parametrize("form,bounded,shape", INT8_FORMS)
+def test_int8_tile_matches_plain(cuda, form, bounded, shape, kv_valid):
+    """Both int8 forms on the TMA + wgmma tile (s8 scores): N and Nk not
+    multiples of 128 (TMA's zero fill), more key tiles than stages, every
+    kind of kv_valid (one key, a whole tile, inside the last tile, a device
+    scalar)."""
+    q, k, v = _qkv(shape, shape[1], 10, cuda, scale=2.0)
+    n = shape[1]
+    kv = {"last tile": n - 5, "device": torch.tensor(n - 70, dtype=torch.int32, device=cuda)}.get(
+        kv_valid, kv_valid)
+    out = _int8_launch(form, q, k, v, kv, bounded)
+    torch.cuda.synchronize()
+    err, tol = _int8_err_tol(form, out, q, k, v, kv, bounded)
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("form", ["head-major", "stream"])
+def test_int8_tile_with_a_zero_scale(cuda, form):
+    """All-zero q and k: the dequantising scalar underflows to 0, every valid
+    key weighs the same and the masked keys stay out (the last tile masks
+    after the scale)."""
+    q, k, v = _qkv((1, 300, 2, 64), 300, 11, cuda)
+    q, k = torch.zeros_like(q), torch.zeros_like(k)
+    for bounded in ((True, False) if form == "head-major" else (True,)):
+        out = _int8_launch(form, q, k, v, 200, bounded)
+        torch.cuda.synchronize()
+        err, tol = _int8_err_tol(form, out, q, k, v, 200, bounded)
+        assert err <= tol, (err, tol)
+        mean = v[:, :200].float().mean(dim=1, keepdim=True).expand_as(out)
+        assert (out.float() - mean).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_int8_tile_reads_strided_and_token_major_k_quant(cuda, D):
+    """k_quant as a strided view and as a token-major (B, Nk, H*D) view, and
+    the stream form's bf16 q as a view of a fused qkv tensor: the tensor
+    maps take the strides as they are, bitwise the same answer."""
+    rng = np.random.default_rng(12)
+    B, N, H = 2, 300, 4
+    qkv = torch.tensor(rng.normal(size=(B, N, 3, H, D)) * 2, dtype=torch.bfloat16, device=cuda)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    k8, k_scale = FK.quant_per_head(k)
+    pair = torch.zeros((B, N, 2, H, D), dtype=torch.int8, device=cuda)
+    pair[:, :, 1] = k8
+    views = [pair[:, :, 1], k8.reshape(B, N, H * D).reshape(B, N, H, D),
+             k8.transpose(1, 2).contiguous().transpose(1, 2)]
+    base = FK.flash_attention(q, None, v, None, True, qk_int8=True, k_quant=(k8.contiguous(), k_scale))
+    for view in views:
+        got = FK.flash_attention(q, None, v, None, True, qk_int8=True, k_quant=(view, k_scale))
+        torch.cuda.synchronize()
+        assert torch.equal(got, base)
+    err, tol = _int8_err_tol("head-major", base, q, k, v, None, True)
+    assert err <= tol, (err, tol)
+    if D != 64:
+        return
+    k8t, kt_scale = FK.quant_k_token_major(k)
+    wide = torch.zeros((B, N, 2 * H * D), dtype=torch.int8, device=cuda)
+    wide[..., H * D:] = k8t
+    base = FK.flash_attention_packed_stream(q.contiguous(), None, v, qk_int8=True,
+                                            k_quant=(k8t, kt_scale))
+    for qq, view in ((q, k8t), (q.contiguous(), wide[..., H * D:]), (q, wide[..., H * D:])):
+        got = FK.flash_attention_packed_stream(qq, None, v, qk_int8=True, k_quant=(view, kt_scale))
+        torch.cuda.synchronize()
+        assert torch.equal(got, base)
+    err, tol = _int8_err_tol("stream", base, q, k, v, None, True)
+    assert err <= tol, (err, tol)
+
+
+@pytest.mark.parametrize("form", ["head-major", "stream"])
+def test_int8_tile_is_deterministic(cuda, form):
+    """21 launches on the same inputs give bitwise the same o (a race in the
+    stage ring or in the in-kernel quantisation would not show as a wrong
+    mean); the stream form's q grid each time equal to quant_token_major's."""
+    q, k, v = _qkv((2, 700, 4, 64), 700, 13, cuda, scale=2.0)
+    kv = torch.tensor(650, dtype=torch.int32, device=cuda)
+    o0 = _int8_launch(form, q, k, v, kv, True)
+    for _ in range(20):
+        assert torch.equal(_int8_launch(form, q, k, v, kv, True), o0)
+    if form == "stream":
+        q8 = torch.empty(q.shape, dtype=torch.int8, device=cuda)
+        for _ in range(3):
+            assert torch.equal(FK._stream_int8(q, k, v, kv, None, q8_out=q8), o0)
+            assert torch.equal(q8, FK.quant_token_major(q, kv)[0])
+
+
+@pytest.mark.parametrize("form", ["head-major", "stream"])
+def test_int8_tile_planted_faults_fail_the_tolerance(cuda, form):
+    """Two planted faults must leave the 2^-7 max|v| tolerance: K and V of
+    the next head (the kernel's test hook), the last key tile left out."""
+    q, k, v = _qkv((1, 300, 4, 64), 300, 14, cuda, scale=4.0)
+    ref = _int8_reference(form, q, k, v, None, True)
+    tol = 2.0**-7 * v.float().abs().max().item()
+    wrong_head = _int8_launch(form, q, k, v, None, True, kv_head_shift=1)
+    torch.cuda.synchronize()
+    assert (wrong_head.float() - ref).abs().max().item() > tol
+    # the same int8 grid, the keys past 256 left out
+    q8, q_scale = FK.quant_per_head(q)
+    k8, k_scale = FK.quant_per_head(k)
+    if form == "head-major":
+        cut = FK._launch_fwd(FK.flash_attention_int8, q8, k8, v, 256, True, FK.MODE_HEAD_MAJOR,
+                             qk=FK.SCORES_INT8, c=q_scale * k_scale / 8)
+    else:
+        _, q_scale, q_inv = FK.quant_token_major(q)
+        k8, k_scale, _ = FK.quant_token_major(k)
+        cut = FK._launch_fwd(FK.flash_attention_packed_stream, q, k8, v, 256, True,
+                             FK.MODE_TOKEN_MAJOR, qk=FK.SCORES_INT8_Q_IN,
+                             c=q_scale * k_scale / 8, qinv=q_inv)
+    torch.cuda.synchronize()
+    assert (cut.float() - ref).abs().max().item() > tol
+
+
 def test_stream_gradient_runs_the_backward_kernels(cuda):
     q, k, v = (x.requires_grad_(True) for x in _qkv((1, 200, 2, 64), 200, 5, cuda))
     before = FK.launches()

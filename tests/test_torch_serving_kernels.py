@@ -9,6 +9,9 @@ are held against the same plain versions on the card
 (tests/test_torch_cuda.py, chip_smoke.py).
 """
 
+import contextlib
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -224,6 +227,61 @@ def test_stream_contract_and_no_fallback():
     with pytest.raises(ValueError, match="CPU or all on CUDA"):
         FK.flash_attention(m, m, m, qk_int8=True)
     assert set(FK.launches()) >= {"flash_attention_int8", "flash_attention_packed_stream"}
+
+
+def test_every_forward_form_takes_128_row_query_tiles():
+    """The int8 forms run the bf16 form's 128-row query tile: the
+    token-major grid's limit (65535 query tiles on grid y) counts 128-row
+    tiles for each form, the head-major grid's B * H blocks on grid y."""
+
+    def meta(n, dtype, h=2):
+        return torch.empty((1, n, h, 64), dtype=dtype, device="meta")
+
+    bf16, i8 = torch.bfloat16, torch.int8
+    most = FK.QUERY_TILE * 65535
+    for qk, q_dtype, k_dtype in ((FK.SCORES_BF16, bf16, bf16), (FK.SCORES_INT8_Q_IN, bf16, i8),
+                                 (FK.SCORES_INT8, i8, i8)):
+        assert FK._check(meta(most, q_dtype), meta(8, k_dtype), meta(8, bf16), True, qk)[1] == most
+        with pytest.raises(ValueError, match="grid too large"):
+            FK._check(meta(most + 1, q_dtype), meta(8, k_dtype), meta(8, bf16), True, qk)
+        FK._check(meta(most + 1, q_dtype), meta(8, k_dtype), meta(8, bf16), False, qk)
+        with pytest.raises(ValueError, match="grid too large"):
+            FK._check(meta(8, q_dtype, 65536), meta(8, k_dtype, 65536), meta(8, bf16, 65536),
+                      False, qk)
+
+
+def test_int8_forms_pass_the_fault_hook_to_the_kernel(monkeypatch):
+    """Both int8 forms take the kernel's kv_head_shift test hook as the bf16
+    form does: the launch hands it to the C entry point with the form's
+    score code, its per-head scalars and q's and k's strides in elements of
+    their own type, and counts itself (the entry point recorded, not run)."""
+    calls = []
+    monkeypatch.setattr(FK, "_libraries", lambda: (lambda *a: calls.append(a) or 0, None, None, ""))
+    monkeypatch.setattr(torch.cuda, "device", lambda device: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(cuda_stream=0))
+    for fn in (FK.flash_attention_int8, FK.flash_attention_packed_stream):
+        monkeypatch.setattr(fn, "launches", 0)
+    q, k, v = (t(x).to(torch.bfloat16) for x in _qkv())
+    B, N, H, D = q.shape
+    (q8, q_scale), (k8, k_scale) = FK.quant_per_head(q), FK.quant_per_head(k)
+    FK._launch_fwd(FK.flash_attention_int8, q8, k8, v, None, True, FK.MODE_HEAD_MAJOR,
+                   qk=FK.SCORES_INT8, c=q_scale * k_scale * D**-0.5, kv_head_shift=1)
+    kt8, kt_scale = FK.quant_k_token_major(k)
+    _, q_scale, q_inv = FK.quant_token_major(q)
+    q8_out = torch.empty(q.shape, dtype=torch.int8)
+    FK._launch_fwd(FK.flash_attention_packed_stream, q, kt8.reshape(B, N, H, D), v, VALID, True,
+                   FK.MODE_TOKEN_MAJOR, qk=FK.SCORES_INT8_Q_IN, c=q_scale * kt_scale * D**-0.5,
+                   qinv=q_inv, q8_out=q8_out, kv_head_shift=1)
+    assert FK.flash_attention_int8.launches == FK.flash_attention_packed_stream.launches == 1
+    (hm, st) = calls
+    token = [N * H * D, H * D, D]
+    assert hm[:4] == (FK.MODE_HEAD_MAJOR, 1, D, FK.SCORES_INT8) and hm[-1] == 1
+    assert st[:4] == (FK.MODE_TOKEN_MAJOR, 1, D, FK.SCORES_INT8_Q_IN) and st[-1] == 1
+    assert list(hm[12]) == token * 4 and list(st[12]) == token * 4
+    assert hm[8] is None and hm[10] is None and hm[11] is None  # no LSE, qinv, q8_out
+    assert st[9] is not None and st[10] is not None and st[11] == q8_out.data_ptr()
+    assert (hm[13:18], st[13:18]) == ((B, H, N, N, N), (B, H, N, N, VALID))
 
 
 def test_dispatch_order_matches_the_jax_package(monkeypatch):
