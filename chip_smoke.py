@@ -5,7 +5,9 @@
 Phases, each of which fails the run (non-zero exit, no result line):
   1. card: prints the card's name and power limit; there must be a CUDA
      device (there is no CPU path here);
-  2. build: compiles the Hopper kernels from csrc/ with nvcc;
+  2. build: compiles the Hopper kernels from csrc/ with nvcc; prints each
+     kernel's registers and shared memory from ptxas' report, and fails if
+     a backward kernel (dq, dk/dv, D 64 and 128) spills a register;
   3. kernels: each kernel against its plain PyTorch version at the shapes
      the flagship's 518 px, 8-view forward gives it, bf16 inputs, the plain
      version in fp32 from the same inputs; prints errors beside the stated
@@ -19,7 +21,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      gives them (global bounded, frame bounded, DINOv2 running-max), plus
      a dynamic kv_valid and a clamp-saturation case: the forward kernel's
      o and LSE against attention_plain's (the LSE row by row within
-     lse_tolerance, from fp32 rounding), then the dq and dk/dv kernels
+     lse_tolerance, from fp32 rounding); 21 launches of the dq and the
+     dk/dv kernel (TMA + wgmma) on the same inputs bitwise equal (dq,
+     delta, dk, dv); then the dq and dk/dv kernels
      against attention_backward_plain given the plain LSE, entry by entry
      within backward_tolerance (bf16 rounding of ds / p and of the
      outputs, fp32 rounding of p and ds), printed beside max |ref| and
@@ -123,6 +127,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import json
+import re
 import socket
 import statistics
 import subprocess
@@ -304,6 +309,34 @@ def sdpa_backward_ms(q, k, v, kv, do, reps=20):
     return statistics.median(times)
 
 
+def backward_build_report(FK, log):
+    """Each backward kernel's registers, spills and shared memory, from
+    ptxas' report of csrc/flash_attention_bwd.cu; a spill fails the run.
+    An empty log (the library was built before) has no report."""
+    if not log:
+        print("  backward kernels: library built before this run, no ptxas report")
+        return
+    entries, name = {}, None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '.*?(flash_bwd_(?:dq|dkv))ILi(\d+)ELb([01])E",
+                          line)
+        if found:
+            name = (found.group(1), int(found.group(2)), int(found.group(3)))
+            entries[name] = {}
+        elif name and "spill stores" in line:
+            entries[name]["spills"] = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
+        elif name and "Used" in line:
+            entries[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    shapes = {d: FK.bwd_launch_shape(d) for d in FK.HEAD_DIMS}
+    for (kernel, d, bounded), e in sorted(entries.items()):
+        smem = shapes[d][1 if kernel == "flash_bwd_dq" else 2]
+        print(f"  backward kernel {kernel} D={d} bounded={bounded}: {e.get('registers')} "
+              f"registers at launch, spill stores/loads {e.get('spills')} bytes, {smem} bytes of "
+              f"dynamic shared memory, {shapes[d][0]} threads a block")
+    if len(entries) != 8 or any(e.get("spills") != [0, 0] for e in entries.values()):
+        raise AssertionError(f"a backward kernel spills or is missing from ptxas' report: {entries}")
+
+
 def check_kernels(FK, dev):
     """Each kernel vs its plain version at the main path's shapes."""
     gen = torch.Generator(device=dev)
@@ -478,7 +511,17 @@ def check_backward(FK, dev):
         o, lse = FK._launch(q, k, v, kv, bounded, packed=N <= FK.PACKED_MAX_KEYS, with_lse=True)
         dq, delta = FK.flash_attention_bwd_dq(q, k, v, o, do, lse, kv, bounded)
         dk, dv = FK.flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv, bounded)
+        same = True
+        for _ in range(20):  # a race in a stage ring would not show as a wrong mean
+            again = FK.flash_attention_bwd_dq(q, k, v, o, do, lse, kv, bounded)
+            again += FK.flash_attention_bwd_dkv(q, k, v, do, lse, again[1], kv, bounded)
+            same = same and all(torch.equal(a, b) for a, b in zip(again, (dq, delta, dk, dv)))
+        del again
         torch.cuda.synchronize()
+        print(f"backward kernels [{label}]: 21 launches of each bitwise equal (dq, delta, dk, "
+              f"dv): {same}")
+        if not same:
+            raise AssertionError(f"backward kernels [{label}]: launches on the same inputs differ")
         f = [x.float() for x in (q, k, v)]
         o_ref, lse_ref = FK.attention_plain(*f, kv, bounded, return_lse=True)
         o_err = (o.float() - o_ref).abs().max().item()
@@ -1710,6 +1753,7 @@ def main() -> int:
                       f"threads, {smem} bytes of dynamic shared memory a block")
     print("  ptxas' register count above is the launch's; setmaxnreg then gives the producer "
           "warpgroup 24 and the two consumer warpgroups 240")
+    backward_build_report(FK, logs[FK.SOURCES[1]])
 
     kernel_results = check_kernels(FK, dev)
     check_tma_forms(FK, dev)

@@ -1,17 +1,20 @@
-// The attention tile of the Hopper kernels, one copy for the two sources
-// that run it: flash_attention.cu (tma_attend, under the head-major and the
-// token-major grids, bf16 and int8 scores) and ring_attention.cu
-// (ring_attend, one bf16 ring step of a sequence sharded over ranks). Each
+// The attention tile of the Hopper kernels, one copy for the sources that
+// run it: flash_attention.cu (tma_attend, under the head-major and the
+// token-major grids, bf16 and int8 scores), ring_attention.cu (ring_attend,
+// one bf16 ring step of a sequence sharded over ranks) and
+// flash_attention_bwd.cu (the dq kernel: its shared memory and producer,
+// with a dO tile loaded beside Q). Each
 // block holds 128 query rows of one (batch, head): two consumer warpgroups
 // of 64 rows (wgmma's M) and one producer warpgroup, of which one thread
 // issues every TMA load.
 //
 // Here are the parts the kernels share:
-//   - the block's shared memory (Q, a ring of K and V stages, the full and
-//     empty mbarriers) and the barriers' initialisation;
-//   - the producer: Q once, then 128-key K and V tiles through the stage
-//     ring, each a 4-D TMA box (or two) of columns x 1 head x 128 rows x 1
-//     batch at coordinates the caller names, so the same loop reads
+//   - the block's shared memory (Q, for the dq kernel dO, a ring of K and
+//     V stages, the full and empty mbarriers) and the barriers'
+//     initialisation;
+//   - the producer: Q (and dO) once, then 128-key K and V tiles through the
+//     stage ring, each a 4-D TMA box (or two) of columns x 1 head x 128
+//     rows x 1 batch at coordinates the caller names, so the same loop reads
 //     (B, N, H, D) inputs and a ring buffer viewed as (4 B H, nl, 1, D);
 //     rows past a map's extent load as zeros;
 //   - the consumer's step over one key tile, in two forms that differ only
@@ -59,24 +62,28 @@ constexpr int kBoxBytes = kRows * 128;  // one 64-column bf16 box of 128 rows
 constexpr int kScoresBf16 = 0;     // bf16 q and k
 constexpr int kScoresInt8 = 1;     // int8 q and k, quantised by the caller
 constexpr int kScoresInt8QIn = 2;  // int8 k from the caller, bf16 q quantised here
+constexpr int kBwdDq = 3;          // the dq kernel: bf16 scores, a bf16 dO tile beside Q
 
 // the int8 scores' accumulator start: the float bits of 1.5 * 2^23
 constexpr uint32_t kScoreBias = 0x4B400000u;
 constexpr float kScoreBiasF = 12582912.0f;
 
 // Bytes of the block's shared memory: Q as loaded (int8 for kScoresInt8,
-// else bf16), kScoresInt8QIn's int8 Q tile, kStages K stages (int8 for the
-// int8 forms), kStages bf16 V stages, then the barriers. Every tile starts
-// 1024-byte aligned.
+// else bf16), kScoresInt8QIn's int8 Q tile or kBwdDq's bf16 dO tile,
+// kStages K stages (int8 for the int8 forms), kStages bf16 V stages, then
+// the barriers. Every tile starts 1024-byte aligned.
 template <int D, int kForm = kScoresBf16>
 struct Smem {
-  static constexpr bool kS8 = kForm != kScoresBf16;
+  static constexpr bool kS8 = kForm == kScoresInt8 || kForm == kScoresInt8QIn;
   static constexpr int kStages = kS8 ? (D == 64 ? 4 : 3) : (D == 64 ? 3 : 2);
   static constexpr int kQTile = kRows * D * (kForm == kScoresInt8 ? 1 : 2);
   static constexpr int kKTile = kRows * D * (kS8 ? 1 : 2);
   static constexpr int kVTile = kRows * D * 2;
-  static constexpr int kQ8 = kQTile;  // kScoresInt8QIn: the int8 Q the consumers write
-  static constexpr int kK = kQ8 + (kForm == kScoresInt8QIn ? kRows * D : 0);
+  static constexpr int kQ8 = kQTile;  // kScoresInt8QIn: the int8 Q the consumers write;
+                                      // kBwdDq: dO
+  static constexpr int kK = kQ8 + (kForm == kScoresInt8QIn ? kRows * D
+                                   : kForm == kBwdDq       ? kQTile
+                                                           : 0);
   static constexpr int kV = kK + kStages * kKTile;
   static constexpr int kBars = kV + kStages * kVTile;
   static constexpr int kBytes = kBars + (1 + 3 * kStages) * 8;
@@ -87,6 +94,7 @@ struct Smem {
 struct Tiles {
   uint8_t* qs;  // Q as loaded
   uint8_t* qa;  // Q as the score product reads it (int8 Q for the int8 forms)
+  uint8_t* dos;  // kBwdDq: the dO tile
   uint8_t* ks;
   uint8_t* vs;
   uint64_t* q_full;
@@ -107,6 +115,7 @@ __device__ __forceinline__ Tiles carve_tiles() {
   Tiles t;
   t.qs = smem;
   t.qa = kForm == kScoresInt8QIn ? smem + L::kQ8 : smem;
+  t.dos = smem + L::kQ8;
   t.ks = smem + L::kK;
   t.vs = smem + L::kV;
   t.q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
@@ -126,34 +135,42 @@ __device__ __forceinline__ Tiles carve_tiles() {
   return t;
 }
 
-// One 128-row tile of an operand at (h, row, b) of `map`: bf16 as D / 64
-// boxes of 64 columns, int8 as one box of D columns.
-template <int D, bool kInt8>
+// One kTileRows-row tile (128 unless named) of an operand at (h, row, b)
+// of `map`: bf16 as D / 64 boxes of 64 columns, int8 as one box of D
+// columns.
+template <int D, bool kInt8, int kTileRows = kRows>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, uint64_t* bar,
                                           int h, int row, int b) {
   constexpr int kBoxes = kInt8 ? 1 : D / 64;
   constexpr int kCols = D / kBoxes;
 #pragma unroll
   for (int box = 0; box < kBoxes; ++box)
-    sm90::tma_load_4d(dst + box * kRows * kCols * (kInt8 ? 1 : 2), map, bar, box * kCols, h, row,
-                      b);
+    sm90::tma_load_4d(dst + box * kTileRows * kCols * (kInt8 ? 1 : 2), map, bar, box * kCols, h,
+                      row, b);
 }
 
-// The producer thread: the Q tile at (qh, q_row, qb) of q_map once, then
-// key tiles it = 0 .. n_tiles - 1, K at (kh, it * 128, kb) of k_map and V
-// at (vh, it * 128, vb) of v_map, each into stage it % kStages once the
-// consumers have released it.
+// The producer thread: the Q tile at (qh, q_row, qb) of q_map once (for
+// kBwdDq with the dO tile at the same place of do_map, on the same
+// barrier), then key tiles it = 0 .. n_tiles - 1, K at (kh, it * 128, kb)
+// of k_map and V at (vh, it * 128, vb) of v_map, each into stage
+// it % kStages once the consumers have released it.
 template <int D, int kForm = kScoresBf16>
 __device__ __forceinline__ void produce(const Tiles& t, const CUtensorMap* q_map, int qh,
                                         int q_row, int qb, const CUtensorMap* k_map, int kh,
                                         int kb, const CUtensorMap* v_map, int vh, int vb,
-                                        int n_tiles) {
+                                        int n_tiles, const CUtensorMap* do_map = nullptr) {
   using L = Smem<D, kForm>;
   constexpr int kS = L::kStages;
   sm90::prefetch_tensor_map(q_map);
   sm90::prefetch_tensor_map(k_map);
   sm90::prefetch_tensor_map(v_map);
-  sm90::mbar_arrive_expect_tx(t.q_full, L::kQTile);
+  if constexpr (kForm == kBwdDq) {
+    sm90::prefetch_tensor_map(do_map);
+    sm90::mbar_arrive_expect_tx(t.q_full, 2 * L::kQTile);
+    load_tile<D, false>(t.dos, do_map, t.q_full, qh, q_row, qb);
+  } else {
+    sm90::mbar_arrive_expect_tx(t.q_full, L::kQTile);
+  }
   load_tile<D, kForm == kScoresInt8>(t.qs, q_map, t.q_full, qh, q_row, qb);
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % kS;

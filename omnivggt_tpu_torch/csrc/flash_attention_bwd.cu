@@ -5,70 +5,94 @@
 // Replaces the two backward TPU kernels of
 // omnivggt_tpu/ops/pallas/flash_attention.py (reached through
 // _flash_backward from every custom_vjp wrapper, head-major and packed):
-//   - _flash_bwd_dq_kernel:  dq = scale * sum_k ds k;
-//   - _flash_bwd_dkv_kernel: dv = sum_q p^T dO, dk = scale * sum_q ds^T q;
+//   - _flash_bwd_dq_kernel (TPU kernel 3): dq = scale * sum_k ds k, and
+//     delta = rowsum(dO * O) once per query row;
+//   - _flash_bwd_dkv_kernel (TPU kernel 4): dv = sum_q p^T dO,
+//     dk = scale * sum_q ds^T q;
 // with p = exp(s - lse) rebuilt from the forward's saved row LSE (s clamped
 // at 80 in bounded mode, the clamp passing gradients straight through, as
-// _bwd_recompute does), ds = p * (dO v^T - delta) and
-// delta = rowsum(dO * O). Keys at or past min(Nk, kv_valid) get p = 0,
-// which zeroes their dq contribution and their own dk/dv rows.
+// _bwd_recompute does) and ds = p * (dO v^T - delta). Keys at or past
+// min(Nk, kv_valid) get p = 0, which zeroes their dq contribution and their
+// own dk/dv rows.
 //
-// What bounds it on this card: per (64-query, 64-key) tile the dq kernel
-// runs three products (S = Q K^T, dP = dO V^T, dQ += dS K) and the dk/dv
-// kernel four (S^T, dP^T, dV += P^T dO, dK += dS^T Q), 2*64*64*D FLOPs
-// each, against 2-4 strided (64, D) bf16 tiles streamed per tile. At D=64
-// that is ~64-96 FLOP/byte before L2 reuse, and one head's operands fit L2
-// (Q, K, V, O, dO at N=5496 are 3.5 MB), so both kernels are bound by the
-// tensor cores and by how fast mma.sync is fed from shared memory, plus
-// one exp per score.
+// What bounds it on this card: per (query, key) pair the dq kernel runs
+// three matrix products (S = Q K^T, dP = dO V^T, dQ += dS K) and the dk/dv
+// kernel four (S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q), 2 D
+// FLOPs each, against q, k, v, o, dO read and dq, dk, dv written about
+// once: thousands of FLOPs a byte at the training shapes, so both kernels
+// are bound by the tensor cores (0.19 + 0.25 ms of bf16 products at
+// (1, 5496, 16, 64) against 0.02 ms of bytes), with one exponential per
+// score and kernel on the special-function units beside them. Two kernels
+// run 7 products where a dq summed by atomics runs 5: the price of a
+// deterministic sum.
 //
-// What the design does about it (simple first; wgmma, TMA and warp
-// specialisation are later work):
-//   - the TPU grid's inner "arbitrary" axis becomes a loop inside the
-//     block: dq blocks own (b*h, 64 queries) and loop over key tiles, dk/dv
-//     blocks own (b*h, 64 keys) and loop over query tiles, so every sum is
-//     kept in registers and no atomics are needed: the reduction order is
-//     fixed and the result deterministic, as on the TPU;
-//   - 128 threads = 4 warps of 16 rows; the scores, probabilities and ds
-//     never leave registers: each fp32 score fragment is re-packed to bf16
-//     as the A operand of the next product (rounding p and ds to bf16, as
-//     the TPU kernels do);
-//   - operands that appear as the B operand of a row-by-tile product are
-//     staged row-major, those of a score-by-tile product transposed, each
-//     row padded by 8 bf16 so that fragment loads are conflict-free;
-//   - delta = rowsum(dO * O) is computed once per query row by the dq
-//     kernel (it holds the dO tile already) and written to a (B, H, N)
-//     fp32 buffer that the dk/dv kernel, launched next on the same stream,
-//     reads: O is read once, not once per key tile;
-//   - q/k/v/o/dO are read through (B, N, H, D) strides (v in place from the
-//     fused qkv tensor); dq/dk/dv are written the same way, in bf16.
+// What the design does about it: the forward's Hopper tile
+// (attend_sm90.cuh; primitives in sm90.cuh):
+//   - 384 threads a block: two consumer warpgroups of 64 rows (wgmma's M)
+//     and a producer warpgroup, of which one thread issues every TMA load
+//     into a ring of shared-memory stages guarded by full and empty
+//     mbarriers (setmaxnreg: 24 registers for the producer, 240 for the
+//     consumers), so the next tiles are in flight while the tensor cores
+//     work on this one;
+//   - dq kernel (flash_bwd_dq): a block owns 128 query rows of one (batch,
+//     head). Q and dO are loaded once and 128-key K and V tiles stream
+//     through attend::produce's stage ring (3 stages at D = 64, 2 at
+//     D = 128). Per tile: S and dP by wgmma SS (both operands K-major along
+//     D), p from the saved LSE with the scale folded into the exponent's
+//     argument while dP is still in the tensor cores, ds in registers,
+//     packed in place to bf16 as the A fragment of dQ += dS K by wgmma RS,
+//     K read through the descriptor's transpose bit. delta is formed in the
+//     prologue from plain loads of O and dO (a quad of threads a row pair)
+//     and written for the dk/dv kernel, so O is read once;
+//   - dk/dv kernel (flash_bwd_dkv): a block owns 128 keys. K and V are
+//     loaded once, and 128-query (D = 64) or 64-query (D = 128, which keeps
+//     the four accumulators at 192 registers a thread) tiles of Q and dO
+//     stream through a 3-stage ring with those rows' lse and delta, each a
+//     1-D TMA box over the flat (B, H, N) buffer (its row stride of 4 N
+//     bytes is not a multiple of 16, so no 2-D map is legal; a 1-D box has
+//     to start on a 16-byte boundary, or the load faults, so it starts up
+//     to 3 values before the tile's first row). Per tile: S^T
+//     and dP^T by SS, p^T and ds^T in registers with lse and delta read
+//     from the stage by the accumulator's column, then dV += P^T dO and
+//     dK += dS^T Q by RS, dO and Q through the transpose bit. A block wholly
+//     past the valid keys writes zeros and loads nothing;
+//   - neither kernel writes P or dS to shared memory or keeps a transposed
+//     copy of an operand; p and ds are rounded to bf16 only as the A
+//     operand, as the TPU kernels round them; every sum is taken in one
+//     block in a fixed order (no atomics), so the output is deterministic;
+//   - TMA's zero fill stands in for rows past N or Nk; a tile that crosses
+//     n_eff (keys) or N (query rows, dk/dv) sets p = 0 there by a select,
+//     so a score of a zero-filled key, or an lse read past the head's row,
+//     never reaches a sum;
+//   - q, k, v, dO are read through (B, N, H, D) strides (v in place from the
+//     fused qkv tensor), and dq, dk, dv are written the same way in bf16.
 
-#include "flash_common.cuh"
+#include "attend_sm90.cuh"
 
 namespace {
 
-using namespace flash;
+using attend::kBwdDq;
+using attend::kConsumers;
+using attend::kRows;
+using flash::kClampLog2;
+using flash::kLog2e;
+using flash::pack_bf16;
+constexpr int kThreads = attend::kThreads;
 
 struct BwdParams {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* o;
+  CUtensorMap q_map, k_map, v_map, do_map;  // 4-D (D, H, N, B) maps, see sm90.cuh
+  CUtensorMap lse_map, delta_map;           // dk/dv: 1-D maps over the flat (B, H, N) rows
+  const __nv_bfloat16* o;                   // dq: O and dO rows, read by threads for delta
   const __nv_bfloat16* dout;
   const float* lse;  // (B, H, N) natural-log row LSE of the forward
-  float* delta;      // (B, H, N) rowsum(dO * O): dq kernel writes, dkv reads
-  __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
+  float* delta;      // dq: (B, H, N) rowsum(dO * O), written for the dk/dv kernel
+  __nv_bfloat16* out;   // dq, or dk
+  __nv_bfloat16* out2;  // dv
   // element strides (batch, token, head); the last axis is contiguous
-  long long q_sb, q_sn, q_sh;
-  long long k_sb, k_sn, k_sh;
-  long long v_sb, v_sn, v_sh;
   long long o_sb, o_sn, o_sh;
   long long do_sb, do_sn, do_sh;
-  long long dq_sb, dq_sn, dq_sh;
-  long long dk_sb, dk_sn, dk_sh;
-  long long dv_sb, dv_sn, dv_sh;
+  long long out_sb, out_sn, out_sh;
+  long long out2_sb, out2_sn, out2_sh;
   int B, H, N, Nk;
   int kv_static;
   const int* kv_dynamic;
@@ -81,269 +105,524 @@ __device__ __forceinline__ int valid_keys(const BwdParams& p) {
   return max(n, 0);
 }
 
-// p = exp(min?(s * scale) - lse) in log2 units, 0 where masked
+// p = exp(min?(s * scale) - lse) from a raw score, lse2 in log2 units
 template <bool kBounded>
-__device__ __forceinline__ float prob(float s, float scale_log2, float lse2, bool valid) {
-  float x = s * scale_log2;
-  if (kBounded) x = fminf(x, kClampLog2);
-  return valid ? exp2f(x - lse2) : 0.f;
+__device__ __forceinline__ float prob(float s, float scale_log2, float lse2) {
+  return sm90::exp2_ftz(kBounded ? fminf(s * scale_log2, kClampLog2) - lse2
+                                 : fmaf(s, scale_log2, -lse2));
 }
 
+// sum of the products of 8 bf16 pairs, in order
+__device__ __forceinline__ float dot8(uint4 a, uint4 b, float sum) {
+  const __nv_bfloat162* x = reinterpret_cast<const __nv_bfloat162*>(&a);
+  const __nv_bfloat162* y = reinterpret_cast<const __nv_bfloat162*>(&b);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const float2 u = __bfloat1622float2(x[j]), w = __bfloat1622float2(y[j]);
+    sum = fmaf(u.x, w.x, sum);
+    sum = fmaf(u.y, w.y, sum);
+  }
+  return sum;
+}
+
+// d (m64nN) = a * b^T, or plus d when accumulate != 0 (SS, bf16)
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                         int accumulate) {
+  if constexpr (N == 128) {
+    sm90::wgmma_ss_m64n128k16(d, a, b, accumulate);
+  } else {
+    sm90::wgmma_ss_m64n64k16(d, a, b, accumulate);
+  }
+}
+
+// d (m64nD) += a * b (RS, b through the transpose bit)
 template <int D>
-constexpr int dq_smem_bytes() {
-  // K row-major, K transposed, V row-major
-  return 2 * (2 * kBlockK * (D + kPad) + D * (kBlockK + kPad));
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 64) {
+    sm90::wgmma_rs_m64n64k16(d, a, b);
+  } else {
+    sm90::wgmma_rs_m64n128k16(d, a, b);
+  }
 }
 
-template <int D>
-constexpr int dkv_smem_bytes() {
-  // Q and dO, each row-major and transposed, plus lse and delta rows
-  return 2 * 2 * (kBlockQ * (D + kPad) + D * (kBlockQ + kPad)) + 2 * kBlockQ * 4;
+// d (64 x N) = A B^T over D: A the 64 rows from a_row of a tile of kARows
+// rows, B a tile of N rows, both bf16 in TMA's 128-byte swizzle (D / 64
+// boxes of 64 columns), K-major along D (wgmma SS)
+template <int D, int kARows, int N>
+__device__ __forceinline__ void rows_by_rows(float (&d)[N / 2], const uint8_t* a, int a_row,
+                                             const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int col = (kk % 4) * 32;
+    wgmma_ss<N>(d, sm90::desc_sw<128>(a + (kk / 4) * kARows * 128 + a_row * 128 + col, 16, 1024),
+                sm90::desc_sw<128>(b + (kk / 4) * N * 128 + col, 16, 1024), kk > 0);
+  }
 }
 
-// counterpart of _flash_bwd_dq_kernel: grid (query tiles, B*H)
+// d (64 x D) += A B: A (64 x kK) as bf16 fragments in registers, B a tile of
+// kK rows x D columns read through the transpose bit (wgmma RS)
+template <int D, int kK>
+__device__ __forceinline__ void frags_by_rows(float (&d)[D / 2], const uint32_t (&a)[kK / 16][4],
+                                              const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < kK / 16; ++kk)
+    wgmma_rs<D>(d, a[kk], sm90::desc_sw<128>(b + kk * 16 * 128, kK * 128, 1024));
+}
+
+// an m64nN accumulator packed to bf16: column groups 2k and 2k + 1 are the
+// A operand of the k-th 16-deep step
+template <int N>
+__device__ __forceinline__ void pack_frags(uint32_t (&f)[N / 16][4], const float (&x)[N / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) f[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
+  }
+}
+
+// ---- dq ---------------------------------------------------------------------
+
+// Consumer warpgroup wg, thread tq of its quad: key tile `it` into dQ (acc)
+// for the thread's two rows (lse2 in log2 units, delta); kMask: the tile
+// crosses n_eff.
+template <int D, bool kBounded, bool kMask>
+__device__ __forceinline__ void dq_tile(const attend::Tiles& t, int wg, int tq, int it, int n_eff,
+                                        float scale_log2, const float (&lse2)[2],
+                                        const float (&delta)[2], float (&acc)[D / 2]) {
+  using L = attend::Smem<D, kBwdDq>;
+  constexpr int kS = L::kStages;
+  const int s = it % kS;
+  const uint32_t parity = (it / kS) & 1;
+  const uint8_t* kt = t.ks + s * L::kKTile;
+  const uint8_t* vt = t.vs + s * L::kVTile;
+
+  float sc[64], dp[64];
+  sm90::mbar_wait(&t.k_full[s], parity);
+  sm90::wgmma_fence();
+  rows_by_rows<D, kRows, kRows>(sc, t.qs, wg * 64, kt);  // S = Q K^T
+  sm90::wgmma_commit();
+  sm90::mbar_wait(&t.v_full[s], parity);
+  rows_by_rows<D, kRows, kRows>(dp, t.dos, wg * 64, vt);  // dP = dO V^T
+  sm90::wgmma_commit();
+
+  sm90::wgmma_wait<1>();  // S is in; dP may still be in flight
+  sm90::fence_regs(sc);
+  const int k0 = it * kRows;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const float pe = prob<kBounded>(sc[i], scale_log2, lse2[(i >> 1) & 1]);
+    sc[i] = kMask && k0 + (i / 4) * 8 + tq * 2 + (i & 1) >= n_eff ? 0.f : pe;
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(dp);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dp[i] = sc[i] * (dp[i] - delta[(i >> 1) & 1]);  // ds
+  uint32_t da[8][4];
+  pack_frags<kRows>(da, dp);
+
+  sm90::wgmma_fence();
+  frags_by_rows<D, kRows>(acc, da, kt);  // dQ += dS K
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(acc);
+  sm90::mbar_arrive(&t.empty[s]);
+}
+
+// counterpart of _flash_bwd_dq_kernel: grid (query tiles of 128, B*H)
 template <int D, bool kBounded>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq(BwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* kt = ks + kBlockK * (D + kPad);
-  __nv_bfloat16* vs = kt + D * (kBlockK + kPad);
-
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dq(const __grid_constant__ BwdParams p) {
   const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int q0 = blockIdx.x * kBlockQ;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g;
+  const int q0 = blockIdx.x * kRows;
+  const attend::Tiles t = attend::carve_tiles<D, kBwdDq>();
+  // producer and consumers read the same count, so they agree on the tiles
   const int n_eff = valid_keys(p);
+  const int n_tiles = (n_eff + kRows - 1) / kRows;
 
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* ob = p.o + b * p.o_sb + h * p.o_sh;
-  const __nv_bfloat16* dob = p.dout + b * p.do_sb + h * p.do_sh;
-  const long long row_base = ((long long)b * p.H + h) * p.N;
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * kConsumers)
+      attend::produce<D, kBwdDq>(t, &p.q_map, h, q0, b, &p.k_map, h, b, &p.v_map, h, b, n_tiles,
+                                 &p.do_map);
+    return;
+  }
+  sm90::setmaxnreg_inc<240>();
+  const int tid = threadIdx.x % 128;
+  const int g = (tid % 32) >> 2;  // accumulator row group
+  const int tq = tid & 3;         // thread in group
+  const int row_lo = q0 + wg * 64 + (tid / 32) * 16 + g;  // rows row_lo, row_lo + 8
+  const long long row_base = (long long)bh * p.N;
 
-  // Q and dO fragments into registers; O shares the transposed buffer's
-  // space (64 x (D + kPad) fits in D x (64 + kPad)) for delta
-  load_rows<D>(ks, qb, p.q_sn, q0, p.N);
-  load_rows<D>(vs, dob, p.do_sn, q0, p.N);
-  load_rows<D>(kt, ob, p.o_sn, q0, p.N);
-  __syncthreads();
-  uint32_t qf[D / 16][4], dof[D / 16][4];
-  load_a_fragments<D>(qf, ks, r0, t);
-  load_a_fragments<D>(dof, vs, r0, t);
+  // delta and lse of the thread's two rows: each thread of the quad sums
+  // D / 4 columns of dO * O (16-byte loads), then the quad adds
   float delta[2], lse2[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const __nv_bfloat16* dr = vs + (r0 + 8 * r) * (D + kPad);
-    const __nv_bfloat16* orow = kt + (r0 + 8 * r) * (D + kPad);
+    const int row = row_lo + 8 * r;
     float sum = 0.f;
-    for (int c = t * 2; c < D; c += 8) {
-      const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dr + c));
-      const float2 o = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(orow + c));
-      sum += a.x * o.x + a.y * o.y;
+    if (row < p.N) {
+      const uint4* orow =
+          reinterpret_cast<const uint4*>(p.o + b * p.o_sb + h * p.o_sh + row * p.o_sn) +
+          tq * (D / 32);
+      const uint4* drow =
+          reinterpret_cast<const uint4*>(p.dout + b * p.do_sb + h * p.do_sh + row * p.do_sn) +
+          tq * (D / 32);
+#pragma unroll
+      for (int j = 0; j < D / 32; ++j) sum = dot8(orow[j], drow[j], sum);
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
     delta[r] = sum;
-    const int row = q0 + r0 + 8 * r;
     lse2[r] = row < p.N ? p.lse[row_base + row] * kLog2e : 0.f;
-    if (t == 0 && row < p.N) p.delta[row_base + row] = sum;
+    if (tq == 0 && row < p.N) p.delta[row_base + row] = sum;
+  }
+
+  float acc[D / 2];  // dQ: m64nD accumulator
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  sm90::mbar_wait(t.q_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    if ((it + 1) * kRows > n_eff) {
+      dq_tile<D, kBounded, true>(t, wg, tq, it, n_eff, p.scale_log2, lse2, delta, acc);
+    } else {
+      dq_tile<D, kBounded, false>(t, wg, tq, it, n_eff, p.scale_log2, lse2, delta, acc);
+    }
+  }
+  const float mul[2] = {p.scale, p.scale};
+  attend::store_rows<D>(p.out + b * p.out_sb + h * p.out_sh, p.out_sn, acc, mul, row_lo, p.N, tq);
+}
+
+// ---- dk/dv ------------------------------------------------------------------
+
+// Bytes of the dk/dv block's shared memory: K and V (128 keys), then
+// kStages stages of Q and of dO (kQRows rows), of lse and of delta (a box
+// of kRowBox fp32: the stage's rows and the up to 3 before them, so that
+// it starts on a 16-byte boundary), then the barriers. Every bf16 tile
+// starts 1024-byte aligned, every row box 128-byte aligned.
+template <int D>
+struct DkvSmem {
+  static constexpr int kQRows = D == 64 ? 128 : 64;  // query rows a stage
+  static constexpr int kStages = 3;
+  static constexpr int kKVTile = kRows * D * 2;
+  static constexpr int kQTile = kQRows * D * 2;
+  static constexpr int kRowBox = kQRows + 4;
+  static constexpr int kRowBytes = (kRowBox * 4 + 127) / 128 * 128;
+  static constexpr int kV = kKVTile;
+  static constexpr int kQ = 2 * kKVTile;
+  static constexpr int kDo = kQ + kStages * kQTile;
+  static constexpr int kLse = kDo + kStages * kQTile;
+  static constexpr int kDelta = kLse + kStages * kRowBytes;
+  static constexpr int kBars = kDelta + kStages * kRowBytes;
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8;
+  static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+};
+
+struct DkvTiles {
+  uint8_t* ks;
+  uint8_t* vs;
+  uint8_t* qs;
+  uint8_t* dos;
+  float* lse;
+  float* delta;
+  uint64_t* kv_full;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+template <int D>
+__device__ __forceinline__ DkvTiles carve_dkv() {
+  using L = DkvSmem<D>;
+  constexpr int kS = L::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  DkvTiles t;
+  t.ks = smem;
+  t.vs = smem + L::kV;
+  t.qs = smem + L::kQ;
+  t.dos = smem + L::kDo;
+  t.lse = reinterpret_cast<float*>(smem + L::kLse);
+  t.delta = reinterpret_cast<float*>(smem + L::kDelta);
+  t.kv_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  t.full = t.kv_full + 1;
+  t.empty = t.full + kS;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(t.kv_full, 1);
+    for (int s = 0; s < kS; ++s) {
+      sm90::mbar_init(&t.full[s], 1);
+      sm90::mbar_init(&t.empty[s], 128 * kConsumers);
+    }
+    sm90::fence_barrier_init();
   }
   __syncthreads();
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-  for (int k0 = 0; k0 < n_eff; k0 += kBlockK) {
-    load_rows<D>(ks, kb, p.k_sn, k0, n_eff);
-    load_rows_transposed<D>(kt, kb, p.k_sn, k0, n_eff);
-    load_rows<D>(vs, vb, p.v_sn, k0, n_eff);
-    __syncthreads();
-
-    float s[kBlockK / 8][4], dp[kBlockK / 8][4];
-    mma_rows_by_tile<D>(s, qf, ks, g, t);   // S = Q K^T
-    mma_rows_by_tile<D>(dp, dof, vs, g, t); // dP = dO V^T
-#pragma unroll
-    for (int j = 0; j < kBlockK / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = k0 + j * 8 + t * 2 + (e & 1);
-        const float pe = prob<kBounded>(s[j][e], p.scale_log2, lse2[e >> 1], col < n_eff);
-        s[j][e] = pe * (dp[j][e] - delta[e >> 1]);  // ds
-      }
-    }
-    mma_scores_by_tile<D>(acc, s, kt, g, t);  // dQ += dS K
-    __syncthreads();
-  }
-
-  store_rows<D>(p.dq + b * p.dq_sb + h * p.dq_sh, p.dq_sn, acc, p.scale, p.scale,
-                q0 + r0, p.N, t);
+  return t;
 }
 
-// counterpart of _flash_bwd_dkv_kernel: grid (key tiles, B*H)
+// The producer thread: K and V at keys k0 once, then query tiles it = 0 ..
+// n_tiles - 1 (Q, dO from row it * kQRows; lse and delta from flat index
+// row0 + it * kQRows - lead, row0 the head's first row and lead = row0 % 4)
+// into stage it % kStages once the consumers have released it.
+template <int D>
+__device__ __forceinline__ void produce_dkv(const DkvTiles& t, const BwdParams& p, int b, int h,
+                                            int k0, int n_tiles, int row0, int lead) {
+  using L = DkvSmem<D>;
+  constexpr int kS = L::kStages, kQ = L::kQRows;
+  sm90::prefetch_tensor_map(&p.q_map);
+  sm90::prefetch_tensor_map(&p.k_map);
+  sm90::prefetch_tensor_map(&p.v_map);
+  sm90::prefetch_tensor_map(&p.do_map);
+  sm90::prefetch_tensor_map(&p.lse_map);
+  sm90::prefetch_tensor_map(&p.delta_map);
+  sm90::mbar_arrive_expect_tx(t.kv_full, 2 * L::kKVTile);
+  attend::load_tile<D, false>(t.ks, &p.k_map, t.kv_full, h, k0, b);
+  attend::load_tile<D, false>(t.vs, &p.v_map, t.kv_full, h, k0, b);
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kS;
+    sm90::mbar_wait(&t.empty[s], ((it / kS) & 1) ^ 1);
+    uint64_t* bar = &t.full[s];
+    sm90::mbar_arrive_expect_tx(bar, 2 * L::kQTile + 2 * L::kRowBox * 4);
+    attend::load_tile<D, false, kQ>(t.qs + s * L::kQTile, &p.q_map, bar, h, it * kQ, b);
+    attend::load_tile<D, false, kQ>(t.dos + s * L::kQTile, &p.do_map, bar, h, it * kQ, b);
+    const int c0 = row0 + it * kQ - lead;  // a multiple of 4: a 16-byte boundary
+    sm90::tma_load_1d(t.lse + s * L::kRowBytes / 4, &p.lse_map, bar, c0);
+    sm90::tma_load_1d(t.delta + s * L::kRowBytes / 4, &p.delta_map, bar, c0);
+  }
+}
+
+// Consumer warpgroup wg, thread tq of its quad: query tile `it` into dK and
+// dV of the thread's two keys (key_ok: below n_eff); kMask: the tile
+// crosses N or the block's keys cross n_eff. Column c of the accumulators
+// is query row it * kQRows + c, whose lse and delta the stage holds at
+// lead + c.
+template <int D, bool kBounded, bool kMask>
+__device__ __forceinline__ void dkv_tile(const DkvTiles& t, int wg, int tq, int it, int N,
+                                         int lead, const bool (&key_ok)[2], float scale_log2,
+                                         float (&dk)[D / 2], float (&dv)[D / 2]) {
+  using L = DkvSmem<D>;
+  constexpr int kS = L::kStages, kQ = L::kQRows;
+  const int s = it % kS;
+  const uint32_t parity = (it / kS) & 1;
+  const uint8_t* qt = t.qs + s * L::kQTile;
+  const uint8_t* dot = t.dos + s * L::kQTile;
+  const float* lse = t.lse + s * L::kRowBytes / 4 + lead + 2 * tq;
+  const float* dl = t.delta + s * L::kRowBytes / 4 + lead + 2 * tq;
+
+  float st[kQ / 2], dpt[kQ / 2];
+  sm90::mbar_wait(&t.full[s], parity);
+  sm90::wgmma_fence();
+  rows_by_rows<D, kRows, kQ>(st, t.ks, wg * 64, qt);  // S^T = K Q^T
+  sm90::wgmma_commit();
+  rows_by_rows<D, kRows, kQ>(dpt, t.vs, wg * 64, dot);  // dP^T = V dO^T
+  sm90::wgmma_commit();
+
+  sm90::wgmma_wait<1>();  // S^T is in; dP^T may still be in flight
+  sm90::fence_regs(st);
+  const int q0 = it * kQ;
+#pragma unroll
+  for (int j = 0; j < kQ / 8; ++j) {
+    const float l[2] = {lse[8 * j] * kLog2e, lse[8 * j + 1] * kLog2e};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      const float pe = prob<kBounded>(st[i], scale_log2, l[e & 1]);
+      st[i] = kMask && !(key_ok[e >> 1] && q0 + 8 * j + 2 * tq + (e & 1) < N) ? 0.f : pe;
+    }
+  }
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(dpt);
+#pragma unroll
+  for (int j = 0; j < kQ / 8; ++j) {
+    const float d[2] = {dl[8 * j], dl[8 * j + 1]};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = 4 * j + e;
+      dpt[i] = st[i] * (dpt[i] - d[e & 1]);  // ds^T
+    }
+  }
+  uint32_t pa[kQ / 16][4], da[kQ / 16][4];
+  pack_frags<kQ>(pa, st);
+  pack_frags<kQ>(da, dpt);
+
+  sm90::wgmma_fence();
+  frags_by_rows<D, kQ>(dv, pa, dot);  // dV += P^T dO
+  frags_by_rows<D, kQ>(dk, da, qt);   // dK += dS^T Q
+  sm90::wgmma_commit();
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(dv);
+  sm90::fence_regs(dk);
+  sm90::mbar_arrive(&t.empty[s]);
+}
+
+// counterpart of _flash_bwd_dkv_kernel: grid (key tiles of 128, B*H)
 template <int D, bool kBounded>
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkv(BwdParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* qt = qs + kBlockQ * (D + kPad);
-  __nv_bfloat16* dos = qt + D * (kBlockQ + kPad);
-  __nv_bfloat16* dot = dos + kBlockQ * (D + kPad);
-  float* lse_s = reinterpret_cast<float*>(dot + D * (kBlockQ + kPad));
-  float* delta_s = lse_s + kBlockQ;
-
+__global__ void __launch_bounds__(kThreads, 1) flash_bwd_dkv(const __grid_constant__ BwdParams p) {
+  using L = DkvSmem<D>;
   const int bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
-  const int k0 = blockIdx.x * kBlockK;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int r0 = warp * 16 + g;
+  const int k0 = blockIdx.x * kRows;
   const int n_eff = valid_keys(p);
+  __nv_bfloat16* dkb = p.out + b * p.out_sb + h * p.out_sh;
+  __nv_bfloat16* dvb = p.out2 + b * p.out2_sb + h * p.out2_sh;
 
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + h * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + h * p.v_sh;
-  const __nv_bfloat16* dob = p.dout + b * p.do_sb + h * p.do_sh;
-  const long long row_base = ((long long)b * p.H + h) * p.N;
-
-  float dk[D / 8][4], dv[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    dk[n][0] = dk[n][1] = dk[n][2] = dk[n][3] = 0.f;
-    dv[n][0] = dv[n][1] = dv[n][2] = dv[n][3] = 0.f;
+  if (k0 >= n_eff) {  // every key of the block is masked: dk = dv = 0
+    for (int i = threadIdx.x; i < kRows * (D / 8); i += kThreads) {
+      const int key = k0 + i / (D / 8), c = (i % (D / 8)) * 8;
+      if (key < p.Nk) {
+        *reinterpret_cast<uint4*>(dkb + key * p.out_sn + c) = make_uint4(0u, 0u, 0u, 0u);
+        *reinterpret_cast<uint4*>(dvb + key * p.out2_sn + c) = make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    return;
   }
 
-  if (k0 < n_eff) {  // a tile of masked keys keeps dk = dv = 0
-    // K and V fragments (this warp's 16 keys) into registers
-    load_rows<D>(qs, kb, p.k_sn, k0, n_eff);
-    load_rows<D>(dos, vb, p.v_sn, k0, n_eff);
-    __syncthreads();
-    uint32_t kf[D / 16][4], vf[D / 16][4];
-    load_a_fragments<D>(kf, qs, r0, t);
-    load_a_fragments<D>(vf, dos, r0, t);
-    __syncthreads();
-    const bool key_ok[2] = {k0 + r0 < n_eff, k0 + r0 + 8 < n_eff};
+  const DkvTiles t = carve_dkv<D>();
+  const int n_tiles = (p.N + L::kQRows - 1) / L::kQRows;
+  const int row0 = bh * p.N;  // the head's first row in the flat lse and delta
+  const int lead = row0 % 4;
+  const int wg = threadIdx.x / 128;
+  if (wg == kConsumers) {
+    sm90::setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * kConsumers) produce_dkv<D>(t, p, b, h, k0, n_tiles, row0, lead);
+    return;
+  }
+  sm90::setmaxnreg_inc<240>();
+  const int tid = threadIdx.x % 128;
+  const int g = (tid % 32) >> 2;
+  const int tq = tid & 3;
+  const int key_lo = k0 + wg * 64 + (tid / 32) * 16 + g;  // keys key_lo, key_lo + 8
+  const bool key_ok[2] = {key_lo < n_eff, key_lo + 8 < n_eff};
+  const bool keys_cut = k0 + kRows > n_eff;
 
-    for (int q0 = 0; q0 < p.N; q0 += kBlockQ) {
-      load_rows<D>(qs, qb, p.q_sn, q0, p.N);
-      load_rows_transposed<D>(qt, qb, p.q_sn, q0, p.N);
-      load_rows<D>(dos, dob, p.do_sn, q0, p.N);
-      load_rows_transposed<D>(dot, dob, p.do_sn, q0, p.N);
-      if (threadIdx.x < kBlockQ) {
-        const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < p.N ? p.lse[row_base + row] * kLog2e : 0.f;
-        delta_s[threadIdx.x] = row < p.N ? p.delta[row_base + row] : 0.f;
-      }
-      __syncthreads();
-
-      float s[kBlockQ / 8][4], dp[kBlockQ / 8][4];
-      mma_rows_by_tile<D>(s, kf, qs, g, t);    // S^T = K Q^T
-      mma_rows_by_tile<D>(dp, vf, dos, g, t);  // dP^T = V dO^T
+  float dk[D / 2], dv[D / 2];  // m64nD accumulators
 #pragma unroll
-      for (int j = 0; j < kBlockQ / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int c = j * 8 + t * 2 + (e & 1);
-          const float pe = prob<kBounded>(s[j][e], p.scale_log2, lse_s[c],
-                                          key_ok[e >> 1] && q0 + c < p.N);
-          s[j][e] = pe;
-          dp[j][e] = pe * (dp[j][e] - delta_s[c]);  // dS^T
-        }
-      }
-      mma_scores_by_tile<D>(dv, s, dot, g, t);  // dV += P^T dO
-      mma_scores_by_tile<D>(dk, dp, qt, g, t);  // dK += dS^T Q
-      __syncthreads();
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+  sm90::mbar_wait(t.kv_full, 0);
+  for (int it = 0; it < n_tiles; ++it) {
+    if (keys_cut || (it + 1) * L::kQRows > p.N) {
+      dkv_tile<D, kBounded, true>(t, wg, tq, it, p.N, lead, key_ok, p.scale_log2, dk, dv);
+    } else {
+      dkv_tile<D, kBounded, false>(t, wg, tq, it, p.N, lead, key_ok, p.scale_log2, dk, dv);
     }
   }
-
-  store_rows<D>(p.dk + b * p.dk_sb + h * p.dk_sh, p.dk_sn, dk, p.scale, p.scale,
-                k0 + r0, p.Nk, t);
-  store_rows<D>(p.dv + b * p.dv_sb + h * p.dv_sh, p.dv_sn, dv, 1.f, 1.f, k0 + r0,
-                p.Nk, t);
+  const float mul_k[2] = {p.scale, p.scale}, mul_v[2] = {1.f, 1.f};
+  attend::store_rows<D>(dkb, p.out_sn, dk, mul_k, key_lo, p.Nk, tq);
+  attend::store_rows<D>(dvb, p.out2_sn, dv, mul_v, key_lo, p.Nk, tq);
 }
+
+// ---- launch -----------------------------------------------------------------
 
 template <typename Kernel>
-int launch(Kernel kernel, int tiles, const BwdParams& p, int smem, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(tiles, p.B * p.H), kThreads, smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+cudaError_t launch(Kernel kernel, int tiles, const BwdParams& p, int bytes,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(tiles, p.B * p.H), kThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <int D>
-int launch_dq(const BwdParams& p, int bounded, cudaStream_t s) {
-  const int tiles = (p.N + kBlockQ - 1) / kBlockQ;
-  return bounded ? launch(flash_bwd_dq<D, true>, tiles, p, dq_smem_bytes<D>(), s)
-                 : launch(flash_bwd_dq<D, false>, tiles, p, dq_smem_bytes<D>(), s);
+cudaError_t launch_dq(const BwdParams& p, int bounded, cudaStream_t s) {
+  const int tiles = (p.N + kRows - 1) / kRows;
+  const int bytes = attend::Smem<D, kBwdDq>::kAlloc;
+  return bounded ? launch(flash_bwd_dq<D, true>, tiles, p, bytes, s)
+                 : launch(flash_bwd_dq<D, false>, tiles, p, bytes, s);
 }
 
 template <int D>
-int launch_dkv(const BwdParams& p, int bounded, cudaStream_t s) {
-  const int tiles = (p.Nk + kBlockK - 1) / kBlockK;
-  return bounded ? launch(flash_bwd_dkv<D, true>, tiles, p, dkv_smem_bytes<D>(), s)
-                 : launch(flash_bwd_dkv<D, false>, tiles, p, dkv_smem_bytes<D>(), s);
+cudaError_t launch_dkv(const BwdParams& p, int bounded, cudaStream_t s) {
+  const int tiles = (p.Nk + kRows - 1) / kRows;
+  const int bytes = DkvSmem<D>::kAlloc;
+  return bounded ? launch(flash_bwd_dkv<D, true>, tiles, p, bytes, s)
+                 : launch(flash_bwd_dkv<D, false>, tiles, p, bytes, s);
 }
 
-BwdParams make_params(const void* q, const void* k, const void* v, const void* o,
-                      const void* dout, const void* lse, void* delta,
-                      const long long* st, int B, int H, int N, int Nk,
-                      int kv_static, const void* kv_dynamic, float scale) {
-  BwdParams p = {};
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<const __nv_bfloat16*>(o);
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.lse = static_cast<const float*>(lse);
-  p.delta = static_cast<float*>(delta);
-  p.q_sb = st[0]; p.q_sn = st[1]; p.q_sh = st[2];
-  p.k_sb = st[3]; p.k_sn = st[4]; p.k_sh = st[5];
-  p.v_sb = st[6]; p.v_sn = st[7]; p.v_sh = st[8];
-  p.do_sb = st[9]; p.do_sn = st[10]; p.do_sh = st[11];
-  p.B = B; p.H = H; p.N = N; p.Nk = Nk;
-  p.kv_static = kv_static;
-  p.kv_dynamic = static_cast<const int*>(kv_dynamic);
-  p.scale = scale;
-  p.scale_log2 = scale * kLog2e;
-  return p;
+// The fields both kernels take; false where a tensor map is refused. q, k,
+// v and dO are mapped with boxes of 128 rows (K and V) and q_rows rows (Q
+// and dO).
+bool make_params(BwdParams* p, const void* q, const void* k, const void* v, const void* dout,
+                 const void* lse, void* delta, const long long* st, int D, int q_rows, int B,
+                 int H, int N, int Nk, int kv_static, const void* kv_dynamic, float scale) {
+  if (!(sm90::encode_bnhd_map(&p->q_map, q, B, N, H, D, st[0], st[1], st[2], q_rows) &&
+        sm90::encode_bnhd_map(&p->k_map, k, B, Nk, H, D, st[3], st[4], st[5], kRows) &&
+        sm90::encode_bnhd_map(&p->v_map, v, B, Nk, H, D, st[6], st[7], st[8], kRows) &&
+        sm90::encode_bnhd_map(&p->do_map, dout, B, N, H, D, st[9], st[10], st[11], q_rows)))
+    return false;
+  p->dout = static_cast<const __nv_bfloat16*>(dout);
+  p->do_sb = st[9]; p->do_sn = st[10]; p->do_sh = st[11];
+  p->lse = static_cast<const float*>(lse);
+  p->delta = static_cast<float*>(delta);
+  p->B = B; p->H = H; p->N = N; p->Nk = Nk;
+  p->kv_static = kv_static;
+  p->kv_dynamic = static_cast<const int*>(kv_dynamic);
+  p->scale = scale;
+  p->scale_log2 = scale * kLog2e;
+  return true;
 }
 
 }  // namespace
 
-// strides: 18 element strides, (batch, token, head) for q, k, v, dO, o, dq.
-// Writes dq and delta (B, H, N) fp32. Returns the cudaError_t of the launch.
+// Threads a block of either kernel, and the dynamic shared memory in bytes
+// of kernel 0 (dq) or 1 (dk/dv) at a head dim (64 or 128; 0 otherwise),
+// for the build report.
+extern "C" int omnivggt_flash_attention_bwd_threads() { return kThreads; }
+
+extern "C" int omnivggt_flash_attention_bwd_smem_bytes(int kernel, int head_dim) {
+  if (head_dim != 64 && head_dim != 128) return 0;
+  if (kernel == 0)
+    return head_dim == 64 ? attend::Smem<64, kBwdDq>::kAlloc : attend::Smem<128, kBwdDq>::kAlloc;
+  if (kernel == 1) return head_dim == 64 ? DkvSmem<64>::kAlloc : DkvSmem<128>::kAlloc;
+  return 0;
+}
+
+// strides: 18 element strides, (batch, token, head) for q, k, v, dO, o, dq;
+// q, k, v, dO go to TMA (each stride a multiple of 16 bytes, the bases
+// 16-byte aligned), o is read with 16-byte loads. Writes dq and delta
+// (contiguous (B, H, N) fp32). Returns the cudaError_t of the launch.
 extern "C" int omnivggt_flash_attention_bwd_dq(
     int bounded, int head_dim, const void* q, const void* k, const void* v,
     const void* o, const void* dout, const void* lse, void* delta, void* dq,
     const long long* strides, int B, int H, int N, int Nk, int kv_static,
     const void* kv_dynamic, float scale, void* stream) {
-  BwdParams p = make_params(q, k, v, o, dout, lse, delta, strides, B, H, N, Nk,
-                            kv_static, kv_dynamic, scale);
+  const int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim != 64 && head_dim != 128) return kInvalid;
+  BwdParams p = {};
+  if (!make_params(&p, q, k, v, dout, lse, delta, strides, head_dim, kRows, B, H, N, Nk,
+                   kv_static, kv_dynamic, scale))
+    return kInvalid;
+  p.o = static_cast<const __nv_bfloat16*>(o);
   p.o_sb = strides[12]; p.o_sn = strides[13]; p.o_sh = strides[14];
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dq_sb = strides[15]; p.dq_sn = strides[16]; p.dq_sh = strides[17];
+  p.out = static_cast<__nv_bfloat16*>(dq);
+  p.out_sb = strides[15]; p.out_sn = strides[16]; p.out_sh = strides[17];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch_dq<64>(p, bounded, s);
-  if (head_dim == 128) return launch_dq<128>(p, bounded, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(head_dim == 64 ? launch_dq<64>(p, bounded, s)
+                                         : launch_dq<128>(p, bounded, s));
 }
 
-// strides: 18 element strides, (batch, token, head) for q, k, v, dO, dk, dv.
-// Reads delta as the dq kernel wrote it. Returns the cudaError_t.
+// strides: 18 element strides, (batch, token, head) for q, k, v, dO, dk, dv
+// (q, k, v, dO to TMA, as above). Reads lse and delta (contiguous (B, H, N)
+// fp32, 16-byte aligned; delta as the dq kernel wrote it) through 1-D maps.
+// Returns the cudaError_t.
 extern "C" int omnivggt_flash_attention_bwd_dkv(
     int bounded, int head_dim, const void* q, const void* k, const void* v,
     const void* dout, const void* lse, const void* delta, void* dk, void* dv,
     const long long* strides, int B, int H, int N, int Nk, int kv_static,
     const void* kv_dynamic, float scale, void* stream) {
-  BwdParams p = make_params(q, k, v, nullptr, dout, lse, const_cast<void*>(delta),
-                            strides, B, H, N, Nk, kv_static, kv_dynamic, scale);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dk_sb = strides[12]; p.dk_sn = strides[13]; p.dk_sh = strides[14];
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  p.dv_sb = strides[15]; p.dv_sn = strides[16]; p.dv_sh = strides[17];
+  const int kInvalid = static_cast<int>(cudaErrorInvalidValue);
+  if (head_dim != 64 && head_dim != 128) return kInvalid;
+  const int q_rows = head_dim == 64 ? DkvSmem<64>::kQRows : DkvSmem<128>::kQRows;
+  const long long rows = static_cast<long long>(B) * H * N;
+  BwdParams p = {};
+  if (!make_params(&p, q, k, v, dout, lse, const_cast<void*>(delta), strides, head_dim, q_rows,
+                   B, H, N, Nk, kv_static, kv_dynamic, scale) ||
+      !sm90::encode_flat_f32_map(&p.lse_map, lse, rows, q_rows + 4) ||
+      !sm90::encode_flat_f32_map(&p.delta_map, delta, rows, q_rows + 4))
+    return kInvalid;
+  p.out = static_cast<__nv_bfloat16*>(dk);
+  p.out_sb = strides[12]; p.out_sn = strides[13]; p.out_sh = strides[14];
+  p.out2 = static_cast<__nv_bfloat16*>(dv);
+  p.out2_sb = strides[15]; p.out2_sn = strides[16]; p.out2_sh = strides[17];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64) return launch_dkv<64>(p, bounded, s);
-  if (head_dim == 128) return launch_dkv<128>(p, bounded, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(head_dim == 64 ? launch_dkv<64>(p, bounded, s)
+                                         : launch_dkv<128>(p, bounded, s));
 }

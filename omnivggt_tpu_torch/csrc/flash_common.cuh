@@ -1,8 +1,8 @@
-// Device helpers of the mma.sync kernels, the flash-attention backward
-// (flash_attention_bwd.cu) and the ring's int8 step (ring_attention.cu):
-// tile sizes, bf16 packing, the mma.sync.m16n8k16 bf16 -> fp32 and
-// m16n8k32 s8 -> s32 products and the strided tile loads. The Hopper tile
-// (attend_sm90.cuh) takes the constants and pack_bf16 from here.
+// Device helpers of the one mma.sync kernel left, the ring's int8 step
+// (ring_attention.cu): tile sizes, bf16 packing, the mma.sync.m16n8k16
+// bf16 -> fp32 and m16n8k32 s8 -> s32 products and the int8 tile loads.
+// The Hopper tile (attend_sm90.cuh) takes the constants and pack_bf16 from
+// here.
 //
 // Fragment layouts of m16n8k16 (lane = 4 * g + t):
 //   A (16x16, row): a0 (row g, k 2t..2t+1), a1 (row g+8, same k),
@@ -121,76 +121,6 @@ __device__ __forceinline__ void mma_rows_by_tile_s8(float (&s)[kBlockK / 8][4],
     }
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] = static_cast<float>(si[e]);
-  }
-}
-
-// rows [row0, row0 + 64) of a (rows, D) strided matrix into a row-major
-// shared tile with D + kPad columns; rows at or past n_valid become zeros
-template <int D>
-__device__ __forceinline__ void load_rows(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0,
-                                          int n_valid) {
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < kBlockK * kVecs; i += kThreads) {
-    const int r = i / kVecs, c = (i % kVecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_valid)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * (D + kPad) + c) = val;
-  }
-}
-
-// the same rows, stored transposed: dst[d][r], kBlockK + kPad columns
-template <int D>
-__device__ __forceinline__ void load_rows_transposed(__nv_bfloat16* dst,
-                                                     const __nv_bfloat16* src,
-                                                     long long row_stride,
-                                                     int row0, int n_valid) {
-  constexpr int kVecs = D / 8;
-  for (int i = threadIdx.x; i < kBlockK * kVecs; i += kThreads) {
-    const int r = i / kVecs, c = (i % kVecs) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_valid)
-      val = *reinterpret_cast<const uint4*>(src + (long long)(row0 + r) * row_stride + c);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) dst[(c + j) * (kBlockK + kPad) + r] = e[j];
-  }
-}
-
-// the A fragments of this warp's 16 rows (starting at row r0 - g) of a
-// row-major shared tile, D / 16 steps deep
-template <int D>
-__device__ __forceinline__ void load_a_fragments(uint32_t (&f)[D / 16][4],
-                                                 const __nv_bfloat16* tile,
-                                                 int r0, int t) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const __nv_bfloat16* lo = tile + r0 * (D + kPad) + kk * 16 + t * 2;
-    const __nv_bfloat16* hi = lo + 8 * (D + kPad);
-    f[kk][0] = ld32(lo);
-    f[kk][1] = ld32(hi);
-    f[kk][2] = ld32(lo + 8);
-    f[kk][3] = ld32(hi + 8);
-  }
-}
-
-// s (16 x 64) = A (16 x D, fragments) * tile^T, tile a row-major shared
-// (64, D + kPad) tile: the score-shaped product of both directions
-template <int D>
-__device__ __forceinline__ void mma_rows_by_tile(float (&s)[kBlockK / 8][4],
-                                                 const uint32_t (&a)[D / 16][4],
-                                                 const __nv_bfloat16* tile,
-                                                 int g, int t) {
-#pragma unroll
-  for (int j = 0; j < kBlockK / 8; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const __nv_bfloat16* r = tile + (j * 8 + g) * (D + kPad) + kk * 16 + t * 2;
-      mma16816(s[j], a[kk], ld32(r), ld32(r + 8));
-    }
   }
 }
 

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) primitives in raw PTX, shared by the kernels that stage
 // tiles with the Tensor Memory Accelerator (TMA) and multiply them with
-// warpgroup MMA (wgmma): mbarriers, 4-D TMA loads, wgmma descriptors and
-// instructions, register hand-over between warpgroups, and the host-side
-// encoding of a TMA tensor map. No PyTorch header is included.
+// warpgroup MMA (wgmma): mbarriers, 4-D and 1-D TMA loads, wgmma
+// descriptors and instructions, register hand-over between warpgroups, and
+// the host-side encoding of a TMA tensor map. No PyTorch header is
+// included.
 //
 // Layout conventions (bf16, 128-byte swizzle, every tile 1024-byte aligned):
 //   - a TMA box is (64 columns = 128 bytes) x rows; row r sits at r * 128
@@ -97,6 +98,20 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// one box of a 1-D tensor map at element c0 into shared memory (128-byte
+// aligned), completion counted on `bar` in bytes; elements past the extent
+// read as zeros. c0 must fall on a 16-byte boundary of the tensor (a
+// multiple of 4 fp32): at another start the load faults on the H100
+// ("illegal instruction")
+__device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0) {
+  asm volatile(
+      "cp.async.bulk.tensor.1d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0)
       : "memory");
 }
 
@@ -221,6 +236,30 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64], uint64_t a, 
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (m64n64, fp32) = a (smem, K-major) * b (smem, K-major)^T, plus d when
+// accumulate != 0; both operands bf16 in 128-byte swizzle
+__device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -375,6 +414,22 @@ inline bool encode_bnhd_map(CUtensorMap* map, const void* base, int B, int N, in
                             long long sb, long long sn, long long sh, int rows) {
   return encode_bnhd(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, B, N, H, D, sb, sn, sh, 64,
                      rows, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// A 1-D map over n fp32 values (a contiguous (B, H, N) row vector viewed
+// flat, so no row stride has to be a multiple of 16 bytes): boxes of `box`
+// values, no swizzle, values past n read as zeros. Returns false where
+// cuTensorMapEncodeTiled refuses the map (a base not 16-byte aligned).
+inline bool encode_flat_f32_map(CUtensorMap* map, const void* base, long long n, int box) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[1] = {static_cast<cuuint64_t>(n)};
+  const cuuint64_t strides[1] = {0};  // a rank-1 map has none; not read
+  const cuuint32_t boxes[1] = {static_cast<cuuint32_t>(box)};
+  const cuuint32_t element_strides[1] = {1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 1, const_cast<void*>(base), dims, strides,
+            boxes, element_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // int8 (D = 64 or 128): one box of all D columns (D bytes), D-byte swizzle

@@ -29,7 +29,9 @@ Counterparts of the TPU kernels of omnivggt_tpu/ops/pallas/flash_attention.py:
     `_flash_bwd_dq_kernel` and `_flash_bwd_dkv_kernel` (reached through
     `_flash_backward` from every custom_vjp wrapper); the gradient of both
     forward wrappers runs them, in that order, from the forward's saved
-    row log-sum-exp (`_flash_kernel`'s `return_lse` output).
+    row log-sum-exp (`_flash_kernel`'s `return_lse` output). Both run the
+    forward's TMA + wgmma tile; the dq kernel writes delta = rowsum(do * o)
+    as (B, H, N) fp32, and the dk/dv kernel reads that buffer.
 
 The forward wrappers take (B, N, H, D) tensors and compute non-causal
 softmax attention with fp32 accumulation:
@@ -387,6 +389,17 @@ def load_kernels() -> str:
     return _libraries()[3]
 
 
+def bwd_launch_shape(head_dim: int) -> tuple:
+    """(threads a block, dynamic shared-memory bytes of the dq kernel, of
+    the dk/dv kernel) at this head dim, as the backward source computes
+    them."""
+    lib, _ = build.load(SOURCES[1])
+    threads, smem = lib.omnivggt_flash_attention_bwd_threads, lib.omnivggt_flash_attention_bwd_smem_bytes
+    threads.argtypes, smem.argtypes = [], [ctypes.c_int, ctypes.c_int]
+    threads.restype = smem.restype = ctypes.c_int
+    return threads(), smem(0, int(head_dim)), smem(1, int(head_dim))
+
+
 def tma_launch_shape(head_dim: int, qk: int = 0) -> tuple:
     """(threads a block, dynamic shared-memory bytes a block) of the
     forward kernel at this head dim and score form (`SCORES_*`), as its
@@ -408,16 +421,29 @@ def _on_cpu(*tensors) -> bool:
 
 
 def _vector_aligned(x):
-    """x itself when every row starts on a 16-byte boundary (the kernel's
-    vector loads), else a contiguous copy."""
+    """x itself when a TMA map takes its (B, N, H) strides as they are and
+    every row starts on a 16-byte boundary (the kernels' vector loads): the
+    last axis contiguous, the base and each stride a positive multiple of
+    16 bytes. Else a contiguous copy: cuTensorMapEncodeTiled refuses a zero
+    stride (autograd's expanded gradients) or a misaligned one, and a size-1
+    axis keeps an odd stride through `.contiguous()`, so the copy is made
+    with fresh strides."""
     per_vector = 16 // x.element_size()
     if (
         x.stride(-1) == 1
-        and all(s % per_vector == 0 for s in x.stride()[:3])
+        and all(s > 0 and s % per_vector == 0 for s in x.stride()[:3])
         and x.data_ptr() % 16 == 0
     ):
         return x
-    return x.contiguous()
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+def _rows_aligned(x):
+    """A (B, H, N) row vector as the backward kernels read it: contiguous
+    fp32 from a 16-byte aligned base (a 1-D TMA map over the flat buffer);
+    x itself when it is one already."""
+    x = x.float().contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 MODE_HEAD_MAJOR, MODE_TOKEN_MAJOR = 0, 1  # the grid order
@@ -535,7 +561,7 @@ def flash_attention_bwd_dq(q, k, v, o, do, lse, kv_valid=None, bounded_logits=Fa
     B, N, H, D, Nk = _check(q, k, v)
     _check_grad_inputs(q, do, (lse,), o)
     q, k, v, o, do = (_vector_aligned(x) for x in (q, k, v, o, do))
-    lse = lse.float().contiguous()
+    lse = _rows_aligned(lse)
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     delta = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     kv_static, kv_ptr, _keep = _kv_args(kv_valid, Nk, q.device)
@@ -563,8 +589,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_valid=None, bounded_logi
     B, N, H, D, Nk = _check(q, k, v)
     _check_grad_inputs(q, do, (lse, delta))
     q, k, v, do = (_vector_aligned(x) for x in (q, k, v, do))
-    lse = lse.float().contiguous()
-    delta = delta.float().contiguous()
+    lse, delta = _rows_aligned(lse), _rows_aligned(delta)
     dk = torch.empty((B, Nk, H, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, Nk, H, D), dtype=v.dtype, device=v.device)
     kv_static, kv_ptr, _keep = _kv_args(kv_valid, Nk, q.device)
@@ -587,9 +612,11 @@ flash_attention_bwd_dkv.launches = 0
 
 def flash_attention_backward(q, k, v, o, do, lse, kv_valid=None, bounded_logits=False):
     """(dq, dk, dv) of either forward wrapper: the plain version on CPU
-    tensors; on CUDA the dq kernel, then the dk/dv kernel."""
+    tensors; on CUDA the dq kernel, then the dk/dv kernel (do laid out for
+    TMA once, for both: autograd may hand over an expanded gradient)."""
     if _on_cpu(q, k, v, o, do):
         return attention_backward_plain(q, k, v, o, do, lse, kv_valid, bounded_logits)
+    do = _vector_aligned(do)
     dq, delta = flash_attention_bwd_dq(q, k, v, o, do, lse, kv_valid, bounded_logits)
     dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_valid, bounded_logits)
     return dq, dk, dv

@@ -226,11 +226,16 @@ def _check_backward(q, k, v, o, lse, do, kv_valid, bounded, grads):
         ((2, 300, 3, 128), 300, None),
         ((2, 130, 2, 64), 130, 77),
         ((3, 100, 2, 64), 257, "tensor"),
+        ((1, 1374, 2, 64), 1374, None),  # a frame's tokens: 10.7 tiles of 128
+        ((2, 129, 2, 64), 129, None),  # one row past a 128-row tile
+        ((1, 150, 2, 64), 300, 200),  # Nk past a 128-key tile, kv_valid inside the second
+        ((2, 129, 2, 128), 260, "tensor"),  # D 128 (64-query dk/dv tiles), dynamic kv_valid
     ],
 )
 def test_backward_kernels_match_plain(cuda, shape, n_keys, kv_valid, bounded):
     """The forward's LSE output and both backward kernels against their
-    plain versions: ragged N, D 128, static and dynamic kv_valid."""
+    plain versions: ragged N and Nk, D 128, static and dynamic kv_valid
+    (inside a key tile, so the last tile is masked)."""
     if kv_valid == "tensor":
         kv_valid = torch.tensor(200, device=cuda)
     q, k, v = _qkv(shape, n_keys, 5, cuda)
@@ -245,6 +250,51 @@ def test_backward_kernels_match_plain(cuda, shape, n_keys, kv_valid, bounded):
     assert (FK.flash_attention_bwd_dq.launches, FK.flash_attention_bwd_dkv.launches) == (
         before[0] + 1, before[1] + 1)
     _check_backward(q, k, v, o, lse, do, kv_valid, bounded, grads)
+
+
+def test_backward_kernels_are_deterministic(cuda):
+    """21 launches of each backward kernel on the same inputs give the same
+    dq, delta, dk and dv, bit for bit (every sum in one block in a fixed
+    order, no atomics; a race in a stage ring would show here)."""
+    for shape, kv_valid in (((2, 300, 2, 64), 290), ((1, 200, 2, 128), None)):
+        q, k, v = _qkv(shape, shape[1], 8, cuda)
+        o, lse = FK._launch(q, k, v, kv_valid, True, packed=False, with_lse=True)
+        do = torch.randn(o.shape, device=cuda).to(torch.bfloat16)
+        first = (*FK.flash_attention_bwd_dq(q, k, v, o, do, lse, kv_valid, True),)
+        first += FK.flash_attention_bwd_dkv(q, k, v, do, lse, first[1], kv_valid, True)
+        for _ in range(20):
+            dq, delta = FK.flash_attention_bwd_dq(q, k, v, o, do, lse, kv_valid, True)
+            dk, dv = FK.flash_attention_bwd_dkv(q, k, v, do, lse, delta, kv_valid, True)
+            assert all(torch.equal(a, b) for a, b in zip((dq, delta, dk, dv), first))
+        torch.cuda.synchronize()
+
+
+def test_autograd_with_an_expanded_gradient(cuda, monkeypatch):
+    """out.sum().backward() hands the backward an expanded do (zero
+    strides), which no TMA map takes: flash_attention_backward copies it
+    once, the kernels get the copy, and the gradients are the plain
+    backward's for do = 1."""
+    q, k, v = _qkv((1, 300, 2, 64), 300, 9, cuda)
+    seen = {}
+    backward, dq_kernel = FK.flash_attention_backward, FK.flash_attention_bwd_dq
+
+    def spy_backward(*args):
+        seen["handed"] = args[4].stride()
+        return backward(*args)
+
+    def spy_dq(*args):
+        seen["launched"] = args[4].stride()
+        return dq_kernel(*args)
+
+    spy_dq.launches = 0  # the kernel's wrapper counts on the name it is called by
+    monkeypatch.setattr(FK, "flash_attention_backward", spy_backward)
+    monkeypatch.setattr(FK, "flash_attention_bwd_dq", spy_dq)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    FK.flash_attention(*leaves, kv_valid=250, bounded_logits=True).sum().backward()
+    torch.cuda.synchronize()
+    assert seen == {"handed": (0, 0, 0, 0), "launched": (300 * 2 * 64, 2 * 64, 64, 1)}
+    o, lse = FK._launch(q, k, v, 250, True, packed=False, with_lse=True)
+    _check_backward(q, k, v, o, lse, torch.ones_like(o), 250, True, [x.grad for x in leaves])
 
 
 def test_backward_clamp_saturation(cuda):
