@@ -7,7 +7,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
      device (there is no CPU path here);
   2. build: compiles the Hopper kernels from csrc/ with nvcc; prints each
      kernel's registers and shared memory from ptxas' report, and fails if
-     a backward kernel (dq, dk/dv, D 64 and 128) spills a register;
+     a backward kernel (dq, dk/dv, D 64 and 128) or a ring kernel
+     (ring_step_tma bf16 and int8, ring_stage) spills a register, or if
+     the ring step's shared memory differs from RK.ring_launch_shape's;
   3. kernels: each kernel against its plain PyTorch version at the shapes
      the flagship's 518 px, 8-view forward gives it, bf16 inputs, the plain
      version in fp32 from the same inputs; prints errors beside the stated
@@ -87,14 +89,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
      within RK.reorder_tolerance (the order of the fp32 sums only); every
      rank's last-read slot must hold its right neighbour's shard exactly;
      quant_ring's grids on the card equal to the CPU's; with the last
-     rotation left out the output must leave the tolerance; the bf16 forms
-     (ring_step_tma, the TMA + wgmma tile) 21 launches bitwise equal (the
-     int8 forms two), and two planted faults of that tile (the last key
-     tile of every shard left out; K and V of the next head) must leave the
-     tolerance in every case; times beside
-     the plain version's, SDPA over the whole sequence, and the bound,
-     whose bytes include the rotation ((n - 1) shards of K and V read and
-     written once each);
+     rotation left out the output must leave the tolerance; both forms
+     (ring_step_tma, the TMA + wgmma tile; int8: s8 scores, int8 V
+     converted to bf16 in shared memory) 21 launches bitwise equal, and
+     the tile's planted faults (the last key tile of every shard left out;
+     K and V of the next head; int8: head 0's v scale for every head) must
+     leave the tolerance in every case; times beside the plain version's
+     (int8: the wrapper, quant_ring in it, and _ring_run alone on grids
+     made once), SDPA over the whole sequence, and the bound, whose bytes
+     include the rotation ((n - 1) shards of K and V read and written once
+     each, int8 in the int8 form);
  11. sharded flagship forward, after 5 on the same model: S=8 at 518 px on
      make_mesh(data=1, seq=4) under "ring_fused", "ring" and "allgather",
      then under attn_quant="int8" "ring_fused" (the int8 ring) and
@@ -180,8 +184,10 @@ N_RANKS = 4  # logical ranks of the sharded phases
 FAMILIES = (
     ("flash_fwd_head_major", ("flash_fwd_head_major",)),
     ("flash_fwd_token_major", ("flash_fwd_token_major",)),
-    ("ring_step_tma (bf16 ring, TMA + wgmma)", ("ring_step_tma",)),
-    ("ring_step (int8 ring) / ring_stage", ("ring_step", "ring_stage")),
+    ("ring_step_tma int8 (int8 ring, TMA + wgmma)",
+     tuple(f"ring_step_tma<{d}, {b}, 4>" for d in (64, 128) for b in ("true", "false"))),
+    ("ring_step_tma bf16 (bf16 ring, TMA + wgmma)", ("ring_step_tma",)),
+    ("ring_stage (the rings' staging copy)", ("ring_stage",)),
     ("conv3x3 kernel", ("conv3x3_bf16", "conv3x3_fp32")),
     ("flash_bwd_dq", ("flash_bwd_dq",)),
     ("flash_bwd_dkv", ("flash_bwd_dkv",)),
@@ -309,6 +315,24 @@ def sdpa_backward_ms(q, k, v, kv, do, reps=20):
     return statistics.median(times)
 
 
+def ptxas_entries(log, pattern):
+    """{key: {"registers": n, "spills": [stores, loads]}} for every entry
+    function of ptxas' report whose mangled name matches `pattern`, keyed by
+    the pattern's groups."""
+    entries, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            found = re.search(pattern, line)
+            name = found.groups() if found else None
+            if name:
+                entries[name] = {}
+        elif name and "spill stores" in line:
+            entries[name]["spills"] = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
+        elif name and "Used" in line:
+            entries[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    return entries
+
+
 def backward_build_report(FK, log):
     """Each backward kernel's registers, spills and shared memory, from
     ptxas' report of csrc/flash_attention_bwd.cu; a spill fails the run.
@@ -316,25 +340,46 @@ def backward_build_report(FK, log):
     if not log:
         print("  backward kernels: library built before this run, no ptxas report")
         return
-    entries, name = {}, None
-    for line in log.splitlines():
-        found = re.search(r"Compiling entry function '.*?(flash_bwd_(?:dq|dkv))ILi(\d+)ELb([01])E",
-                          line)
-        if found:
-            name = (found.group(1), int(found.group(2)), int(found.group(3)))
-            entries[name] = {}
-        elif name and "spill stores" in line:
-            entries[name]["spills"] = [int(n) for n in re.findall(r"(\d+) bytes spill", line)]
-        elif name and "Used" in line:
-            entries[name]["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+    entries = ptxas_entries(log, r"(flash_bwd_(?:dq|dkv))ILi(\d+)ELb([01])E")
     shapes = {d: FK.bwd_launch_shape(d) for d in FK.HEAD_DIMS}
     for (kernel, d, bounded), e in sorted(entries.items()):
-        smem = shapes[d][1 if kernel == "flash_bwd_dq" else 2]
+        smem = shapes[int(d)][1 if kernel == "flash_bwd_dq" else 2]
         print(f"  backward kernel {kernel} D={d} bounded={bounded}: {e.get('registers')} "
               f"registers at launch, spill stores/loads {e.get('spills')} bytes, {smem} bytes of "
-              f"dynamic shared memory, {shapes[d][0]} threads a block")
+              f"dynamic shared memory, {shapes[int(d)][0]} threads a block")
     if len(entries) != 8 or any(e.get("spills") != [0, 0] for e in entries.values()):
         raise AssertionError(f"a backward kernel spills or is missing from ptxas' report: {entries}")
+
+
+def ring_build_report(RK, log):
+    """The ring kernels' registers, spills and shared memory, from ptxas'
+    report of csrc/ring_attention.cu (ring_step_tma in both forms, bounded
+    and running-max, at D 64 and 128; ring_stage at both); a spill fails
+    the run, and so does a shared-memory count that differs from
+    RK.ring_launch_shape's."""
+    if not log:
+        print("  ring kernels: library built before this run, no ptxas report")
+        return
+    steps = ptxas_entries(log, r"(ring_step_tma)ILi(\d+)ELb([01])ELi(\d+)E")
+    stages = ptxas_entries(log, r"(ring_stage)ILi(\d+)E()()")
+    for (kernel, d, bounded, form), e in sorted({**steps, **stages}.items()):
+        if kernel == "ring_stage":
+            print(f"  ring kernel ring_stage D={d}: {e.get('registers')} registers, spill "
+                  f"stores/loads {e.get('spills')} bytes, 128 threads a block")
+            continue
+        int8 = form == "4"
+        threads, smem = RK.built_launch_shape(int(d), int8)
+        if (threads, smem) != RK.ring_launch_shape(int(d), int8):
+            raise AssertionError(f"ring_launch_shape({d}, {int8}) is not the source's "
+                                 f"{(threads, smem)}")
+        print(f"  ring kernel ring_step_tma {'int8' if int8 else 'bf16'} D={d} "
+              f"bounded={bounded}: {e.get('registers')} registers at launch, spill stores/loads "
+              f"{e.get('spills')} bytes, {smem} bytes of dynamic shared memory, {threads} "
+              f"threads a block")
+    if (len(steps), len(stages)) != (8, 2) or any(
+            e.get("spills") != [0, 0] for e in {**steps, **stages}.values()):
+        raise AssertionError(f"a ring kernel spills or is missing from ptxas' report: "
+                             f"{steps} {stages}")
 
 
 def check_kernels(FK, dev):
@@ -1322,7 +1367,7 @@ def ladder_phase(model, cfg):
 
 def check_ring(RK, FK, dev):
     """The two ring wrappers against ring_attention_plain, the head-major
-    kernel, their own slots and a planted fault, over logical ranks."""
+    kernel, their own slots and planted faults, over logical ranks."""
     from omnivggt_tpu_torch.parallel.mesh import make_mesh
 
     gen = torch.Generator(device=dev)
@@ -1371,28 +1416,31 @@ def check_ring(RK, FK, dev):
         torch.cuda.synchronize()
         if RK.launches() != {vmem: int(name == vmem), hbm: int(name == hbm)}:
             raise AssertionError(f"ring [{label}]: dispatched to {RK.launches()}, expected {name}")
-        # the bf16 forms (the TMA + wgmma tile) 21 launches in all, the int8
-        # forms two: every repeat bitwise equal to the first
-        repeats = 1 if int8 else 20
+        # 21 launches in all (the wrapper's, then 20 more on its own): every
+        # repeat bitwise equal to the first
         same = True
-        for _ in range(repeats):
+        for _ in range(20):
             again, slots = RK._ring_launch(wrapper, q, k, v, n, bounded, int8, chunk_q=chunk)
             same = same and torch.equal(out, again)
         bad, _ = RK._ring_launch(wrapper, q, k, v, n, bounded, int8, chunk_q=chunk,
                                  skip_rotation_at=n - 2)
-        # the new tile's planted faults: the last key tile of every shard
-        # left out; K and V of the next head
-        tile_faults = [] if int8 else [
+        # the tile's planted faults: the last key tile of every shard left
+        # out; K and V of the next head; int8: head 0's v scale for every head
+        tile_faults = [
             RK._ring_launch(wrapper, q, k, v, n, bounded, int8, chunk_q=chunk, **hook)[0]
             for hook in (dict(drop_last_key_tile=True), dict(kv_head_shift=1))]
+        if int8:
+            on_card = RK.quant_ring(q, k, v, n, D**-0.5)
+            one_scale = on_card[3].clone()
+            one_scale[:, :, 1] = on_card[3][:, :1, 1]  # B = 1: row h is head h
+            tile_faults.append(RK._ring_run(*on_card[:3], one_scale, n, bounded, chunk)[0])
         torch.cuda.synchronize()
         if not same:
-            raise AssertionError(f"ring [{label}]: {repeats + 1} runs on the same inputs differ")
+            raise AssertionError(f"ring [{label}]: 21 runs on the same inputs differ")
 
         # every rank's last-read slot holds its right neighbour's shard
         held_k, held_v = k, v
         if int8:
-            on_card = RK.quant_ring(q, k, v, n, D**-0.5)
             on_cpu = RK.quant_ring(q.cpu(), k.cpu(), v.cpu(), n, D**-0.5)
             if not all(torch.equal(a.cpu(), b) for a, b in zip(on_card, on_cpu)):
                 raise AssertionError(f"ring [{label}]: quant_ring gives another grid on the card")
@@ -1417,12 +1465,13 @@ def check_ring(RK, FK, dev):
         line = (f"kernel {name} [{label}] q(1, {N}, {H}, {D}) over {n} ranks, nl {nl}: "
                 f"max_abs_err {err:.3e} tol {tol:.3e} (2^-7 max|v|, against "
                 f"ring_attention_plain{' on the grids of quant_ring (equal to the CPU grids: True)' if int8 else ''}); "
-                f"{repeats + 1} launches bitwise equal: {same}; "
+                f"21 launches bitwise equal: {same}; "
                 f"slots rotated (last-read slot == right neighbour's shard, exactly): {turned}; "
-                f"planted faults (must exceed tol): last rotation left out {fault_err:.3e}")
-        if tile_errs:
-            line += (f", last key tile of every shard left out {tile_errs[0]:.3e}, "
-                     f"K/V of the next head {tile_errs[1]:.3e}")
+                f"planted faults (must exceed tol): last rotation left out {fault_err:.3e}, "
+                f"last key tile of every shard left out {tile_errs[0]:.3e}, "
+                f"K/V of the next head {tile_errs[1]:.3e}")
+        if int8:
+            line += f", v scale of head 0 for every head {tile_errs[2]:.3e}"
         sharp_ok = True
         if bounded and not int8:
             head_major = FK.flash_attention(q, k, v, bounded_logits=True).float()
@@ -1438,6 +1487,10 @@ def check_ring(RK, FK, dev):
         plain_ms = median_ms(
             lambda: RK.ring_attention_plain(q, k, v, n, bounded, chunk_q=chunk, qk_int8=int8), 2)
         quant_ms = median_ms(lambda: RK.quant_ring(q, k, v, n, D**-0.5), 5) if int8 else 0.0
+        # the launch function alone, on the grids made once (the wrapper adds
+        # quant_ring); the events also hold its host set-up before the first
+        # launch, which the wrapper's quant_ring hides
+        alone_ms = median_ms(lambda: RK._ring_run(*on_card, n, bounded, chunk), 10) if int8 else ms
         products = 2 * H * N * N * D  # one of the two products, over all ranks
         esize = 1 if int8 else 2
         io_bytes = 2 * H * D * 4 * N  # bf16 q, k, v read and o written once
@@ -1445,7 +1498,9 @@ def check_ring(RK, FK, dev):
         bnd = (bound(products, io_bytes + rotation, int8_ops=products) if int8
                else bound(2 * products, io_bytes + rotation))
         line += (f" | wrapper {ms:.3f} ms"
-                 + (f" of which quant_ring (plain torch ops) {quant_ms:.3f} ms" if int8 else "")
+                 + (f" of which quant_ring (plain torch ops) {quant_ms:.3f} ms, _ring_run alone "
+                    f"on the grids made once {alone_ms:.3f} ms (with its host set-up)"
+                    if int8 else "")
                  + f", plain {plain_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}; rotation "
                  f"{rotation / 1e6:.1f} MB of {(io_bytes + rotation) / 1e6:.1f} MB), sdpa over the "
                  f"whole sequence {lib[N]:.3f} ms")
@@ -1752,8 +1807,10 @@ def main() -> int:
                 print(f"  forward kernel (flash_fwd_*_tma), {form}, head dim {d}: {threads} "
                       f"threads, {smem} bytes of dynamic shared memory a block")
     print("  ptxas' register count above is the launch's; setmaxnreg then gives the producer "
-          "warpgroup 24 and the two consumer warpgroups 240")
+          "warpgroup 24 and the two consumer warpgroups 240 (the int8 ring: 40 for the "
+          "producer and its V converters, 232)")
     backward_build_report(FK, logs[FK.SOURCES[1]])
+    ring_build_report(RK, logs[RK.SOURCE])
 
     kernel_results = check_kernels(FK, dev)
     check_tma_forms(FK, dev)

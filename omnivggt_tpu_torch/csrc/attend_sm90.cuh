@@ -1,7 +1,7 @@
 // The attention tile of the Hopper kernels, one copy for the sources that
 // run it: flash_attention.cu (tma_attend, under the head-major and the
 // token-major grids, bf16 and int8 scores), ring_attention.cu (ring_attend,
-// one bf16 ring step of a sequence sharded over ranks) and
+// one ring step of a sequence sharded over ranks, bf16 or int8) and
 // flash_attention_bwd.cu (the dq kernel: its shared memory and producer,
 // with a dO tile loaded beside Q). Each
 // block holds 128 query rows of one (batch, head): two consumer warpgroups
@@ -17,6 +17,12 @@
 //     rows x 1 batch at coordinates the caller names, so the same loop reads
 //     (B, N, H, D) inputs and a ring buffer viewed as (4 B H, nl, 1, D);
 //     rows past a map's extent load as zeros;
+//   - the converters of the form whose V arrives as int8 (the int8 ring,
+//     whose K/V shards rotate as int8): the producer warpgroup's other three
+//     warps turn each int8 V tile, staged by TMA beside the K tile, into
+//     the bf16 V stage in the layout TMA gives a bf16 tile, exactly and
+//     without a conversion instruction, so the P V product below reads it
+//     unchanged;
 //   - the consumer's step over one key tile, in two forms that differ only
 //     in the score product:
 //       bf16: S = Q K^T by wgmma SS (both operands in shared memory,
@@ -63,31 +69,42 @@ constexpr int kScoresBf16 = 0;     // bf16 q and k
 constexpr int kScoresInt8 = 1;     // int8 q and k, quantised by the caller
 constexpr int kScoresInt8QIn = 2;  // int8 k from the caller, bf16 q quantised here
 constexpr int kBwdDq = 3;          // the dq kernel: bf16 scores, a bf16 dO tile beside Q
+constexpr int kScoresInt8V8 = 4;   // int8 q, k and v; V converted to bf16 here
+
+// threads that convert int8 V tiles (kScoresInt8V8): the producer
+// warpgroup's warps 1-3
+constexpr int kConverters = 96;
 
 // the int8 scores' accumulator start: the float bits of 1.5 * 2^23
 constexpr uint32_t kScoreBias = 0x4B400000u;
 constexpr float kScoreBiasF = 12582912.0f;
 
-// Bytes of the block's shared memory: Q as loaded (int8 for kScoresInt8,
-// else bf16), kScoresInt8QIn's int8 Q tile or kBwdDq's bf16 dO tile,
-// kStages K stages (int8 for the int8 forms), kStages bf16 V stages, then
-// the barriers. Every tile starts 1024-byte aligned.
+// Bytes of the block's shared memory: Q as loaded (int8 for kScoresInt8
+// and kScoresInt8V8, else bf16), kScoresInt8QIn's int8 Q tile or kBwdDq's
+// bf16 dO tile, kStages K stages (int8 for the int8 forms), kStages bf16 V
+// stages, for kScoresInt8V8 kStages int8 V stages that TMA fills, then the
+// barriers. Every tile starts 1024-byte aligned.
 template <int D, int kForm = kScoresBf16>
 struct Smem {
-  static constexpr bool kS8 = kForm == kScoresInt8 || kForm == kScoresInt8QIn;
+  static constexpr bool kV8 = kForm == kScoresInt8V8;
+  static constexpr bool kS8 = kForm == kScoresInt8 || kForm == kScoresInt8QIn || kV8;
+  static constexpr bool kQ8In = kForm == kScoresInt8 || kV8;  // Q arrives as int8
   static constexpr int kStages = kS8 ? (D == 64 ? 4 : 3) : (D == 64 ? 3 : 2);
-  static constexpr int kQTile = kRows * D * (kForm == kScoresInt8 ? 1 : 2);
+  static constexpr int kQTile = kRows * D * (kQ8In ? 1 : 2);
   static constexpr int kKTile = kRows * D * (kS8 ? 1 : 2);
   static constexpr int kVTile = kRows * D * 2;
+  static constexpr int kV8Tile = kV8 ? kRows * D : 0;
   static constexpr int kQ8 = kQTile;  // kScoresInt8QIn: the int8 Q the consumers write;
                                       // kBwdDq: dO
   static constexpr int kK = kQ8 + (kForm == kScoresInt8QIn ? kRows * D
                                    : kForm == kBwdDq       ? kQTile
                                                            : 0);
   static constexpr int kV = kK + kStages * kKTile;
-  static constexpr int kBars = kV + kStages * kVTile;
-  static constexpr int kBytes = kBars + (1 + 3 * kStages) * 8;
+  static constexpr int kV8s = kV + kStages * kVTile;
+  static constexpr int kBars = kV8s + kStages * kV8Tile;
+  static constexpr int kBytes = kBars + (1 + (kV8 ? 4 : 3) * kStages) * 8;
   static constexpr int kAlloc = kBytes + 1024;  // room to align the base
+  static_assert(kAlloc <= 232448, "more shared memory than a block of the H100 can have");
 };
 
 // The block's tiles and barriers in dynamic shared memory.
@@ -97,10 +114,12 @@ struct Tiles {
   uint8_t* dos;  // kBwdDq: the dO tile
   uint8_t* ks;
   uint8_t* vs;
+  uint8_t* v8s;  // kScoresInt8V8: the int8 V stages
   uint64_t* q_full;
   uint64_t* k_full;
   uint64_t* v_full;
   uint64_t* empty;
+  uint64_t* v8_full;  // kScoresInt8V8: an int8 V tile has landed
 };
 
 // Carves the dynamic shared memory (1024-byte aligned for the swizzle) and
@@ -118,16 +137,20 @@ __device__ __forceinline__ Tiles carve_tiles() {
   t.dos = smem + L::kQ8;
   t.ks = smem + L::kK;
   t.vs = smem + L::kV;
+  t.v8s = smem + L::kV8s;
   t.q_full = reinterpret_cast<uint64_t*>(smem + L::kBars);
   t.k_full = t.q_full + 1;
   t.v_full = t.k_full + kS;
   t.empty = t.v_full + kS;
+  t.v8_full = t.empty + kS;
   if (threadIdx.x == 0) {
     sm90::mbar_init(t.q_full, 1);
     for (int s = 0; s < kS; ++s) {
       sm90::mbar_init(&t.k_full[s], 1);
-      sm90::mbar_init(&t.v_full[s], 1);
+      // TMA's one arrival, or every converter's once it has written the stage
+      sm90::mbar_init(&t.v_full[s], L::kV8 ? kConverters : 1);
       sm90::mbar_init(&t.empty[s], 128 * kConsumers);
+      if (L::kV8) sm90::mbar_init(&t.v8_full[s], 1);
     }
     sm90::fence_barrier_init();
   }
@@ -153,7 +176,8 @@ __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map, 
 // kBwdDq with the dO tile at the same place of do_map, on the same
 // barrier), then key tiles it = 0 .. n_tiles - 1, K at (kh, it * 128, kb)
 // of k_map and V at (vh, it * 128, vb) of v_map, each into stage
-// it % kStages once the consumers have released it.
+// it % kStages once the consumers have released it (kScoresInt8V8: V as
+// int8 into the int8 V stage, for the converters).
 template <int D, int kForm = kScoresBf16>
 __device__ __forceinline__ void produce(const Tiles& t, const CUtensorMap* q_map, int qh,
                                         int q_row, int qb, const CUtensorMap* k_map, int kh,
@@ -171,14 +195,76 @@ __device__ __forceinline__ void produce(const Tiles& t, const CUtensorMap* q_map
   } else {
     sm90::mbar_arrive_expect_tx(t.q_full, L::kQTile);
   }
-  load_tile<D, kForm == kScoresInt8>(t.qs, q_map, t.q_full, qh, q_row, qb);
+  load_tile<D, L::kQ8In>(t.qs, q_map, t.q_full, qh, q_row, qb);
   for (int it = 0; it < n_tiles; ++it) {
     const int s = it % kS;
     sm90::mbar_wait(&t.empty[s], ((it / kS) & 1) ^ 1);
     sm90::mbar_arrive_expect_tx(&t.k_full[s], L::kKTile);
     load_tile<D, L::kS8>(t.ks + s * L::kKTile, k_map, &t.k_full[s], kh, it * kRows, kb);
-    sm90::mbar_arrive_expect_tx(&t.v_full[s], L::kVTile);
-    load_tile<D, false>(t.vs + s * L::kVTile, v_map, &t.v_full[s], vh, it * kRows, vb);
+    if constexpr (L::kV8) {
+      sm90::mbar_arrive_expect_tx(&t.v8_full[s], L::kV8Tile);
+      load_tile<D, true>(t.v8s + s * L::kV8Tile, v_map, &t.v8_full[s], vh, it * kRows, vb);
+    } else {
+      sm90::mbar_arrive_expect_tx(&t.v_full[s], L::kVTile);
+      load_tile<D, false>(t.vs + s * L::kVTile, v_map, &t.v_full[s], vh, it * kRows, vb);
+    }
+  }
+}
+
+// 4 int8 values (value j in byte j of w) -> 4 bf16 in two words (value 0 in
+// the low half of the first), exactly and without a conversion
+// instruction: byte j, biased by 128 (x ^ 0x80), becomes the low byte of
+// the float 2^23 + x + 128 (one byte permute), one FADD takes off
+// 2^23 + 128, and a float that holds an integer of magnitude <= 128 has its
+// low 16 bits zero, so its high half, picked by a second permute, is its
+// bf16.
+__device__ __forceinline__ uint2 s8x4_to_bf16x4(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  uint32_t f[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    f[j] = __float_as_uint(__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + j)) -
+                           8388736.0f);  // 2^23 + 128
+  return make_uint2(__byte_perm(f[0], f[1], 0x7632), __byte_perm(f[2], f[3], 0x7632));
+}
+
+// kScoresInt8V8, converter c (0 .. kConverters - 1): key tiles
+// it = 0 .. n_tiles - 1, the int8 V tile of stage it % kStages (D bytes a
+// row under a D-byte swizzle, as TMA stores it) into the bf16 V stage as a
+// bf16 TMA box would hold it (64-column boxes, 128-byte swizzle: the layout
+// softmax_pv reads through the transpose bit), 16 columns at a time. The
+// bf16 stage is free when the int8 tile has landed: the producer issued
+// that load only after the consumers had released the stage (empty), and
+// the wait below repeats that wait, which has completed, for the ordering.
+// Each converter fences its writes for wgmma's proxy and arrives on
+// v_full.
+template <int D>
+__device__ __forceinline__ void convert_v(const Tiles& t, int c, int n_tiles) {
+  using L = Smem<D, kScoresInt8V8>;
+  constexpr int kS = L::kStages;
+  constexpr int kChunks = D / 16;  // 16-byte int8 chunks a row
+  for (int it = 0; it < n_tiles; ++it) {
+    const int s = it % kS;
+    const uint32_t parity = (it / kS) & 1;
+    sm90::mbar_wait(&t.v8_full[s], parity);
+    sm90::mbar_wait(&t.empty[s], parity ^ 1);
+    const uint8_t* src = t.v8s + s * L::kV8Tile;
+    uint8_t* dst = t.vs + s * L::kVTile;
+#pragma unroll 2
+    for (int i = c; i < kRows * kChunks; i += kConverters) {
+      const int r = i / kChunks, ch = i % kChunks;
+      const uint4 x = *reinterpret_cast<const uint4*>(src + sm90::swizzled<D>(r * D + ch * 16));
+      const uint2 a = s8x4_to_bf16x4(x.x), b = s8x4_to_bf16x4(x.y);
+      const uint2 e = s8x4_to_bf16x4(x.z), f = s8x4_to_bf16x4(x.w);
+      // bf16 columns 16 ch .. 16 ch + 15: box ch / 4, bytes 32 (ch % 4) of row r
+      uint8_t* box = dst + (ch / 4) * kBoxBytes;
+      const uint32_t off = r * 128 + (ch % 4) * 32;
+      *reinterpret_cast<uint4*>(box + sm90::swizzled<128>(off)) = make_uint4(a.x, a.y, b.x, b.y);
+      *reinterpret_cast<uint4*>(box + sm90::swizzled<128>(off + 16)) =
+          make_uint4(e.x, e.y, f.x, f.y);
+    }
+    sm90::fence_proxy_async_shared();
+    sm90::mbar_arrive(&t.v_full[s]);
   }
 }
 
@@ -326,14 +412,15 @@ __device__ __forceinline__ void consume_tile(const Tiles& t, int wg, int tq, int
   softmax_pv<D, kBounded, kScoresBf16>(t, s, parity, sc, scale_log2, acc, m_run, l_run);
 }
 
-// The same step with int8 scores (kForm kScoresInt8 or kScoresInt8QIn):
-// scale_log2 is the head's dequantising scalar c times log2(e).
+// The same step with int8 scores (kForm kScoresInt8, kScoresInt8QIn or
+// kScoresInt8V8): scale_log2 is the head's dequantising scalar c times
+// log2(e).
 template <int D, bool kBounded, int kForm>
 __device__ __forceinline__ void consume_tile_s8(const Tiles& t, int wg, int tq, int it,
                                                 int n_eff, float scale_log2,
                                                 float (&acc)[D / 2], float (&m_run)[2],
                                                 float (&l_run)[2]) {
-  static_assert(kForm == kScoresInt8 || kForm == kScoresInt8QIn, "int8 forms only");
+  static_assert(Smem<D, kForm>::kS8, "int8 forms only");
   using L = Smem<D, kForm>;
   constexpr int kS = L::kStages;
   const int s = it % kS;

@@ -25,19 +25,20 @@ matter.
   - `qk_int8=True`: q, k and v are quantised per head by `quant_ring` (q on
     each rank's own max-abs, k and v on the max over all ranks, so every
     rotating shard shares one int8 grid), the scores are an exact s8 x s8
-    product times c0 = q_s k_s D^-0.5, int8 v is converted to bf16 as it is
-    staged, and its scale c1 multiplies the final acc / l. The quantisation
+    product times c0 = q_s k_s D^-0.5, int8 v is converted to bf16 (exactly)
+    for P @ V, and its scale c1 multiplies the final acc / l. The quantisation
     pass is plain torch ops, outside the kernel as on the TPU. Serving only.
 
 On CUDA tensors both wrappers launch csrc/ring_attention.cu (one staging
 launch and one launch per ring step with the ranks as a grid axis; the
 rotation is done by dedicated blocks of the step's own launch; see the
 source) or raise; they take bf16 with head dim 64 or 128 and return bf16.
-On the card the two TPU kernels are the same kernels: the bf16 forms run
-`ring_step_tma` (the bf16 forward kernel's TMA + wgmma tile, 128 query
-rows a block), the int8 forms `ring_step` (mma.sync, 64 rows a block); the
-wrappers keep their contracts, their dispatch and their launch counters
-here. On CPU
+On the card the two TPU kernels are the same kernel, `ring_step_tma` (the
+forward kernel's TMA + wgmma tile, 128 query rows a block), in a bf16 form
+and an int8 form (s8 scores; the int8 V tiles converted to bf16 in shared
+memory, so the ring buffer and the rotation stay int8); the wrappers keep
+their contracts, their dispatch and their launch counters here
+(`_ring_launch`: quantise, then `_ring_run`: the kernel). On CPU
 tensors they compute `ring_attention_plain`: per-rank shards in a list, the
 (m, l, acc) carry step by step in fp32, P rounded to v's dtype before
 P @ V as the TPU kernels round it, the rotation as a rotation of the
@@ -235,14 +236,11 @@ def reorder_tolerance(ref, v, n_keys: int):
     2^-7 of the value. The counts hold for the wgmma tile that the bf16
     ring and the head-major kernel share (64 x 128 tiles: a thread holds 2
     rows x 32 columns, n_keys / 4 of a row's terms in all, and P @ V steps
-    16 keys at a time) and for the mma.sync tiles (16 x 64: a thread adds
-    16 of a row's 64 keys a tile). Not in the bound: two score products
-    that sum the same D terms in another order may round a score
-    differently, and a P that then crosses a bf16 rounding boundary moves o
-    by 2^-8 p / l |v|; that takes an ulp of S to land on a boundary, a
-    chance of about 2^-16 per score (worst err/tol on the H100 at the
-    flagship shape: 0.909 with the ring on mma.sync and on the wgmma tile
-    alike)."""
+    16 keys at a time). Not in the bound: two score products that sum the
+    same D terms in another order may round a score differently, and a P
+    that then crosses a bf16 rounding boundary moves o by 2^-8 p / l |v|;
+    that takes an ulp of S to land on a boundary, a chance of about 2^-16
+    per score (worst err/tol on the H100 at the flagship shape: 0.909)."""
     steps = n_keys / 16
     return (2 * steps * 2.0**-23 * v.float().abs().max()
             + (2.0**-7 + 2 * (n_keys / 4) * 2.0**-24) * ref.float().abs())
@@ -285,31 +283,71 @@ def _pointer_table(tensors):
     return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
 
 
-def _ring_launch(counter, q, k, v, n_ranks, bounded_logits, qk_int8, chunk_q=None,
-                 skip_rotation_at=-1, kv_head_shift=0, drop_last_key_tile=False):
-    """The ring on CUDA tensors, counted on `counter`: returns (o, slots),
-    slots the per-rank ring buffers (2, 2, B*H, nl, D) as the last pass left
-    them. Planted faults for the checks (-1 / 0 / False on every real
-    call): skip_rotation_at, a step whose rotation is left out; and, bf16
-    only, kv_head_shift (K and V read from head (h + shift) % H) and
-    drop_last_key_tile (the last 128-key tile of every shard left out)."""
+def ring_launch_shape(head_dim: int, int8: bool) -> tuple:
+    """(threads a block, dynamic shared-memory bytes a block) of the ring's
+    step kernel at this head dim in the bf16 or the int8 form: the layout of
+    csrc/attend_sm90.cuh's `Smem` (a Q tile, the K, bf16 V and, int8, int8 V
+    stages of 128 rows, the mbarriers, 1 KB to align the base), worked out
+    here so that the CPU checks it against the block's 227 KB;
+    chip_smoke.py holds it against the built source's own count."""
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"the ring kernel takes head dim in {HEAD_DIMS}, got {head_dim}")
+    esize = 1 if int8 else 2  # q and k (and the ring buffer)
+    stages = (4 if head_dim == 64 else 3) if int8 else (3 if head_dim == 64 else 2)
+    stage_bytes = esize + 2 + (1 if int8 else 0)  # K, bf16 V, int8 V: bytes a value
+    tiles = 128 * head_dim * (esize + stages * stage_bytes)
+    barriers = 8 * (1 + (4 if int8 else 3) * stages)
+    return 384, tiles + barriers + 1024
+
+
+def built_launch_shape(head_dim: int, int8: bool) -> tuple:
+    """`ring_launch_shape` as the built kernel library reports it (needs
+    the card's toolkit)."""
+    lib, _ = build.load(SOURCE)
+    threads, smem = lib.omnivggt_ring_attention_threads, lib.omnivggt_ring_attention_smem_bytes
+    threads.argtypes, smem.argtypes = [], [ctypes.c_int, ctypes.c_int]
+    threads.restype = smem.restype = ctypes.c_int
+    return threads(), smem(int(head_dim), int(bool(int8)))
+
+
+def _check_shapes(q, k, v, n_ranks) -> int:
+    """One (B, N, H, D) shape for q, k, v, N divisible over the ranks;
+    returns the shard length."""
     if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must share one (B, N, H, D) shape, got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
+    return _local_len(q, n_ranks)
+
+
+def _ring_run(q, k, v, table, n_ranks, bounded_logits, chunk_q=None, skip_rotation_at=-1,
+              kv_head_shift=0, drop_last_key_tile=False):
+    """The ring kernel on CUDA tensors as it takes them: bf16 q, k, v with
+    table None, or the int8 grids and the (n_ranks, B*H, 2) fp32 table of
+    `quant_ring` (the int8 form). One ring pass per query chunk; returns
+    (o, slots), slots the per-rank ring buffers (2, 2, B*H, nl, D) as the
+    last pass left them. Counts nothing: `_ring_launch` counts, and a bench
+    times the kernel alone through this on grids made once. Planted faults
+    for the checks (-1 / 0 / False on every real call): skip_rotation_at, a
+    step whose rotation is left out; kv_head_shift, K and V read from head
+    (h + shift) % H; drop_last_key_tile, the last 128-key tile of every
+    shard left out."""
+    nl = _check_shapes(q, k, v, n_ranks)
     B, N, H, D = q.shape
-    nl = _local_len(q, n_ranks)
-    if (q.dtype, k.dtype, v.dtype) != (torch.bfloat16,) * 3:
-        raise TypeError(f"the ring kernel takes bf16 q, k, v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    int8 = table is not None
+    want = torch.int8 if int8 else torch.bfloat16
+    if (q.dtype, k.dtype, v.dtype) != (want,) * 3:
+        raise TypeError(f"the ring kernel takes {want} q, k, v here, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
     if D not in HEAD_DIMS:
         raise ValueError(f"the ring kernel takes head dim in {HEAD_DIMS}, got {D}")
     if n_ranks > MAX_RANKS or B * H > 65535:
         raise ValueError(f"the ring kernel takes up to {MAX_RANKS} ranks and B*H <= 65535")
-    if _wants_grad(q, k, v):
-        raise ValueError("the ring kernels are forward only (no gradient)")
     dev = q.device
-    table = None
-    if qk_int8:
-        q, k, v, table = quant_ring(q, k, v, n_ranks, D**-0.5)
+    if int8:
+        if table.shape != (n_ranks, B * H, 2) or table.device != dev:
+            raise ValueError(f"the int8 table must be (n_ranks, B*H, 2) = {(n_ranks, B * H, 2)} "
+                             f"on {dev}, got {tuple(table.shape)} on {table.device}")
+        table = table.float().contiguous()
     q, k, v = (_vector_aligned(x) for x in (q, k, v))
     o = torch.empty((B, N, H, D), dtype=torch.bfloat16, device=dev)
     chunk = nl if chunk_q is None else min(chunk_q, nl)
@@ -325,20 +363,39 @@ def _ring_launch(counter, q, k, v, n_ranks, bounded_logits, qk_int8, chunk_q=Non
     ml = [torch.empty((2, B * H, rows), dtype=torch.float32, device=dev) for _ in range(n_ranks)]
     tables = [_pointer_table(shards(x)) for x in (q, k, v, o)]
     tables += [_pointer_table(x) for x in (slots, acc, ml)]
-    c_table = _pointer_table(list(table)) if qk_int8 else None
+    c_table = _pointer_table(list(table)) if int8 else None
     fn = _library()[0]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         for q0 in range(0, nl, chunk):
             err = fn(
-                int(bool(bounded_logits)), D, int(bool(qk_int8)), *tables, c_table,
+                int(bool(bounded_logits)), D, int(int8), *tables, c_table,
                 _strides(q, k, v, o), B, H, nl, q0, min(chunk, nl - q0), n_ranks,
                 skip_rotation_at, D**-0.5, stream, int(kv_head_shift),
                 int(bool(drop_last_key_tile)),
             )
             _raise_on(err, "ring attention")
-    counter.launches += 1
     return o, slots
+
+
+def _ring_launch(counter, q, k, v, n_ranks, bounded_logits, qk_int8, chunk_q=None,
+                 skip_rotation_at=-1, kv_head_shift=0, drop_last_key_tile=False):
+    """The ring on bf16 CUDA tensors, counted on `counter`: qk_int8 puts q,
+    k, v on the grids of `quant_ring` first; then `_ring_run` (which
+    returns (o, slots) and takes the same planted faults in both forms)."""
+    _check_shapes(q, k, v, n_ranks)
+    D = q.shape[-1]
+    if (q.dtype, k.dtype, v.dtype) != (torch.bfloat16,) * 3:
+        raise TypeError(f"the ring kernel takes bf16 q, k, v, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if _wants_grad(q, k, v):
+        raise ValueError("the ring kernels are forward only (no gradient)")
+    table = None
+    if qk_int8:
+        q, k, v, table = quant_ring(q, k, v, n_ranks, D**-0.5)
+    out = _ring_run(q, k, v, table, n_ranks, bounded_logits, chunk_q, skip_rotation_at,
+                    kv_head_shift, drop_last_key_tile)
+    counter.launches += 1
+    return out
 
 
 def ring_flash_attention_hbm(q, k, v, mesh, seq_axis: str = "seq",

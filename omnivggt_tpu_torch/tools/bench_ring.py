@@ -5,8 +5,9 @@
 Imports `omnivggt_tpu_torch` from DIR (default: the checkout this file is
 in), so one call on the card can time two trees in turns (A, B, B, A), each
 in a process of its own that builds its own kernels. Uses only what both
-trees have: the two ring wrappers, the two bf16 forward wrappers,
-`make_mesh`, `ModelSharding` and the model.
+trees have: the two ring wrappers, `quant_ring` and the ring library's C
+entry point (one signature in both), the two bf16 forward wrappers,
+`make_mesh`, `ModelSharding`, the model and its `attn_quant` setting.
 
 Measured, on bf16 inputs made from a seed:
   - the bf16 forward kernels whose tile the ring's bf16 forms share: the
@@ -27,11 +28,20 @@ Measured, on bf16 inputs made from a seed:
     shards of K and V read and written once each) over 3.35 TB/s. At nl 261
     also the host's share: the wall time of 20 calls issued back to back
     against the device time of the ring kernels in them (profiler);
+  - the int8 form (qk_int8) at the same five shapes: the wrapper (which
+    runs quant_ring, plain torch ops, then the kernel) and the kernel alone
+    on the int8 grids and table made once, with buffers allocated once
+    (the C entry point called directly), both medians of 20, its output
+    checked bitwise against the wrapper's; SDPA as above; the bound: one
+    int8 product (2 N^2 D H operations over 1,979 TOP/s) and one bf16
+    product over 989 TFLOP/s, against the bytes with the rotation in int8;
+    at nl 261 the host's share as above;
   - the flagship 1.2B model at S=8, 518 px (seeded weights, camera token
     at unit scale, bf16 trunk): the single-device forward and the forward
     sharded over 4 logical ranks under "ring_fused", medians of 5, and one
     profiled sharded forward: its wall time, its summed kernel time and
-    the ring kernels' device time and launches.
+    the ring kernels' device time and launches; then the same under
+    attn_quant="int8" (the global attention on the int8 ring).
 The last line is one JSON object of every number, with the card's name and
 power limit. Exit code 1 without a CUDA device.
 """
@@ -39,6 +49,7 @@ power limit. Exit code 1 without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -49,6 +60,7 @@ import time
 import torch
 
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: bf16 dense, HBM
+PEAK_INT8 = 1979e12  # int8 dense
 S, IMG, P_TOKENS = 8, 518, 1374
 
 
@@ -95,23 +107,59 @@ def _ring_device_ms(run, calls):
     return wall, total, ring, launches
 
 
+def _kernel_alone(RK, q, k, v, n, bounded, chunk):
+    """(run, o): run() launches the ring kernel's int8 form once on the
+    quant_ring grids of q, k, v, made here once, into buffers allocated
+    once, through the library's C entry point (the kernel alone, without
+    quant_ring and the wrapper's allocations); o is its output buffer."""
+    B, N, H, D = q.shape
+    nl = N // n
+    q8, k8, v8, table = RK.quant_ring(q, k, v, n, D**-0.5)
+    dev = q.device
+    o = torch.empty(q.shape, dtype=torch.bfloat16, device=dev)
+    rows = -(-chunk // 128) * 128
+    slots = [torch.empty((2, 2, B * H, nl, D), dtype=torch.int8, device=dev) for _ in range(n)]
+    acc = [torch.empty((B * H, rows, D), dtype=torch.float32, device=dev) for _ in range(n)]
+    ml = [torch.empty((2, B * H, rows), dtype=torch.float32, device=dev) for _ in range(n)]
+    tables = [RK._pointer_table([x[:, r * nl:(r + 1) * nl] for r in range(n)])
+              for x in (q8, k8, v8, o)]
+    tables += [RK._pointer_table(x) for x in (slots, acc, ml)]
+    c_table = RK._pointer_table(list(table))
+    strides = RK._strides(q8, k8, v8, o)
+    fn = RK._library()[0]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run():
+        for q0 in range(0, nl, chunk):
+            err = fn(int(bounded), D, 1, *tables, c_table, strides, B, H, nl, q0,
+                     min(chunk, nl - q0), n, -1, D**-0.5, stream, 0, 0)
+            if err:
+                raise RuntimeError(f"ring kernel launch failed: cudaError {err}")
+
+    run.buffers = (q8, k8, v8, table, slots, acc, ml)  # alive while run is
+    return run, o
+
+
 def ring_shapes(dev):
     from omnivggt_tpu_torch.ops.kernels import ring_attention as RK
     from omnivggt_tpu_torch.parallel.mesh import make_mesh
 
     F = torch.nn.functional
     H, D = 16, 64
-    cases = [  # (label, wrapper, ranks, N, bounded)
+    shapes = [  # (label, wrapper, ranks, N, bounded)
         ("flagship 4 ranks bounded", "ring_flash_attention_hbm", 4, S * P_TOKENS, True),
         ("flagship 4 ranks running-max", "ring_flash_attention_hbm", 4, S * P_TOKENS, False),
         ("flagship 8 ranks bounded", "ring_flash_attention_hbm", 8, S * P_TOKENS, True),
         ("16384, two chunks a rank, bounded", "ring_flash_attention", 4, 16384, True),
         ("S=4 224 px, nl 261, bounded", "ring_flash_attention", 4, 4 * 261, True),
     ]
+    # the bf16 forms first (their inputs as before the int8 rows came), then int8
+    cases = [(label, *rest, False) for label, *rest in shapes]
+    cases += [(label + " int8", *rest, True) for label, *rest in shapes]
     gen = torch.Generator(device=dev)
     gen.manual_seed(6)
     out = {}
-    for label, name, n, N, bounded in cases:
+    for label, name, n, N, bounded, int8 in cases:
         shape = (1, N, H, D)
         scale = torch.linspace(2.0, 8.0, H, device=dev)[None, None, :, None]
         q = (torch.randn(shape, generator=gen, device=dev) * scale).to(torch.bfloat16)
@@ -120,32 +168,47 @@ def ring_shapes(dev):
         wrapper = getattr(RK, name)
 
         def run():
-            return wrapper(q, k, v, mesh, "seq", bounded_logits=bounded)
+            return wrapper(q, k, v, mesh, "seq", bounded_logits=bounded, qk_int8=int8)
 
         RK.reset_launches()
-        run()
+        first = run()
         torch.cuda.synchronize()
         if RK.launches()[name] != 1:
             raise AssertionError(f"{label}: dispatched to {RK.launches()}, expected {name}")
         ms = _median_ms(run, 20)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
         sdpa = _median_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)
-        flops = 4 * H * N * N * D
-        nbytes = 2 * H * D * 4 * N + 2 * (n - 1) * 2 * H * D * N
-        bound = max(flops / PEAK_FLOPS, nbytes / PEAK_BYTES) * 1e3
+        products = 2 * H * N * N * D  # one of the two, over all ranks
+        esize = 1 if int8 else 2  # the ring buffer's
+        nbytes = 2 * H * D * 4 * N + 2 * (n - 1) * 2 * H * D * N * esize
+        by_ops = (products / PEAK_FLOPS + products / PEAK_INT8 if int8
+                  else 2 * products / PEAK_FLOPS)
+        bound = max(by_ops, nbytes / PEAK_BYTES) * 1e3
         row = {"ms": ms, "sdpa_ms": sdpa, "bound_ms": bound, "ranks": n, "N": N}
-        line = (f"ring [{label}] q{shape} over {n} ranks, nl {N // n} ({name}): {ms:.3f} ms, "
-                f"sdpa over the whole sequence {sdpa:.3f} ms, bound {bound:.4f} ms")
+        line = f"ring [{label}] q{shape} over {n} ranks, nl {N // n} ({name}): "
+        timed = run
+        if int8:
+            chunk = N // n if name == "ring_flash_attention_hbm" else min(RK.CHUNK_Q, N // n)
+            alone, o = _kernel_alone(RK, q, k, v, n, bounded, chunk)
+            alone()
+            torch.cuda.synchronize()
+            same = torch.equal(o, first)
+            row.update(kernel_ms=_median_ms(alone, 20), kernel_equals_wrapper=same)
+            line += (f"kernel alone (grids made once) {row['kernel_ms']:.3f} ms, output bitwise "
+                     f"the wrapper's: {same}; wrapper (quant_ring + kernel) ")
+            timed = alone
+        line += (f"{ms:.3f} ms, sdpa over the whole sequence {sdpa:.3f} ms, bound "
+                 f"{bound:.4f} ms")
         if N // n == 261:
-            wall, total, ring, launches = _ring_device_ms(run, 20)
+            wall, total, ring, launches = _ring_device_ms(timed, 20)
             row.update(host_wall_ms=wall / 20, device_ms=total / 20, ring_device_ms=ring / 20,
                        ring_launches_per_call=launches / 20)
-            line += (f"; 20 calls back to back: wall {wall / 20:.3f} ms a call, device time "
-                     f"{total / 20:.3f} ms a call (ring kernels {ring / 20:.3f} ms, "
-                     f"{launches / 20:.0f} launches)")
+            line += (f"; 20 {'kernel-alone ' if int8 else ''}calls back to back: wall "
+                     f"{wall / 20:.3f} ms a call, device time {total / 20:.3f} ms a call (ring "
+                     f"kernels {ring / 20:.3f} ms, {launches / 20:.0f} launches)")
         print(line, flush=True)
         out[label] = row
-        del q, k, v, qt, kt, vt
+        del q, k, v, qt, kt, vt, first
         torch.cuda.empty_cache()
     return out
 
@@ -198,7 +261,8 @@ def sharded_forward(dev):
     from omnivggt_tpu_torch.parallel.mesh import make_mesh
     from omnivggt_tpu_torch.parallel.sharding import ModelSharding
 
-    model = OmniVGGT(OmniVGGTConfig(), device=dev, seed=0)
+    cfg = OmniVGGTConfig()
+    model = OmniVGGT(cfg, device=dev, seed=0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     with torch.no_grad():
@@ -218,16 +282,25 @@ def sharded_forward(dev):
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
 
+    out = {}
     with torch.inference_mode():
-        single = timed(lambda: model(**inputs))
-        sharded = timed(lambda: model(**inputs, sharding=sharding))
-        wall, total, ring, launches = _ring_device_ms(lambda: model(**inputs, sharding=sharding), 1)
-    print(f"flagship forward S={S} {IMG}px: single device {single:.2f} ms, ring_fused over 4 "
-          f"logical ranks {sharded:.2f} ms (medians of 5); profiled sharded forward: wall "
-          f"{wall:.2f} ms, kernels {total:.2f} ms, ring kernels {ring:.2f} ms over {launches} "
-          f"launches", flush=True)
-    return {"single_ms": single, "ring_fused_ms": sharded, "profiled_wall_ms": wall,
-            "profiled_kernel_ms": total, "ring_device_ms": ring, "ring_launches": launches}
+        for key, config in (("bf16", cfg), ("int8", dataclasses.replace(cfg, attn_quant="int8"))):
+            model.config = config
+            single = timed(lambda: model(**inputs))
+            sharded = timed(lambda: model(**inputs, sharding=sharding))
+            wall, total, ring, launches = _ring_device_ms(
+                lambda: model(**inputs, sharding=sharding), 1)
+            print(f"flagship forward S={S} {IMG}px, attn_quant {key}: single device "
+                  f"{single:.2f} ms, ring_fused over 4 logical ranks {sharded:.2f} ms (medians "
+                  f"of 5); profiled sharded forward: wall {wall:.2f} ms, kernels {total:.2f} ms, "
+                  f"ring kernels {ring:.2f} ms over {launches} launches", flush=True)
+            row = {"single_ms": single, "ring_fused_ms": sharded, "profiled_wall_ms": wall,
+                   "profiled_kernel_ms": total, "ring_device_ms": ring, "ring_launches": launches}
+            if key == "bf16":
+                out.update(row)  # the keys of the bf16 forward as before
+            else:
+                out["int8"] = row
+    return out
 
 
 def main() -> int:

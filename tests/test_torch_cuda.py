@@ -676,6 +676,7 @@ def _ring_inputs(n, nl, H, D, seed, device, q_scale=3.0, B=1):
         (4, 300, 1, 2, 64, {}),                     # ragged: 2 whole key tiles and 44 keys
         (2, 40, 1, 2, 64, {}),                      # nl < 128: one key tile, mostly zero fill
         (8, 75, 1, 2, 128, {}),                     # kernel 5, D = 128, 8 ranks, nl < 128
+        (4, 100, 2, 2, 128, {}),                    # D = 128, B = 2, ragged nl < 128
         (3, 1100, 2, 2, 128, {}),                   # kernel 6, ragged, D = 128, B = 2
         (8, 300, 2, 2, 128, {}),                    # 8 ranks, D = 128, B = 2, ragged
         (1, 130, 1, 2, 64, {}),                     # one rank: no rotation
@@ -736,41 +737,61 @@ def test_ring_rotates_its_slots_and_a_skipped_rotation_shows(cuda):
     assert ((out.float() - head_major).abs() <= sharp).all()
 
 
+@pytest.mark.parametrize("qk_int8", [False, True])
 @pytest.mark.parametrize("bounded", [False, True])
 @pytest.mark.parametrize("n,nl,D", [(4, 300, 64), (2, 100, 128)])
-def test_ring_planted_faults_fail_the_tolerance(cuda, n, nl, D, bounded):
-    """The bf16 ring tile's two test hooks plant faults that must leave the
-    2^-7 max|v| tolerance: the last key tile of every shard left out, and
-    K and V read from the next head."""
+def test_ring_planted_faults_fail_the_tolerance(cuda, n, nl, D, bounded, qk_int8):
+    """The ring tile's two test hooks plant faults that must leave the
+    2^-7 max|v| tolerance in both forms: the last key tile of every shard
+    left out, and K and V read from the next head; in the int8 form also
+    head 0's v scale used for every head (there v's heads at scales 1 and
+    2, so their int8 scales differ)."""
     from omnivggt_tpu_torch.ops.kernels import ring_attention as RK
 
     q, k, v = _ring_inputs(n, nl, 2, D, 8, cuda)
-    ref = RK.ring_attention_plain(q.float(), k.float(), v.float(), n, bounded)
+    if qk_int8:
+        v = v * torch.tensor([1.0, 2.0], dtype=v.dtype, device=cuda)[None, None, :, None]
+    ref = RK.ring_attention_plain(q.float(), k.float(), v.float(), n, bounded, qk_int8=qk_int8)
     tol = 2.0**-7 * v.float().abs().max().item()
     wrapper = RK.ring_flash_attention_hbm
-    sound, _ = RK._ring_launch(wrapper, q, k, v, n, bounded, False)
-    cut, _ = RK._ring_launch(wrapper, q, k, v, n, bounded, False, drop_last_key_tile=True)
-    shifted, _ = RK._ring_launch(wrapper, q, k, v, n, bounded, False, kv_head_shift=1)
+    sound, _ = RK._ring_launch(wrapper, q, k, v, n, bounded, qk_int8)
+    faults = [RK._ring_launch(wrapper, q, k, v, n, bounded, qk_int8, **hook)[0]
+              for hook in (dict(drop_last_key_tile=True), dict(kv_head_shift=1))]
+    if qk_int8:
+        q8, k8, v8, table = RK.quant_ring(q, k, v, n, D**-0.5)
+        one_scale = table.clone()
+        one_scale[:, :, 1] = table[:, :1, 1]  # B = 1: row h is head h
+        faults.append(RK._ring_run(q8, k8, v8, one_scale, n, bounded)[0])
     torch.cuda.synchronize()
-    errs = [(x.float() - ref).abs().max().item() for x in (sound, cut, shifted)]
+    errs = [(x.float() - ref).abs().max().item() for x in [sound] + faults]
     assert errs[0] <= tol < min(errs[1:]), (errs, tol)
-    with pytest.raises(RuntimeError):  # the int8 forms have no such hooks
-        RK._ring_launch(wrapper, q, k, v, n, bounded, True, kv_head_shift=1)
 
 
+@pytest.mark.parametrize("qk_int8", [False, True])
 @pytest.mark.parametrize("D", [64, 128])
-def test_ring_kernel_is_deterministic(cuda, D):
-    """21 launches of the bf16 ring on the same inputs give bitwise the same
-    output (a race in the stage ring or in the state between the steps
-    would not show as a wrong mean)."""
+def test_ring_kernel_is_deterministic(cuda, D, qk_int8):
+    """21 launches of the ring on the same inputs give bitwise the same
+    output in both forms (a race in the stage ring, in the int8 form's V
+    conversion or in the state between the steps would not show as a wrong
+    mean)."""
     from omnivggt_tpu_torch.ops.kernels import ring_attention as RK
 
     q, k, v = _ring_inputs(4, 300, 2, D, 9, cuda, B=2)
     for bounded in (True, False):
-        o0, _ = RK._ring_launch(RK.ring_flash_attention_hbm, q, k, v, 4, bounded, False)
+        o0, _ = RK._ring_launch(RK.ring_flash_attention_hbm, q, k, v, 4, bounded, qk_int8)
         for _ in range(20):
-            o, _ = RK._ring_launch(RK.ring_flash_attention_hbm, q, k, v, 4, bounded, False)
+            o, _ = RK._ring_launch(RK.ring_flash_attention_hbm, q, k, v, 4, bounded, qk_int8)
             assert torch.equal(o, o0)
+
+
+def test_ring_launch_shape_is_the_sources(cuda):
+    """The shared memory that ring_launch_shape works out is what the built
+    kernel asks for, in both forms and at both head dims."""
+    from omnivggt_tpu_torch.ops.kernels import ring_attention as RK
+
+    for D in (64, 128):
+        for int8 in (False, True):
+            assert RK.ring_launch_shape(D, int8) == RK.built_launch_shape(D, int8)
 
 
 def test_ring_wrappers_refuse_what_the_kernel_does_not_take(cuda):
