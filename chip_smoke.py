@@ -8,8 +8,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
   2. build: compiles the Hopper kernels from csrc/ with nvcc; prints each
      kernel's registers and shared memory from ptxas' report, and fails if
      a backward kernel (dq, dk/dv, D 64 and 128) or a ring kernel
-     (ring_step_tma bf16 and int8, ring_stage) spills a register, or if
-     the ring step's shared memory differs from RK.ring_launch_shape's;
+     (ring_step_tma bf16 and int8, ring_stage) or a conv kernel
+     (conv3x3_bf16_tma, conv3x3_fp32_tma) spills a register, or if the
+     ring step's or the conv kernel's launch shape differs from
+     RK.ring_launch_shape's or CK.conv_launch_shape's;
   3. kernels: each kernel against its plain PyTorch version at the shapes
      the flagship's 518 px, 8-view forward gives it, bf16 inputs, the plain
      version in fp32 from the same inputs; prints errors beside the stated
@@ -58,19 +60,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      the streaming kernel (bf16 and int8) at the global-attention shape
      with a static key axis and a dynamic valid prefix, the 3x3 convolution
      kernel at the DPT heads' shape (fp32 and bf16, ReLU on and off, one
-     ragged channels-last case), each against its plain version with
-     planted faults that must fail (the int8 forms, on the TMA + wgmma tile
-     with s8 scores: 21 launches bitwise equal, and three faults: one
-     head's dequantising scalar for all heads, the last key tile left out,
-     K and V of the next head); the q grid the stream kernel makes equal to
-     quant_token_major's; every quantiser's int8 grid on the card equal to
-     the CPU's; the layout probes;
+     ragged case, each in NCHW and in channels_last: NCHW copied once by
+     the wrapper and channels_last read in place, counted on
+     conv3x3_folded.relayouts; 21 launches bitwise equal), each against its
+     plain version with planted faults that must fail (the int8 forms, on
+     the TMA + wgmma tile with s8 scores: 21 launches bitwise equal, and
+     three faults: one head's dequantising scalar for all heads, the last
+     key tile left out, K and V of the next head; the conv: the left halo
+     column of every unit left out); the q grid the stream kernel makes
+     equal to quant_token_major's; every quantiser's int8 grid on the card
+     equal to the CPU's; the layout probes and which descriptor starts
+     read right;
   8. serving, after 5 on the same model: a bucketed InferenceSession
      (buckets 4 and 8) under attn_quant = trunk_quant = int8, bf16 heads,
      tanh GELU and the head-conv kernel answers requests of 3, 5 and 8
-     frames (exact launch counts; the padded request against an exact-mode
-     session under the serving gate; the quantisers' grids unmoved by the
-     padded rows); the same with the stream flag on; the Batcher (two
+     frames (exact launch counts, no conv relayout copy; the padded
+     request against an exact-mode session under the serving gate; the
+     quantisers' grids unmoved by the padded rows); the same with the stream flag on; the Batcher (two
      scenes in one B=2 forward) and POST /infer on a local port, each held
      to the single request's answer (same_answer: a limit that the other
      scene's answer breaks); request latencies under each config, the
@@ -380,6 +386,35 @@ def ring_build_report(RK, log):
             e.get("spills") != [0, 0] for e in {**steps, **stages}.values()):
         raise AssertionError(f"a ring kernel spills or is missing from ptxas' report: "
                              f"{steps} {stages}")
+
+
+def conv_build_report(CK, log, probe_log):
+    """The conv kernels' registers and spills, from ptxas' report of
+    csrc/conv3x3.cu (bf16 and fp32, each at N 16, 32, 64) and the layout
+    probe's; a spill fails the run, and so
+    does a launch shape the built library reports that differs from
+    CK.conv_launch_shape's at the flagship's and the card tests' shapes."""
+    for cin, cout in ((128, 32), (128, 64), (16, 8), (20, 24), (33, 48), (64, 32)):
+        for dtype in (torch.bfloat16, torch.float32):
+            built, shape = CK.built_launch_shape(cin, cout, dtype), CK.conv_launch_shape(cin, cout, dtype)
+            if built != shape:
+                raise AssertionError(f"conv_launch_shape({cin}, {cout}, {dtype}) {shape} is not "
+                                     f"the source's {built}")
+    threads, smem = CK.conv_launch_shape(128, 32, torch.bfloat16)
+    print(f"  conv kernel at the flagship's 128 -> 32: bf16 {threads} threads, {smem} bytes of "
+          f"dynamic shared memory; fp32 {CK.conv_launch_shape(128, 32, torch.float32)[1]} bytes")
+    if not log:
+        print("  conv kernels: library built before this run, no ptxas report")
+        return
+    bf16 = ptxas_entries(log, r"(conv3x3_bf16_tma)ILi(\d+)E()")
+    fp32 = ptxas_entries(log, r"(conv3x3_fp32_tma)ILi(\d+)E()")
+    probe = ptxas_entries(probe_log, r"(layout_probe)()()") if probe_log else {}
+    for (kernel, n, _), e in sorted({**bf16, **fp32, **probe}.items()):
+        print(f"  {kernel}{f' N={n}' if n else ''}: {e.get('registers')} registers, spill "
+              f"stores/loads {e.get('spills')} bytes")
+    entries = {**bf16, **fp32, **probe}
+    if (len(bf16), len(fp32)) != (3, 3) or any(e.get("spills") != [0, 0] for e in entries.values()):
+        raise AssertionError(f"a conv kernel spills or is missing from ptxas' report: {entries}")
 
 
 def check_kernels(FK, dev):
@@ -943,25 +978,31 @@ def check_serving_attention(FK, dev):
 
 def check_conv(CK, dev):
     """The 3x3 convolution kernel against F.conv2d in fp32 from the same
-    inputs, entry by entry: the flagship's output_conv2[0] shape in fp32 and
-    bf16, with and without the ReLU, and one ragged channels-last case."""
+    inputs, entry by entry: the flagship's output_conv2[0] shape and one
+    ragged shape, fp32 and bf16, ReLU on and off, each with x in NCHW
+    (copied once by the wrapper, counted on conv3x3_folded.relayouts) and
+    in channels_last (read in place where TMA can map it); the planted halo
+    fault (the left halo column left out) must fail every case; at the
+    flagship 21 launches on the same inputs bitwise equal in both forms, and
+    times: the kernel on both layouts and channels_last in with the NCHW
+    output the heads take, F.conv2d on both layouts, the bound."""
     F = torch.nn.functional
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     result = new_results()
-    # (B, cin, cout, H, W, channels_last, timed)
-    cases = [(8, 128, 32, IMG, IMG, False, True), (1, 20, 24, 37, 45, True, False)]
-    for B, cin, cout, H, W, channels_last, timed in cases:
+    # (B, cin, cout, H, W, the flagship's); both wider than one 64-column
+    # unit, so the planted fault (the left halo column of every unit, the
+    # image's own zero pad in the first) reaches real pixels
+    cases = [(8, 128, 32, IMG, IMG, True), (1, 20, 24, 37, 77, False)]
+    for B, cin, cout, H, W, flagship in cases:
         conv = torch.nn.Conv2d(cin, cout, 3, padding=1).to(dev)
         x32 = torch.randn((B, cin, H, W), generator=gen, device=dev)
         for dtype in (torch.float32, torch.bfloat16):
-            x = x32.to(dtype)
-            if channels_last:
-                x = x.contiguous(memory_format=torch.channels_last)
+            x_nchw = x32.to(dtype)
             w = conv.weight.detach().to(dtype)
             with torch.no_grad():
-                pre = F.conv2d(x.float(), w.float(), conv.bias, padding=1)
-                mag = F.conv2d(x.float().abs(), w.float().abs(), conv.bias.abs(), padding=1)
+                pre = F.conv2d(x_nchw.float(), w.float(), conv.bias, padding=1)
+                mag = F.conv2d(x_nchw.float().abs(), w.float().abs(), conv.bias.abs(), padding=1)
             # both sides add 9 cin products and the bias in fp32 in their own
             # order: each within (9 cin + 1) 2^-24 of the sum of magnitudes;
             # the bf16 kernel also rounds its output to bf16 (2^-8 of it).
@@ -969,55 +1010,80 @@ def check_conv(CK, dev):
             tol = mag.mul_(2 * (9 * cin + 1) * 2.0**-24)
             if dtype == torch.bfloat16:
                 tol += 2.0**-8 * pre.abs()
-            layout = "channels_last" if channels_last else "NCHW"
-            for relu in (False, True):
-                ref = F.relu(pre) if relu else pre
-                with torch.no_grad():
-                    out = CK.conv3x3_folded(conv, x, relu)
-                    bad = CK._launch(conv, x, relu, drop_halo_column=True)
-                torch.cuda.synchronize()
-                err = (out.float() - ref).abs()
-                ratio = (err / tol).max().item()
-                fault_ratio = ((bad.float() - ref).abs() / tol).max().item()
-                max_err = err.max().item()
-                del err, bad
-                line = (f"kernel conv3x3_folded [{B}x{cin}->{cout} {H}x{W} {layout} "
-                        f"{str(dtype).split('.')[-1]} relu={relu}]: max_abs_err {max_err:.3e}, "
-                        f"worst err/tol {ratio:.3f} (tol per entry: 2 (9 cin + 1) 2^-24 "
-                        f"conv(|x|, |w|) for both sides' fp32 sums"
-                        + (", + 2^-8 |ref| for the bf16 output" if dtype == torch.bfloat16 else "")
-                        + f"); planted fault (left halo column left out) err/tol {fault_ratio:.3g}")
-                if timed:
+            name = str(dtype).split('.')[-1]
+            for layout in ("NCHW", "channels_last"):
+                x = (x_nchw if layout == "NCHW"
+                     else x_nchw.contiguous(memory_format=torch.channels_last))
+                copies = 0
+                for relu in (False, True):
+                    ref = F.relu(pre) if relu else pre
+                    before = CK.conv3x3_folded.relayouts
                     with torch.no_grad():
-                        ms = median_ms(lambda: CK.conv3x3_folded(conv, x, relu), 10)
-                        plain_ms = median_ms(lambda: CK.conv3x3_plain(conv, x, relu), 10)
-                        lib_ms = median_ms(lambda: F.conv2d(x, w, conv.bias.to(dtype), padding=1), 10)
-                        line += (f" | kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, F.conv2d "
-                                 f"{lib_ms:.3f} ms")
-                        if dtype == torch.float32:
-                            torch.backends.cudnn.allow_tf32 = True
-                            tf32_ms = median_ms(
-                                lambda: F.conv2d(x, w, conv.bias, padding=1), 10)
-                            torch.backends.cudnn.allow_tf32 = False
-                            line += f" (TF32 off; {tf32_ms:.3f} ms with TF32 on)"
-                    flops = 2 * 9 * cin * cout * B * H * W
-                    nbytes = x.element_size() * (x.numel() + out.numel() + w.numel())
-                    bnd = (bound(0, nbytes, fp32_flops=flops) if dtype == torch.float32
-                           else bound(flops, nbytes))
-                    line += f", bound {bnd[0]:.4f} ms ({bnd[1]})"
-                    if relu:  # the heads call it with the ReLU fused
-                        result["ms"].append(ms)
-                        result["plain_ms"].append(plain_ms)
-                        result["bound"].append(bnd)
-                        result["library_ms"].append(lib_ms)
-                print(line)
-                if not (np.isfinite(ratio) and ratio <= 1.0):
-                    raise AssertionError("conv3x3_folded disagrees with its plain version")
-                if W > 32 and not fault_ratio > 1.0:
-                    raise AssertionError("conv3x3_folded: the planted fault passes the check")
-                result["errs"].append(max_err)
-                del out, ref
-            del pre, tol, x
+                        out = CK.conv3x3_folded(conv, x, relu)
+                        bad = CK._launch(conv, x, relu, drop_halo_column=True)
+                    copies += CK.conv3x3_folded.relayouts - before
+                    torch.cuda.synchronize()
+                    err = (out.float() - ref).abs()
+                    ratio = (err / tol).max().item()
+                    fault_ratio = ((bad.float() - ref).abs() / tol).max().item()
+                    max_err = err.max().item()
+                    del err, bad
+                    line = (f"kernel conv3x3_folded [{B}x{cin}->{cout} {H}x{W} {layout} {name} "
+                            f"relu={relu}]: max_abs_err {max_err:.3e}, worst err/tol {ratio:.3f} "
+                            f"(tol per entry: 2 (9 cin + 1) 2^-24 conv(|x|, |w|) for both sides' "
+                            f"fp32 sums"
+                            + (", + 2^-8 |ref| for the bf16 output" if dtype == torch.bfloat16
+                               else "")
+                            + f"); planted fault (left halo column left out) err/tol "
+                            f"{fault_ratio:.3g}")
+                    if flagship and relu:
+                        with torch.no_grad():
+                            ms = median_ms(lambda: CK.conv3x3_folded(conv, x, relu), 10)
+                            lib_ms = median_ms(
+                                lambda: F.conv2d(x, w, conv.bias.to(dtype), padding=1), 10)
+                            line += f" | kernel {ms:.4f} ms, F.conv2d on this x {lib_ms:.4f} ms"
+                            if layout == "channels_last":
+                                heads_ms = median_ms(lambda: CK.conv3x3_folded(
+                                    conv, x, relu, memory_format=torch.contiguous_format), 10)
+                                plain_ms = median_ms(lambda: CK.conv3x3_plain(conv, x, relu), 10)
+                                line += (f", kernel with the NCHW output the heads take "
+                                         f"{heads_ms:.4f} ms, plain {plain_ms:.4f} ms")
+                                if dtype == torch.float32:
+                                    torch.backends.cudnn.allow_tf32 = True
+                                    tf32_ms = median_ms(
+                                        lambda: F.conv2d(x, w, conv.bias, padding=1), 10)
+                                    torch.backends.cudnn.allow_tf32 = False
+                                    line += f" (F.conv2d TF32 off; {tf32_ms:.4f} ms with TF32 on)"
+                                # 21 launches on the same inputs: the same bits
+                                same = all(torch.equal(CK.conv3x3_folded(conv, x, relu), out)
+                                           for _ in range(20))
+                                line += f"; 21 launches bitwise equal: {same}"
+                                if not same:
+                                    raise AssertionError("conv3x3_folded: 21 launches differ")
+                        flops = 2 * 9 * cin * cout * B * H * W
+                        nbytes = x.element_size() * (x.numel() + out.numel() + w.numel())
+                        bnd = (bound(0, nbytes, fp32_flops=flops) if dtype == torch.float32
+                               else bound(flops, nbytes))
+                        line += f", bound {bnd[0]:.4f} ms ({bnd[1]})"
+                        if layout == "channels_last":  # what the heads hand it
+                            result["ms"].append(ms)
+                            result["plain_ms"].append(plain_ms)
+                            result["bound"].append(bnd)
+                            result["library_ms"].append(lib_ms)
+                    print(line)
+                    if not (np.isfinite(ratio) and ratio <= 1.0):
+                        raise AssertionError("conv3x3_folded disagrees with its plain version")
+                    if W > CK.TILE_W and not fault_ratio > 1.0:
+                        raise AssertionError("conv3x3_folded: the planted fault passes the check")
+                    result["errs"].append(max_err)
+                    del out, ref
+                want = 0 if CK.tma_mappable(x) else 4  # 2 calls + 2 planted faults
+                print(f"  {layout} {name} x: {copies} relayout copies in 4 calls "
+                      f"(TMA maps it in place: {CK.tma_mappable(x)})")
+                if copies != want:
+                    raise AssertionError(f"conv3x3_folded made {copies} relayouts, expected {want}")
+                del x
+            del pre, tol, x_nchw
             torch.cuda.empty_cache()
     return {"conv3x3_folded": result}
 
@@ -1081,6 +1147,7 @@ def serving_phase(model, cfg, dev, card, FK, CK):
     def reset():
         FK.reset_launches()
         CK.conv3x3_folded.launches = 0
+        CK.conv3x3_folded.relayouts = 0
 
     def expect(int8, stream, conv):
         return {"flash_attention": 0, "flash_attention_packed": depth + dino,
@@ -1153,9 +1220,14 @@ def serving_phase(model, cfg, dev, card, FK, CK):
             FK.quant_per_head = quant_per_head
         launches[n] = counts()
         check_output(outs[n], n)
-        print(f"served S={n} through bucket {bucketed._bucket(n)}: launches {launches[n]}")
+        print(f"served S={n} through bucket {bucketed._bucket(n)}: launches {launches[n]}, "
+              f"conv relayout copies {CK.conv3x3_folded.relayouts}")
         if launches[n] != expect(depth, 0, 2):
             raise AssertionError(f"serving launches {launches[n]}, expected {expect(depth, 0, 2)}")
+        # the heads hand the conv kernel channels_last: nothing to copy
+        if CK.conv3x3_folded.relayouts != 0:
+            raise AssertionError(f"the served request made {CK.conv3x3_folded.relayouts} conv "
+                                 f"relayout copies, expected 0")
     print(f"forwards served (bucket, H, W, camera GT, depth GT, masked, batch): "
           f"{sorted(bucketed._served)}")
 
@@ -1811,6 +1883,7 @@ def main() -> int:
           "producer and its V converters, 232)")
     backward_build_report(FK, logs[FK.SOURCES[1]])
     ring_build_report(RK, logs[RK.SOURCE])
+    conv_build_report(CK, logs[CK.SOURCE], logs[PL.SOURCE])
 
     kernel_results = check_kernels(FK, dev)
     check_tma_forms(FK, dev)

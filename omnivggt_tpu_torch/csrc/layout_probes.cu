@@ -1,198 +1,195 @@
-// Ten layout probes for Hopper (sm_90a): each is one data-movement or
+// Layout probes for Hopper (sm_90a): each is one data-movement or
 // matrix-product primitive that the 3x3 convolution kernel (conv3x3.cu)
-// relies on, on a small (rows, columns, 64) bf16 tile that goes through
-// shared memory. Plain C interface, loaded with ctypes from
-// omnivggt_tpu_torch/tools/probe_layouts.py, which holds each probe against
-// the torch expression of the same function.
+// relies on, on a small (rows, columns, 64) bf16 tile. Plain C interface,
+// loaded with ctypes from omnivggt_tpu_torch/tools/probe_layouts.py, which
+// holds each probe against the torch expression of the same function.
 //
 // Replaces the ten tiny TPU kernels of tools/probe_mosaic_layouts.py (_run).
 // There the question was whether Mosaic lowers a reshape, a shifted slice,
-// a roll or a strided slice at all. On Hopper every one of them is address
-// arithmetic, so the question is whether the result is right and whether
-// the vector loads stay legal: the tile's shared rows are padded by 4 bf16
-// (8 bytes), as a bank-conflict pad would, so a slice shifted by one column
-// starts on an 8-byte and not a 16-byte boundary, and load8() must pick the
-// widest load the address allows (a misaligned 16-byte load faults).
+// a roll or a strided slice at all. Here every probe runs on the
+// primitives the convolution uses, so the question is whether they address
+// the tile right:
+//   - the tile enters shared memory as one TMA box of a 4-D map over the
+//     contiguous (rows, cols, 64) tensor, channels innermost, 128-byte
+//     swizzle: pixel p is the 128-byte row p of the box, its 16-byte chunk
+//     c stored at chunk c ^ (p % 8) (sm90.cuh);
+//   - the movement probes read the tile back through those swizzled
+//     addresses, 16 bytes at a time;
+//   - the matmul probes run wgmma m64n128k16 SS on descriptors: A is 64
+//     consecutive pixel rows of the tile, B the (128, 64) K-major w^T
+//     staged by TMA the same way. The column-offset probe starts the A
+//     descriptor `off` pixels (off * 128 bytes) into each image row, as the
+//     convolution shifts its dx taps, so the start is not on the swizzle's
+//     1024-byte repeat; `base_offset` chooses whether the descriptor's
+//     matrix base-offset field stays 0 or carries (start >> 7) & 7.
 //
-// Bound by launch latency: each probe moves about 55 KB.
+// Bound by launch latency: each probe moves about 55 KB. The function's
+// shared-memory attribute is set once per process; the wrapper encodes
+// each tensor map once per tensor.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kC = 64;        // channels
-constexpr int kRow = kC + 4;  // shared row length of the movement probes
-constexpr int kRowM = kC + 8; // shared row length of the matmul probes
-constexpr int kThreads = 128;
+constexpr int kC = 64;            // channels: one 128-byte row a pixel
+constexpr int kMaxPixels = 512;   // tile rows * cols
+constexpr int kSlack = 64;        // pixel rows past the tile an A block may read
+constexpr int kThreads = 256;     // two warpgroups
+constexpr int kTileBytes = (kMaxPixels + kSlack) * 128;
+constexpr int kWBytes = 128 * 128;  // w^T: 128 rows of 64 bf16
+constexpr int kSmem = 1024 + kTileBytes + kWBytes + 16;
 
-struct __align__(16) Vec8 {
-  __nv_bfloat16 v[8];
+struct ProbeParams {
+  CUtensorMap x_map;  // (64, cols, rows, 1), box = the whole tile
+  CUtensorMap w_map;  // (64, 1, 128, 1): the (128, 64) w^T, K-major
+  __nv_bfloat16* out;
+  int probe, R, W2, A, B, CO, off, base_offset;
 };
 
-// eight bf16 from shared memory by the widest load the address allows
-__device__ __forceinline__ Vec8 load8(const __nv_bfloat16* p) {
-  Vec8 out;
-  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
-  if ((a & 15) == 0) {
-    *reinterpret_cast<uint4*>(out.v) = *reinterpret_cast<const uint4*>(p);
-  } else if ((a & 7) == 0) {
-    reinterpret_cast<uint2*>(out.v)[0] = reinterpret_cast<const uint2*>(p)[0];
-    reinterpret_cast<uint2*>(out.v)[1] = reinterpret_cast<const uint2*>(p)[1];
-  } else {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      reinterpret_cast<uint32_t*>(out.v)[i] = reinterpret_cast<const uint32_t*>(p)[i];
-  }
-  return out;
-}
-
-// stage a contiguous (rows, cols, 64) tile into shared rows of `row` bf16
-__device__ __forceinline__ void stage(__nv_bfloat16* tile, const __nv_bfloat16* x,
-                                      int n_pix, int row) {
-  for (int i = threadIdx.x; i < n_pix * (kC / 8); i += kThreads) {
-    const int pix = i / (kC / 8), c = (i % (kC / 8)) * 8;
-    const uint4 val = *reinterpret_cast<const uint4*>(x + pix * kC + c);
-    __nv_bfloat16* dst = tile + pix * row + c;
-    // the padded row is 8-byte aligned only
-    reinterpret_cast<uint2*>(dst)[0] = make_uint2(val.x, val.y);
-    reinterpret_cast<uint2*>(dst)[1] = make_uint2(val.z, val.w);
-  }
-}
-
-// The movement probes. x: (R, W2, 64); out: (A, B, CO) with CO 64 or 128.
-// Each output vector of 8 channels comes from pixel (r1, w1) of x, plus
-// pixel (r2, w2) when `add`.
-__global__ void __launch_bounds__(kThreads) probe_move(int probe, const __nv_bfloat16* x,
-                                                       __nv_bfloat16* out, int R, int W2,
-                                                       int A, int B, int CO) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);
-  stage(tile, x, R * W2, kRow);
-  __syncthreads();
-  const int vecs = CO / 8;
-  for (int i = threadIdx.x; i < A * B * vecs; i += kThreads) {
-    const int a = i / (B * vecs), b = (i / vecs) % B, c = (i % vecs) * 8;
-    const int half = c / kC, cc = c % kC;  // which 64-channel half of a concat
-    int r1 = a, w1 = b, r2 = 0, w2 = 0;
-    bool add = false;
-    switch (probe) {
-      case 0:  // major split (R, W2, C) -> (R/2, 2, W2, C), the two halves added
-        r1 = 2 * a; r2 = 2 * a + 1; w2 = b; add = true; break;
-      case 1:  // major merge, 16-aligned columns: (R, W2, C) -> (R * W2, C)
-      case 2:  // the same with an unaligned column count
-        r1 = a / W2; w1 = a % W2; break;
-      case 3:  // channel concat of two slices shifted along the major (row) axis
-        r1 = 2 * a + 2 * half; break;
-      case 4:  // channel concat of two slices shifted by one column
-        w1 = b + half; break;
-      case 5:  // roll by one along the column axis
-        w1 = (b + W2 - 1) % W2; break;
-      case 6:  // strided major slice x[0::2]
-        r1 = 2 * a; break;
-      case 7:  // strided column slice x[:, 0::2]
-        w1 = 2 * b; break;
-      case 8:  // channel concat of column-interleaved slices
-        w1 = 2 * b + half; break;
-    }
-    Vec8 v = load8(tile + (r1 * W2 + w1) * kRow + cc);
-    if (add) {
-      const Vec8 u = load8(tile + (r2 * W2 + w2) * kRow + cc);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) v.v[j] = __hadd(v.v[j], u.v[j]);
-    }
-    *reinterpret_cast<uint4*>(out + ((long long)(a * B + b)) * CO + c) =
-        *reinterpret_cast<const uint4*>(v.v);
-  }
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The matmul probes: out (M, 128) = A (M, 64) @ w (64, 128) in bf16 with
-// fp32 accumulation, where row m of A is pixel (m / (W2 - off), off + m %
-// (W2 - off)) of x (R, W2, 64): with off = 1 the left operand starts one
-// column into every row of the tile.
-__global__ void __launch_bounds__(kThreads) probe_matmul(const __nv_bfloat16* x,
-                                                         const __nv_bfloat16* w,
-                                                         __nv_bfloat16* out, int R, int W2,
-                                                         int off) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* tile = reinterpret_cast<__nv_bfloat16*>(smem);  // [R * W2][kRowM]
-  __nv_bfloat16* wt = tile + R * W2 * kRowM;                     // [128][kRowM]: w^T
-  stage(tile, x, R * W2, kRowM);
-  for (int i = threadIdx.x; i < kC * 128; i += kThreads) {
-    const int k = i / 128, n = i % 128;
-    wt[n * kRowM + k] = w[i];
+__global__ void __launch_bounds__(kThreads) layout_probe(const __grid_constant__ ProbeParams p) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* tile = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* wt = tile + kTileBytes;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(wt + kWBytes);
+  const bool matmul = p.probe == 9;
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(bar, 1);
+    sm90::fence_barrier_init();
   }
   __syncthreads();
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int wide = W2 - off, M = R * wide;
-  for (int mb = warp; mb * 16 < M; mb += kThreads / 32) {
-    const int m_lo = mb * 16 + g, m_hi = m_lo + 8;
-    // rows past M read row 0 and are not stored
-    const int p_lo = m_lo < M ? (m_lo / wide) * W2 + off + m_lo % wide : 0;
-    const int p_hi = m_hi < M ? (m_hi / wide) * W2 + off + m_hi % wide : 0;
-    float acc[16][4];
+  if (threadIdx.x == 0) {
+    const uint32_t x_bytes = p.R * p.W2 * 128;
+    sm90::mbar_arrive_expect_tx(bar, x_bytes + (matmul ? kWBytes : 0));
+    sm90::tma_load_4d(tile, &p.x_map, bar, 0, 0, 0, 0);
+    if (matmul) sm90::tma_load_4d(wt, &p.w_map, bar, 0, 0, 0, 0);
+  }
+  sm90::mbar_wait(bar, 0);
+
+  if (!matmul) {
+    // out (A, B, CO) with CO 64 or 128: each 8-channel vector comes from
+    // pixel (r1, w1) of x, plus pixel (r2, w2) when `add`
+    const int vecs = p.CO / 8;
+    for (int i = threadIdx.x; i < p.A * p.B * vecs; i += kThreads) {
+      const int a = i / (p.B * vecs), b = (i / vecs) % p.B, c = (i % vecs) * 8;
+      const int half = c / kC, cc = c % kC;  // which 64-channel half of a concat
+      int r1 = a, w1 = b, r2 = 0, w2 = 0;
+      bool add = false;
+      switch (p.probe) {
+        case 0:  // major split (R, W2, C) -> (R/2, 2, W2, C), the two halves added
+          r1 = 2 * a; r2 = 2 * a + 1; w2 = b; add = true; break;
+        case 1:  // major merge, 16-aligned columns: (R, W2, C) -> (R * W2, C)
+        case 2:  // the same with an unaligned column count
+          r1 = a / p.W2; w1 = a % p.W2; break;
+        case 3:  // channel concat of two slices shifted along the major (row) axis
+          r1 = 2 * a + 2 * half; break;
+        case 4:  // channel concat of two slices shifted by one column
+          w1 = b + half; break;
+        case 5:  // roll by one along the column axis
+          w1 = (b + p.W2 - 1) % p.W2; break;
+        case 6:  // strided major slice x[0::2]
+          r1 = 2 * a; break;
+        case 7:  // strided column slice x[:, 0::2]
+          w1 = 2 * b; break;
+        case 8:  // channel concat of column-interleaved slices
+          w1 = 2 * b + half; break;
+      }
+      const uint32_t o1 = (r1 * p.W2 + w1) * 128 + cc * 2;
+      uint4 v = *reinterpret_cast<const uint4*>(tile + sm90::swizzled<128>(o1));
+      if (add) {
+        const uint32_t o2 = (r2 * p.W2 + w2) * 128 + cc * 2;
+        const uint4 u = *reinterpret_cast<const uint4*>(tile + sm90::swizzled<128>(o2));
+        __nv_bfloat162* vv = reinterpret_cast<__nv_bfloat162*>(&v);
+        const __nv_bfloat162* uu = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-    for (int n = 0; n < 16; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+        for (int j = 0; j < 4; ++j) vv[j] = __hadd2(vv[j], uu[j]);
+      }
+      *reinterpret_cast<uint4*>(p.out + (static_cast<long long>(a) * p.B + b) * p.CO + c) = v;
+    }
+    return;
+  }
+
+  // out (M, 128) = A (M, 64) @ w (64, 128), M = R (W2 - off): row m of A is
+  // pixel (m / (W2 - off), off + m % (W2 - off)). Each image row is cut
+  // into blocks of up to 64 output rows; a block's A operand is the 64
+  // pixel rows from its first, and rows past the block are not stored.
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int warp = t / 32, g = (t % 32) / 4, q = t % 4;
+  const int wide = p.W2 - p.off, per_row = (wide + 63) / 64;
+  for (int j = wg; j < p.R * per_row; j += kThreads / 128) {
+    const int r = j / per_row, mb = j % per_row;
+    const int first = r * p.W2 + p.off + 64 * mb;  // pixel row of the tile
+    const int valid = min(64, wide - 64 * mb);
+    float acc[64];
+    sm90::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kC / 16; ++kk) {
-      const __nv_bfloat16* lo = tile + p_lo * kRowM + kk * 16 + t * 2;
-      const __nv_bfloat16* hi = tile + p_hi * kRowM + kk * 16 + t * 2;
-      const uint32_t a0 = ld32(lo), a1 = ld32(hi), a2 = ld32(lo + 8), a3 = ld32(hi + 8);
-#pragma unroll
-      for (int n = 0; n < 16; ++n) {
-        const __nv_bfloat16* r = wt + (n * 8 + g) * kRowM + kk * 16 + t * 2;
-        const uint32_t b0 = ld32(r), b1 = ld32(r + 8);
-        asm volatile(
-            "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-            : "+f"(acc[n][0]), "+f"(acc[n][1]), "+f"(acc[n][2]), "+f"(acc[n][3])
-            : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-      }
+      const uint8_t* a_start = tile + first * 128 + kk * 32;
+      uint64_t a = sm90::desc_sw<128>(a_start, 16, 1024);
+      if (p.base_offset) a = sm90::with_base_offset(a, sm90::smem_u32(a_start) >> 7);
+      sm90::wgmma_ss_m64n128k16(acc, a, sm90::desc_sw<128>(wt + kk * 32, 16, 1024), kk > 0);
     }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(acc);
+    const long long m0 = static_cast<long long>(r) * wide + 64 * mb;
 #pragma unroll
-    for (int n = 0; n < 16; ++n) {
-      const int col = n * 8 + t * 2;
-      if (m_lo < M)
-        *reinterpret_cast<__nv_bfloat162*>(out + (long long)m_lo * 128 + col) =
-            __floats2bfloat162_rn(acc[n][0], acc[n][1]);
-      if (m_hi < M)
-        *reinterpret_cast<__nv_bfloat162*>(out + (long long)m_hi * 128 + col) =
-            __floats2bfloat162_rn(acc[n][2], acc[n][3]);
+    for (int i = 0; i < 64; i += 2) {
+      const int row = 16 * warp + g + 8 * ((i / 2) % 2), col = 8 * (i / 4) + 2 * q;
+      if (row < valid)
+        *reinterpret_cast<__nv_bfloat162*>(p.out + (m0 + row) * 128 + col) =
+            __floats2bfloat162_rn(acc[i], acc[i + 1]);
     }
   }
+}
+
+cudaError_t set_attributes() {
+  return cudaFuncSetAttribute(layout_probe, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
 }
 
 }  // namespace
 
-// probe 0..8: a movement probe (see probe_move) from x (R, W2, 64) to out
-// (A, B, CO); probe 9: the matmul probe with left-operand offset `off` and
-// the (64, 128) matrix w. Returns the cudaError_t of the launch.
-extern "C" int omnivggt_layout_probe(int probe, const void* x, const void* w, void* out,
+// Encodes the TMA map of a contiguous (rows, cols, 64) bf16 tile into
+// map_out (128 bytes): one box of the whole tile, 128-byte swizzle.
+// Returns 1 on success, 0 where the driver refuses it or the tile is over
+// kMaxPixels.
+extern "C" int omnivggt_probe_encode(const void* base, int rows, int cols, void* map_out) {
+  if (rows < 1 || cols < 1 || rows > 256 || cols > 256 || rows * cols > kMaxPixels) return 0;
+  CUtensorMap map;
+  const long long dims[4] = {kC, cols, rows, 1};
+  const long long strides[3] = {kC * 2, static_cast<long long>(cols) * kC * 2,
+                                static_cast<long long>(rows) * cols * kC * 2};
+  const int box[4] = {kC, cols, rows, 1};
+  if (!sm90::encode_tiled_4d(&map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides, box,
+                             CU_TENSOR_MAP_SWIZZLE_128B))
+    return 0;
+  memcpy(map_out, &map, sizeof(map));
+  return 1;
+}
+
+// probe 0..8: a movement probe from the tile x (R, W2, 64) to out
+// (A, B, CO); probe 9: the matmul probe with left-operand offset `off`
+// and base_offset 0 or 1, w_map the map of the contiguous (128, 64) w^T
+// encoded as a (128, 1, 64) tile. Maps are 128-byte host buffers from
+// omnivggt_probe_encode. Returns the cudaError_t of the launch.
+extern "C" int omnivggt_layout_probe(int probe, const void* x_map, const void* w_map, void* out,
                                      int R, int W2, int A, int B, int CO, int off,
-                                     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
-  __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(out);
-  cudaError_t err;
-  if (probe >= 0 && probe <= 8) {
-    const int bytes = R * W2 * kRow * (int)sizeof(__nv_bfloat16);
-    err = cudaFuncSetAttribute(probe_move, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    probe_move<<<1, kThreads, bytes, s>>>(probe, xb, ob, R, W2, A, B, CO);
-  } else if (probe == 9) {
-    const int bytes = (R * W2 + 128) * kRowM * (int)sizeof(__nv_bfloat16);
-    err = cudaFuncSetAttribute(probe_matmul, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    probe_matmul<<<1, kThreads, bytes, s>>>(xb, static_cast<const __nv_bfloat16*>(w), ob, R, W2,
-                                            off);
-  } else {
+                                     int base_offset, void* stream) {
+  static const cudaError_t attr = set_attributes();
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  if (probe < 0 || probe > 9 || R * W2 > kMaxPixels || (probe == 9 && w_map == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  }
+  ProbeParams p;
+  memcpy(&p.x_map, x_map, sizeof(CUtensorMap));
+  if (probe == 9) memcpy(&p.w_map, w_map, sizeof(CUtensorMap));
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.probe = probe; p.R = R; p.W2 = W2; p.A = A; p.B = B; p.CO = CO; p.off = off;
+  p.base_offset = base_offset;
+  layout_probe<<<1, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

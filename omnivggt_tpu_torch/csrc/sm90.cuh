@@ -1,6 +1,6 @@
 // Hopper (sm_90a) primitives in raw PTX, shared by the kernels that stage
 // tiles with the Tensor Memory Accelerator (TMA) and multiply them with
-// warpgroup MMA (wgmma): mbarriers, 4-D and 1-D TMA loads, wgmma
+// warpgroup MMA (wgmma): mbarriers, 4-D and 1-D TMA loads and bulk copies, wgmma
 // descriptors and instructions, register hand-over between warpgroups, and
 // the host-side encoding of a TMA tensor map. No PyTorch header is
 // included.
@@ -115,6 +115,16 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// `bytes` contiguous bytes (a multiple of 16, both addresses 16-byte
+// aligned) from global into shared memory, completion counted on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ---- warpgroups -------------------------------------------------------------
 
 template <int kRegs>
@@ -174,6 +184,16 @@ __device__ __forceinline__ uint64_t desc_sw(const void* smem, uint32_t lbo, uint
   d |= static_cast<uint64_t>((sbo >> 4) & 0x3FFFu) << 32;
   d |= (kSwizzle == 128 ? 1ull : 2ull) << 62;  // layout type: 1 128-byte, 2 64-byte swizzle
   return d;
+}
+
+// the descriptor's matrix base offset (bits 49-51): the phase of the
+// swizzle pattern at the start address, for a pattern that does not start
+// on its 1024-byte repeat. The layout probes (csrc/layout_probes.cu) hold
+// a start address shifted by whole 128-byte rows inside a 1024-byte
+// aligned TMA tile with the field left at 0 and with it set to
+// (start >> 7) & 7
+__device__ __forceinline__ uint64_t with_base_offset(uint64_t desc, uint32_t offset) {
+  return desc | (static_cast<uint64_t>(offset & 7u) << 49);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -260,6 +280,105 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32], uint64_t a, u
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (m64n48, fp32) = a (smem, K-major) * b (smem, K-major)^T, plus d when
+// accumulate != 0; both operands bf16 in 128-byte swizzle
+__device__ __forceinline__ void wgmma_ss_m64n48k16(float (&d)[24], uint64_t a, uint64_t b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23"
+      "}, %24, %25, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (m64n96, fp32) = a (smem, K-major) * b (smem, K-major)^T, plus d when
+// accumulate != 0; both operands bf16 in 128-byte swizzle
+__device__ __forceinline__ void wgmma_ss_m64n96k16(float (&d)[48], uint64_t a, uint64_t b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (m64n192, fp32) = a (smem, K-major) * b (smem, K-major)^T, plus d when
+// accumulate != 0; both operands bf16 in 128-byte swizzle
+__device__ __forceinline__ void wgmma_ss_m64n192k16(float (&d)[96], uint64_t a, uint64_t b,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, %96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -386,6 +505,29 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
+// A 4-D map over a tensor whose innermost axis is contiguous: dims and box
+// innermost first, the three outer strides in bytes, the given swizzle;
+// coordinates outside the extent (below 0 as above it) read as zeros.
+// Returns false where the driver refuses the map (a base not 16-byte
+// aligned, a stride not a multiple of 16 bytes, a box over 256).
+inline bool encode_tiled_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                            const long long (&dims)[4], const long long (&stride_bytes)[3],
+                            const int (&box)[4], CUtensorMapSwizzle swizzle) {
+  EncodeTiledFn fn = encode_tiled_fn();
+  if (fn == nullptr) return false;
+  cuuint64_t d[4], st[3];
+  cuuint32_t b[4];
+  const cuuint32_t element_strides[4] = {1, 1, 1, 1};
+  for (int i = 0; i < 4; ++i) {
+    d[i] = static_cast<cuuint64_t>(dims[i]);
+    b[i] = static_cast<cuuint32_t>(box[i]);
+  }
+  for (int i = 0; i < 3; ++i) st[i] = static_cast<cuuint64_t>(stride_bytes[i]);
+  return fn(map, type, 4, const_cast<void*>(base), d, st, b, element_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 // A 4-D map over a (B, N, H, D) tensor given by its base pointer and its
 // batch, token and head strides in elements (the last axis contiguous):
 // dims (D, H, N, B) innermost first, box (`cols` columns, 1 head, `rows`
@@ -395,18 +537,10 @@ inline bool encode_bnhd(CUtensorMap* map, CUtensorMapDataType type, int elem_byt
                         const void* base, int B, int N, int H, int D, long long sb,
                         long long sn, long long sh, int cols, int rows,
                         CUtensorMapSwizzle swizzle) {
-  EncodeTiledFn fn = encode_tiled_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * elem_bytes,
-                                 static_cast<cuuint64_t>(sn) * elem_bytes,
-                                 static_cast<cuuint64_t>(sb) * elem_bytes};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t element_strides[4] = {1, 1, 1, 1};
-  return fn(map, type, 4, const_cast<void*>(base), dims, strides, box, element_strides,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const long long dims[4] = {D, H, N, B};
+  const long long strides[3] = {sh * elem_bytes, sn * elem_bytes, sb * elem_bytes};
+  const int box[4] = {cols, 1, rows, 1};
+  return encode_tiled_4d(map, type, base, dims, strides, box, swizzle);
 }
 
 // bf16: boxes of 64 columns (128 bytes), 128-byte swizzle

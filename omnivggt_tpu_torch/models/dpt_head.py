@@ -44,9 +44,11 @@ def _conv3x3(p, x, int8=False, relu=False):
     space-to-depth rewrite when enabled and eligible. The flag alone
     decides, as in the JAX package: `conv3x3_folded` launches its kernel on
     a CUDA tensor (and raises when a gradient is asked of it, being forward
-    only) and computes its plain version on a CPU tensor."""
+    only) and computes its plain version on a CPU tensor. The output is
+    NCHW whatever x's layout, as the library convolution's on the head's
+    NCHW tensors, so what follows runs as with the flag off."""
     if _PALLAS_HEAD_CONVS and not int8 and conv3x3_eligible(x.shape, p.weight.shape):
-        return conv3x3_folded(p, x, relu=relu)
+        return conv3x3_folded(p, x, relu=relu, memory_format=torch.contiguous_format)
     if _S2D_HEAD_CONVS and x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0:
         y = L.conv2d_s2d(p, x, int8=int8)
     else:
@@ -186,6 +188,12 @@ def _forward_frames(p: DPTHead, tokens4, patch_hw, img_hw, quant="none"):
     out = _fusion(s.refinenet2, out, l2, size=l1.shape[-2:], int8=q8)
     out = _fusion(s.refinenet1, out, l1, int8=q8)
     out = _conv3x3(s.output_conv1, out, int8=q8)
+    if _PALLAS_HEAD_CONVS and not q8 and not cfg.feature_only:
+        # the kernel stages its input by TMA, channels innermost: convert
+        # here, where the tensor is a third of the size it has after the
+        # upsample; the upsample and the pos-embed add keep the layout, and
+        # the kernel writes its output NCHW
+        out = out.contiguous(memory_format=torch.channels_last)
 
     target = (int(ph * cfg.patch_size / cfg.down_ratio), int(pw * cfg.patch_size / cfg.down_ratio))
     out = F.interpolate(out, size=target, mode="bilinear", align_corners=True)

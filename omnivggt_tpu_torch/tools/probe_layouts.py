@@ -4,19 +4,25 @@
 
 Counterpart of tools/probe_mosaic_layouts.py. Each of the ten probes is one
 data-movement or matrix-product primitive on a small (rows, columns, 64)
-bf16 tile, run as a tiny CUDA kernel (csrc/layout_probes.cu) that goes
-through shared memory, held against the torch expression of the same array
-function, and printed as PASS or FAIL with its time.
+bf16 tile, run as a tiny CUDA kernel (csrc/layout_probes.cu) on the
+primitives the convolution kernel (csrc/conv3x3.cu) uses, held against the
+torch expression of the same array function, and printed as PASS or FAIL
+with its time.
 
 On the TPU the question each probe answered was "does Mosaic lower it":
 interpret mode accepted everything, and on the chip most shifted, rolled
 and strided forms were refused, which decided the TPU kernel's shape. On
-Hopper all ten are address arithmetic and compile, so the question is "is
-it right, and does the vector load stay legal": the kernels' shared rows
-carry a pad, a slice shifted by one column then starts on an 8-byte
-boundary, and a 16-byte load there would fault. A FAIL here means the
-convolution kernel's tile addressing cannot be trusted. Exit code 1 on any
-FAIL or without a CUDA device.
+Hopper the tile enters shared memory as one TMA box under the 128-byte
+swizzle, the movements read it back through the swizzled addresses, and
+the matrix products run wgmma on shared-memory descriptors, so the question
+is "does this addressing read the tile right". The column-offset product
+starts its left operand one 128-byte pixel row into each image row, off
+the swizzle's 1024-byte repeat, as the convolution's dx taps do; it runs
+in the descriptor form the convolution uses (`CONV_BASE_OFFSET`), and
+`descriptor_forms` reports, for starts 0..7 rows past the repeat, which
+forms of the descriptor's base-offset field read right. A FAIL here means
+the convolution kernel's tile addressing cannot be trusted. Exit code 1 on
+any FAIL or without a CUDA device.
 """
 
 from __future__ import annotations
@@ -32,6 +38,10 @@ from omnivggt_tpu_torch.ops.kernels import build
 
 SOURCE = "layout_probes.cu"
 R, W2, C = 18, 24, 64  # tile rows, columns, channels (as the TPU probes)
+# the descriptor form of csrc/conv3x3.cu's shifted A operands: 0 leaves
+# the matrix base-offset field at 0, 1 sets it to (start >> 7) & 7
+CONV_BASE_OFFSET = 0
+_MAPS: dict = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -39,23 +49,36 @@ def _library():
     lib, log = build.load(SOURCE)
     fn = lib.omnivggt_layout_probe
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, ptr]
+    fn.argtypes = [i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
     fn.restype = ctypes.c_int
-    return fn, log
+    lib.omnivggt_probe_encode.argtypes = [ptr, i32, i32, ptr]
+    lib.omnivggt_probe_encode.restype = ctypes.c_int
+    return fn, lib.omnivggt_probe_encode, log
 
 
-def _launch(probe, x, out_shape, w=None, off=0):
-    """One probe kernel on x (rows, cols, 64) -> out_shape (A, B, CO)."""
-    x = x.contiguous()
+def _map(t, rows, cols):
+    """The TMA map of the contiguous (rows, cols, 64) bf16 tensor t, encoded
+    once per tensor and shape."""
+    key = (t.data_ptr(), rows, cols)
+    if key not in _MAPS:
+        buf = ctypes.create_string_buffer(128)
+        if not _library()[1](t.data_ptr(), rows, cols, buf):
+            raise RuntimeError(f"no TMA map for a ({rows}, {cols}, {C}) tile")
+        _MAPS[key] = buf
+    return _MAPS[key]
+
+
+def _launch(probe, x, out_shape, wt=None, off=0, base_offset=CONV_BASE_OFFSET):
+    """One probe kernel on the contiguous x (rows, cols, 64) -> out_shape
+    (A, B, CO); the matmul probe (9) takes wt = w^T, (128, 64) contiguous."""
     out = torch.empty(out_shape, dtype=torch.bfloat16, device=x.device)
     A, B, CO = out_shape
-    fn = _library()[0]
-    with torch.cuda.device(x.device):
-        err = fn(
-            probe, x.data_ptr(), None if w is None else w.contiguous().data_ptr(),
-            out.data_ptr(), x.shape[0], x.shape[1], A, B, CO, off,
-            torch.cuda.current_stream(x.device).cuda_stream,
-        )
+    rows, cols = x.shape[0], x.shape[1]
+    w_map = None if wt is None else _map(wt, 128, 1)
+    err = _library()[0](
+        probe, _map(x, rows, cols), w_map, out.data_ptr(), rows, cols, A, B, CO, off,
+        base_offset, torch.cuda.current_stream(x.device).cuda_stream,
+    )
     if err != 0:
         raise RuntimeError(f"layout probe {probe} launch failed: cudaError {err}")
     _launch.launches += 1
@@ -81,6 +104,7 @@ def probes(device, seed: int = 0):
 
     x, x_al, x_un = rand(R, W2, C), rand(16, 32, C), rand(16, 27, C)
     x2, w = rand(64, C), rand(C, 128)
+    wt = w.t().contiguous()  # the K-major right operand the kernel stages
     xr = x.reshape(R // 2, 2, W2, C)
     return [
         ("reshape major split (2rb+2,w2,c)->(rb+1,2,w2,c), halves added",
@@ -94,11 +118,11 @@ def probes(device, seed: int = 0):
         ("channel concat of major-shifted slices (a shift along H)",
          lambda: _launch(3, x, (R // 2 - 1, W2, 2 * C)),
          lambda: torch.cat([xr[0 : R // 2 - 1, 0], xr[1 : R // 2, 0]], dim=-1), True),
-        ("channel concat of column-offset slices (a shift along W, 8-byte aligned loads)",
+        ("channel concat of column-offset slices (a shift along W, swizzled 16-byte loads)",
          lambda: _launch(4, x, (R, W2 - 1, 2 * C)),
          lambda: torch.cat([x[:, 0 : W2 - 1], x[:, 1:W2]], dim=-1), True),
         ("matmul with a column-offset left operand",
-         lambda: _launch(9, x, (R * (W2 - 1), 1, 128), w, off=1).reshape(-1, 128),
+         lambda: _launch(9, x, (R * (W2 - 1), 1, 128), wt, off=1).reshape(-1, 128),
          lambda: _matmul_ref(x[:, 1:W2].reshape(-1, C), w), False),
         ("roll by one along the column axis",
          lambda: _launch(5, x, (R, W2, C)), lambda: torch.roll(x, 1, 1), True),
@@ -110,9 +134,32 @@ def probes(device, seed: int = 0):
          lambda: _launch(8, x, (R, W2 // 2, 2 * C)),
          lambda: torch.cat([x[:, 0::2], x[:, 1::2]], dim=-1), True),
         ("sanity 2D matmul (64,64)@(64,128)",
-         lambda: _launch(9, x2.reshape(64, 1, C), (64, 1, 128), w).reshape(64, 128),
+         lambda: _launch(9, x2.reshape(1, 64, C), (64, 1, 128), wt).reshape(64, 128),
          lambda: _matmul_ref(x2, w), False),
     ]
+
+
+def descriptor_forms(device, seed: int = 1) -> dict:
+    """{base_offset: [starts that read right]}: the column-offset product on
+    a (2, 72, 64) tile with its left operand starting k = 0..7 pixel rows
+    into each image row (k 128-byte rows past the swizzle's 1024-byte
+    repeat), with the descriptor's base-offset field left at 0 and set to
+    (start >> 7) & 7, each held against the torch product."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    x = torch.randn((2, 72, C), generator=gen, device=device).to(torch.bfloat16)
+    w = torch.randn((C, 128), generator=gen, device=device).to(torch.bfloat16)
+    wt = w.t().contiguous()
+    forms = {}
+    for base_offset in (0, 1):
+        forms[base_offset] = []
+        for k in range(8):
+            got = _launch(9, x, (2 * (72 - k), 1, 128), wt, off=k, base_offset=base_offset)
+            want = _matmul_ref(x[:, k:].reshape(-1, C), w)
+            tol = 2.0**-7 * want.float().abs().max().item()
+            if (got.reshape(-1, 128).float() - want.float()).abs().max().item() <= tol:
+                forms[base_offset].append(k)
+    return forms
 
 
 def _time_ms(fn, reps: int = 20) -> float:
@@ -139,7 +186,9 @@ def run(device="cuda", out=print, stats=None) -> bool:
     device = torch.device(device)
     _library()
     ok, worst, ms, plain_ms, nbytes = True, 0.0, 0.0, 0.0, 0
-    out(f"layout probes (bf16, tile ({R}, {W2}, {C}), shared rows padded by 8 bytes):")
+    out(f"layout probes (bf16, tile ({R}, {W2}, {C}) as one TMA box under the 128-byte swizzle, "
+        f"matrix products by wgmma; shifted descriptors with base-offset field "
+        f"{'(start >> 7) & 7' if CONV_BASE_OFFSET else '0'}, as csrc/conv3x3.cu):")
     for name, kernel, ref, exact in probes(device):
         got, want = kernel(), ref()
         torch.cuda.synchronize()
@@ -153,8 +202,12 @@ def run(device="cuda", out=print, stats=None) -> bool:
         nbytes += 2 * (R * W2 * C + want.numel())  # about: the tile in, the result out
         out(f"  {'PASS' if passed else 'FAIL'} {name}: max_abs_err {err:.3e} "
             f"(tol {tol:.3e}), {t_kernel:.4f} ms (torch expression {t_plain:.4f} ms)")
+    forms = descriptor_forms(device)
+    out(f"  descriptor starts k = 0..7 pixel rows past the swizzle's 1024-byte repeat that read "
+        f"right: base-offset field 0 at k = {forms[0]}, field (start >> 7) & 7 at k = {forms[1]}")
+    ok &= forms[CONV_BASE_OFFSET] == list(range(8))
     if stats is not None:
-        stats.update(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bytes=nbytes)
+        stats.update(max_abs_err=worst, ms=ms, plain_ms=plain_ms, bytes=nbytes, forms=forms)
     return ok
 
 

@@ -601,6 +601,46 @@ def test_conv3x3_kernel_matches_plain(cuda, case, channels_last, dtype):
         CK.conv3x3_folded(conv, x.requires_grad_(True), relu)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_kernel_layouts_and_launches_agree(cuda, dtype):
+    """The same x in NCHW (copied once by the wrapper, counted) and in
+    channels_last (read in place) gives the same bits, in either output
+    layout; 21 launches on the same inputs are bitwise equal."""
+    from omnivggt_tpu_torch.ops.kernels import conv3x3 as CK
+
+    torch.manual_seed(2)
+    conv = torch.nn.Conv2d(40, 24, 3, padding=1).to(cuda)
+    x = torch.randn(2, 40, 37, 70, device=cuda).to(dtype)
+    x_cl = x.contiguous(memory_format=torch.channels_last)
+    with torch.no_grad():
+        ref = CK.conv3x3_folded(conv, x_cl, True)
+        assert ref.is_contiguous(memory_format=torch.channels_last)
+        nchw = CK.conv3x3_folded(conv, x, True)
+        assert nchw.is_contiguous() and torch.equal(nchw, ref)
+        to_nchw = CK.conv3x3_folded(conv, x_cl, True, memory_format=torch.contiguous_format)
+        assert to_nchw.is_contiguous() and torch.equal(to_nchw, ref)
+        for _ in range(20):
+            assert torch.equal(CK.conv3x3_folded(conv, x_cl, True), ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_relayouts_only_what_tma_cannot_map(cuda, dtype):
+    """channels_last at cin 128 goes in place (0 copies), NCHW at W 518 is
+    copied once; the launch shape the library reports is conv_launch_shape's."""
+    from omnivggt_tpu_torch.ops.kernels import conv3x3 as CK
+
+    conv = torch.nn.Conv2d(128, 32, 3, padding=1).to(cuda)
+    x = torch.randn(1, 128, 40, 518, device=cuda).to(dtype)
+    before = CK.conv3x3_folded.relayouts
+    with torch.no_grad():
+        CK.conv3x3_folded(conv, x.contiguous(memory_format=torch.channels_last))
+        assert CK.conv3x3_folded.relayouts == before
+        CK.conv3x3_folded(conv, x)
+        assert CK.conv3x3_folded.relayouts == before + 1
+    for cin, cout in ((128, 32), (128, 64), (16, 8), (20, 24), (33, 48), (64, 32)):
+        assert CK.built_launch_shape(cin, cout, dtype) == CK.conv_launch_shape(cin, cout, dtype)
+
+
 def test_head_conv_flag_launches_the_kernel_whatever_the_grad_mode(cuda, monkeypatch):
     """With the head-conv flag on, an eligible convolution of a CUDA tensor
     launches the kernel with grad mode on as well as off; only a gradient

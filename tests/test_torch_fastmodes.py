@@ -216,8 +216,8 @@ def test_head_conv_flags_keep_the_jax_names_and_defaults(pair, images, monkeypat
     routed = []
     folded = TDH.conv3x3_folded
     monkeypatch.setattr(TDH, "conv3x3_folded",
-                        lambda p, x, relu=False: (routed.append(torch.is_grad_enabled()),
-                                                  folded(p, x, relu=relu))[1])
+                        lambda p, x, relu=False, **kw: (routed.append(torch.is_grad_enabled()),
+                                                        folded(p, x, relu=relu, **kw))[1])
     with torch.no_grad():
         base = TM.apply(model, t(images), tcfg)
         monkeypatch.setattr(TDH, "_S2D_HEAD_CONVS", True)
