@@ -79,8 +79,15 @@ Phases, each of which fails the run (non-zero exit, no result line):
      quantisers' grids unmoved by the padded rows); the same with the stream flag on; the Batcher (two
      scenes in one B=2 forward) and POST /infer on a local port, each held
      to the single request's answer (same_answer: a limit that the other
-     scene's answer breaks); request latencies under each config, the
-     quantisation passes' share, one profiled request;
+     scene's answer breaks); (e) the scene outputs of the S=8 request:
+     POST /infer_glb in both prediction modes (the kernels' launch counts,
+     the GLB's header, chunks, point count and frusta, and its bytes equal
+     to _glb_from_preds on the host of the /infer answer), the viewer's page
+     and /data (bytes equal to _scene_payload's), the trajectory metrics
+     against the request's GT cameras and a TUM round trip, with the
+     latencies of /infer_glb and /infer and the host times of the GLB and
+     the payload; request latencies under each config, the quantisation
+     passes' share, one profiled request;
   9. ladder: certify_fast_modes on the same weights, every rung's readings,
      the config returned, and what the ladder without the quantising rungs
      (from_safetensors' default) returns.
@@ -140,6 +147,7 @@ import json
 import re
 import socket
 import statistics
+import struct
 import subprocess
 import sys
 import threading
@@ -1126,6 +1134,157 @@ def request_inputs(n, seed, with_gt):
     return req
 
 
+def read_glb(data: bytes):
+    """(glTF JSON, BIN chunk, POSITION count of each mesh) of a GLB; raises
+    unless the header is glTF version 2 with the stated length and the
+    chunks are a JSON chunk then a BIN chunk that fill it."""
+    magic, version, length = struct.unpack_from("<III", data, 0)
+    if (magic, version, length) != (0x46546C67, 2, len(data)):
+        raise AssertionError(f"GLB header {magic:#x} v{version} length {length} of {len(data)}")
+    jlen, jtype = struct.unpack_from("<II", data, 12)
+    blen, btype = struct.unpack_from("<II", data, 20 + jlen)
+    if (jtype, btype) != (0x4E4F534A, 0x004E4942) or 28 + jlen + blen != len(data):
+        raise AssertionError("GLB chunks are not one JSON chunk and one BIN chunk")
+    gltf = json.loads(data[20 : 20 + jlen])
+    counts = [gltf["accessors"][m["primitives"][0]["attributes"]["POSITION"]]["count"]
+              for m in gltf["meshes"]]
+    return gltf, data[28 + jlen :], counts
+
+
+def outputs_phase(session, req, card, reset, counts, expected):
+    """(e) the scene outputs of a served S=8 request: POST /infer and POST
+    /infer_glb (conf_thres 25, both prediction modes) on a local port, each
+    GLB well formed, its point count what predictions_to_glb_data keeps and
+    one frustum a frame, and byte for byte _glb_from_preds on the host of the
+    /infer answer plus the request's images; the viewer (serve_scene) on a
+    local port, its /data byte for byte _scene_payload's; the trajectory
+    metrics of the predicted poses against the request's GT cameras (frames
+    0-3) and a TUM round trip. Host times are taken on the host of the
+    machine that holds the card, not on the device."""
+    import tempfile
+
+    from omnivggt_tpu_torch import serving as TS
+    from omnivggt_tpu_torch.eval import trajectory as TT
+    from omnivggt_tpu_torch.utils.geometry import (
+        pose_encoding_to_extri_intri, unproject_depth_map_to_point_map,
+    )
+    from omnivggt_tpu_torch.viz import glb as TG
+    from omnivggt_tpu_torch.viz import server as TSrv
+
+    n = req["images"].shape[0]
+    fields = {k: np.asarray(v) for k, v in req.items()}
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        port = sock.getsockname()[1]
+
+    def post(route, **extra):
+        body = io.BytesIO()
+        np.savez(body, **fields, **extra)
+        request = urllib.request.Request(f"http://localhost:{port}{route}", data=body.getvalue(),
+                                         method="POST")
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(request, timeout=600) as resp:
+            status, ctype, data = resp.status, resp.headers["Content-Type"], resp.read()
+        ms = (time.perf_counter() - t0) * 1e3
+        if status != 200:
+            raise AssertionError(f"POST {route}: {status}")
+        return ctype, data, ms
+
+    httpd, _ = TS.serve(session, port=port, background=True)
+    try:
+        answer = dict(np.load(io.BytesIO(post("/infer")[1])))
+        answer["images"] = req["images"]
+        ext, intr = (t[0].numpy() for t in pose_encoding_to_extri_intri(
+            torch.from_numpy(answer["pose_enc"])[None], (IMG, IMG)))
+        preds = {**answer, "extrinsic": ext, "intrinsic": intr,
+                 "world_points_from_depth": unproject_depth_map_to_point_map(
+                     answer["depth"], ext, intr)}
+        for mode, conf_key in (("Predicted Pointmap", "world_points_conf"), ("Depth", "depth_conf")):
+            kw = dict(conf_thres=25.0, prediction_mode=mode)
+            reset()
+            ctype, body, _ = post("/infer_glb", conf_thres=np.float32(25.0), prediction_mode=mode)
+            launches = counts()
+            if launches != expected:
+                raise AssertionError(f"/infer_glb launches {launches}, expected {expected}")
+            _, _, positions = read_glb(body)
+            kept = len(TG.predictions_to_glb_data(preds, **kw)[0])
+            conf = answer[conf_key].reshape(-1)
+            by_rule = int(((conf >= np.percentile(conf, 25.0)) & (conf > 1e-5)).sum())
+            t0 = time.perf_counter()
+            host = TS._glb_from_preds(answer, IMG, IMG, **kw)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            print(f"outputs: POST /infer_glb [{mode}] {ctype}, {len(body) / 1e6:.3f} MB, "
+                  f"{positions[0]} of {conf.size} points kept (predictions_to_glb_data {kept}, "
+                  f"by the rule {by_rule}), {len(positions) - 1} frusta; launches {launches}; "
+                  f"equal to _glb_from_preds on the host: {body == host}")
+            if ctype != "model/gltf-binary" or positions[0] != kept or kept != by_rule:
+                raise AssertionError(f"/infer_glb [{mode}]: malformed answer or point count")
+            if len(positions) != 1 + n or any(c != 9 for c in positions[1:]):
+                raise AssertionError(f"/infer_glb [{mode}]: {len(positions) - 1} frusta for {n} frames")
+            if body != host:
+                raise AssertionError(f"/infer_glb [{mode}] differs from _glb_from_preds of the "
+                                     "/infer answer")
+            print(f"outputs: host time of _glb_from_preds [{mode}] at {conf.size} points: "
+                  f"{host_ms:.2f} ms (host time, on the machine that holds the card); GLB {len(body) / 1e6:.3f} MB, "
+                  f"{sum(positions)} vertices; card {card}")
+        infer_ms = [post("/infer")[2] for _ in range(3)]
+        glb_ms = [post("/infer_glb", conf_thres=np.float32(25.0), prediction_mode="Depth")[2]
+                  for _ in range(3)]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    print(f"outputs: S={n} {IMG}px request latency (host clock around the HTTP call, config (a)): "
+          f"POST /infer_glb [Depth] median {statistics.median(glb_ms):.2f} ms "
+          f"({', '.join(f'{t:.2f}' for t in glb_ms)}) against POST /infer median "
+          f"{statistics.median(infer_ms):.2f} ms ({', '.join(f'{t:.2f}' for t in infer_ms)}); "
+          f"card {card}")
+
+    t0 = time.perf_counter()
+    payload = TSrv._scene_payload(preds)
+    payload_ms = (time.perf_counter() - t0) * 1e3
+    with socket.socket() as sock:
+        sock.bind(("", 0))
+        view_port = sock.getsockname()[1]
+    viewer = TSrv.serve_scene(preds, port=view_port, background_mode=True)
+    try:
+        with urllib.request.urlopen(f"http://localhost:{view_port}/", timeout=60) as resp:
+            page_ok = resp.status == 200 and resp.headers["Content-Type"] == "text/html" \
+                and b"<canvas" in resp.read()
+        with urllib.request.urlopen(f"http://localhost:{view_port}/data", timeout=60) as resp:
+            data = resp.read()
+    finally:
+        viewer.httpd.shutdown()
+        viewer.httpd.server_close()
+    header = struct.unpack_from("<III", data, 0)
+    print(f"outputs: viewer GET / {'200 HTML' if page_ok else 'FAILED'}; GET /data "
+          f"{len(data) / 1e6:.3f} MB, header (points, frames, segments) {header}, equal to "
+          f"_scene_payload: {data == payload}; host time of the payload build {payload_ms:.2f} ms "
+          f"(host time, on the machine that holds the card); card {card}")
+    if not page_ok or data != payload or header != (n * IMG * IMG, n, 8 * n):
+        raise AssertionError("the viewer's page or /data is wrong")
+
+    gt = np.tile(np.eye(4), (4, 1, 1))
+    gt[:, :3] = req["extrinsics"][:4]
+    E = np.tile(np.eye(4), (4, 1, 1))
+    E[:, :3] = ext[:4]
+    pred_c2w, gt_c2w = np.linalg.inv(E), np.linalg.inv(gt)
+    metrics = {**TT.eval_metrics(pred_c2w, gt_c2w), **TT.pose_auc(pred_c2w, gt_c2w)}
+    print("outputs: trajectory of frames 0-3 against the request's GT cameras (seeded "
+          "weights: the values mean nothing): "
+          + ", ".join(f"{k} {v:.6g}" for k, v in metrics.items()))
+    if not all(np.isfinite(v) for v in metrics.values()):
+        raise AssertionError("non-finite trajectory metrics")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/traj.txt"
+        TT.save_trajectory_tum_format(pred_c2w, path)
+        back, ts = TT.load_trajectory_tum_format(path)
+    err = float(np.abs(back - pred_c2w).max())
+    print(f"outputs: TUM round trip of the predicted poses: max abs error {err:.3e} (float32 "
+          f"quaternions; limit 1e-5)")
+    if not err <= 1e-5 or ts.tolist() != [0.0, 1.0, 2.0, 3.0]:
+        raise AssertionError("the TUM round trip moved the poses")
+
+
 def serving_phase(model, cfg, dev, card, FK, CK):
     """The serving path at full width: a bucketed InferenceSession on the
     flagship under the int8 fast modes, the stream flag, the Batcher and
@@ -1316,6 +1475,10 @@ def serving_phase(model, cfg, dev, card, FK, CK):
           f"backend {health['backend']} ready {health['ready']}")
     if status != 200 or health["status"] != "ok":
         raise AssertionError("the HTTP endpoint did not answer")
+
+    # (e) the scene outputs of the S=8 request: /infer_glb, the viewer, the
+    # trajectory metrics
+    outputs_phase(bucketed, reqs[8], card, reset, counts, expect(depth, 0, 2))
 
     # request latencies (numpy in, numpy out) and peak memory
     def latency(label):
@@ -1842,7 +2005,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} numpy {np.__version__}; "
           f"allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} "
           f"cudnn={torch.backends.cudnn.allow_tf32}")
 

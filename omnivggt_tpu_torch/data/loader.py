@@ -26,6 +26,8 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
+from omnivggt_tpu_torch.data.cropping import resize_image_depth_and_intrinsic
+
 TARGET_SIZE = 518
 PATCH = 14
 
@@ -86,39 +88,6 @@ def _load_depth(depth_folder: str, basename: str, max_depth: float):
     return None
 
 
-def _resize_image_depth_and_intrinsic(image, depthmap, intrinsics, target_size: int, patch: int):
-    """Width -> target_size, height rounded to a multiple of `patch` and
-    centre-cropped to at most target_size; intrinsics rescaled and the
-    principal point shifted by the crop (counterpart of
-    omnivggt_tpu/data/cropping.resize_image_depth_and_intrinsic)."""
-    from PIL import Image
-
-    W, H = image.size
-    new_w = target_size
-    new_h = round(H * (new_w / W) / patch) * patch
-    sx, sy = new_w / W, new_h / H
-    image = image.resize((new_w, new_h), Image.BICUBIC)
-    if depthmap is not None:
-        import cv2
-
-        depthmap = cv2.resize(depthmap, (new_w, new_h), interpolation=cv2.INTER_NEAREST)
-    K = None
-    if intrinsics is not None:
-        K = np.asarray(intrinsics).copy()
-        K[0, 0] *= sx
-        K[1, 1] *= sy
-        K[0, 2] *= sx
-        K[1, 2] *= sy
-    if new_h > target_size:
-        crop_y = (new_h - target_size) // 2
-        image = image.crop((0, crop_y, new_w, crop_y + target_size))
-        if depthmap is not None:
-            depthmap = depthmap[crop_y : crop_y + target_size]
-        if K is not None:
-            K[1, 2] -= crop_y
-    return image, depthmap, K
-
-
 def load_images_and_cameras(
     image_folder: str,
     camera_folder: Optional[str] = None,
@@ -152,8 +121,9 @@ def load_images_and_cameras(
                 extrinsic, intrinsic = load_camera_from_txt(cam_path)
         has_camera = extrinsic is not None and intrinsic is not None
 
-        img, depthmap, intrinsic = _resize_image_depth_and_intrinsic(
-            img, depthmap, intrinsic if has_camera else None, target_size, PATCH
+        img, depthmap, intrinsic = resize_image_depth_and_intrinsic(
+            img, depthmap, intrinsic if has_camera else None,
+            target_size=target_size, patch=PATCH,
         )
         arr = np.asarray(img, np.float32) / 255.0
         imgs.append(arr)

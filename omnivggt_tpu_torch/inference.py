@@ -3,16 +3,19 @@
 Loads a scene folder (images + optional per-frame camera .txt and depth
 .npy/.png), runs one forward pass on --device (default cuda, which must
 exist; --device cpu runs the kernels' plain versions on the CPU), decodes
-the camera poses and unprojects the depth maps. The GLB export and the viewer are not ported
-yet: --save_glb, and running without --no_viewer, stop with an error.
+the camera poses and unprojects the depth maps, optionally exports a GLB
+(--save_glb; default path <parent of image_folder>/scene.glb), and serves the
+interactive 3D viewer unless --no_viewer is given (--background_mode: on a
+daemon thread, and main returns).
 
     python -m omnivggt_tpu_torch.inference --image_folder scene/images \
-        --camera_folder scene/cameras --checkpoint OmniVGGT.safetensors --no_viewer
+        --camera_folder scene/cameras --checkpoint OmniVGGT.safetensors --save_glb
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 
 import numpy as np
 
@@ -68,13 +71,6 @@ def main(argv=None):
             f"--target_size must be a multiple of the 14-px patch (got "
             f"{args.target_size}; nearest: {round(args.target_size / 14) * 14})"
         )
-    if args.save_glb or not args.no_viewer:
-        raise SystemExit(
-            "the GLB export (--save_glb) and the interactive viewer are not "
-            "ported to omnivggt_tpu_torch yet; run with --no_viewer and "
-            "without --save_glb, or use the JAX CLI (inference.py)"
-        )
-
     import torch
 
     from omnivggt_tpu_torch.checkpoint import cast_trunk_params
@@ -165,6 +161,38 @@ def main(argv=None):
     for k in ("pose_enc", "depth", "world_points", "world_points_from_depth"):
         v = preds[k]
         print(f"{k}: shape {v.shape}, finite {bool(np.isfinite(v).all())}")
+
+    if args.save_glb:
+        from omnivggt_tpu_torch.viz.glb import predictions_to_glb
+
+        glb_path = args.glb_path or os.path.join(
+            os.path.dirname(args.image_folder.rstrip("/")) or ".", "scene.glb"
+        )
+        predictions_to_glb(
+            preds,
+            glb_path,
+            conf_thres=args.conf_threshold,
+            mask_black_bg=args.mask_black_bg,
+            mask_white_bg=args.mask_white_bg,
+            mask_sky=args.mask_sky,
+            image_folder=args.image_folder,
+            target_dir=os.path.dirname(glb_path) or ".",
+            prediction_mode="Predicted Pointmap" if args.use_point_map else "Depth",
+        )
+        print(f"saved {glb_path}")
+
+    if not args.no_viewer:
+        from omnivggt_tpu_torch.viz.server import serve_scene
+
+        serve_scene(
+            preds,
+            port=args.port,
+            init_conf_threshold=args.conf_threshold,
+            background_mode=args.background_mode,
+            use_point_map=args.use_point_map,
+            mask_black_bg=args.mask_black_bg,
+            mask_white_bg=args.mask_white_bg,
+        )
     return preds
 
 

@@ -16,8 +16,10 @@
   - `serve()`: a stdlib HTTP endpoint. POST /infer with an .npz body
     (images [+ extrinsics / intrinsics / depth / mask + camera_gt_index /
     depth_gt_index]) returns an .npz of predictions; GET /healthz reports
-    liveness with a deadline-bounded device probe; optional bearer `token`
-    auth. POST /infer_glb answers 501: the GLB export is not ported yet.
+    liveness with a deadline-bounded device probe; POST /infer_glb takes
+    the same body (plus optional conf_thres / mask_black_bg / mask_white_bg
+    / prediction_mode) and returns the scene as a binary GLB; optional
+    bearer `token` auth.
 """
 
 from __future__ import annotations
@@ -530,15 +532,42 @@ class Batcher:
                 e["event"].set()
 
 
+def _glb_from_preds(preds: Dict[str, np.ndarray], H: int, W: int,
+                    **glb_kwargs) -> bytes:
+    """predictions -> binary GLB (the inference CLI's --save_glb pipeline)."""
+    from omnivggt_tpu_torch.utils.geometry import (
+        pose_encoding_to_extri_intri, unproject_depth_map_to_point_map,
+    )
+    from omnivggt_tpu_torch.viz.glb import predictions_to_glb_data, write_glb
+
+    extrinsic, intrinsic = pose_encoding_to_extri_intri(
+        torch.from_numpy(np.asarray(preds["pose_enc"]))[None], (H, W)
+    )
+    p = dict(preds)
+    p["extrinsic"] = extrinsic[0].numpy()
+    p["intrinsic"] = intrinsic[0].numpy()
+    # unproject the depth only when the export mode uses it (mirrors
+    # predictions_to_glb_data's branch)
+    mode = glb_kwargs.get("prediction_mode", "Predicted Pointmap")
+    if not ("Pointmap" in mode and "world_points" in p):
+        p["world_points_from_depth"] = unproject_depth_map_to_point_map(
+            p["depth"], p["extrinsic"], p["intrinsic"]
+        )
+    points, colors, cam_meshes = predictions_to_glb_data(p, **glb_kwargs)
+    buf = io.BytesIO()
+    write_glb(buf, points, colors, cam_meshes)
+    return buf.getvalue()
+
+
 def serve(session: InferenceSession, port: int = 8000, background: bool = False,
           token: Optional[str] = None, batch_window_ms: float = 0.0,
           max_batch: int = 8, request_timeout_s: Optional[float] = None,
           probe: Optional[BackendProbe] = None,
           warmup_frame_counts: Optional[Sequence[int]] = None,
           warmup_hw: tuple = (518, 518)):
-    """POST /infer (npz body) -> npz predictions; GET /healthz -> JSON with a
-    deadline-bounded device-liveness verdict; POST /infer_glb -> 501 (the
-    GLB export is not ported yet). `token` enables bearer auth;
+    """POST /infer (npz body) -> npz predictions; POST /infer_glb -> binary
+    GLB; GET /healthz -> JSON with a deadline-bounded device-liveness
+    verdict. `token` enables bearer auth;
     `batch_window_ms` > 0 coalesces concurrent compatible requests into
     batched forwards (see Batcher); `request_timeout_s` bounds every
     inference dispatch, and a wedged device returns 503 instead of hanging
@@ -623,12 +652,6 @@ def serve(session: InferenceSession, port: int = 8000, background: bool = False,
                 return
             if not self._authed():
                 return
-            if route == "/infer_glb":
-                self._send(
-                    501, b'{"error": "the GLB export is not ported yet; use /infer"}',
-                    "application/json",
-                )
-                return
             if warming["active"]:
                 # do not queue traffic behind the warmup forwards
                 self._send(
@@ -643,14 +666,27 @@ def serve(session: InferenceSession, port: int = 8000, background: bool = False,
                 for idx_key in ("camera_gt_index", "depth_gt_index"):
                     if idx_key in kwargs:
                         kwargs[idx_key] = [int(i) for i in kwargs[idx_key]]
+                glb_kwargs = {}
+                if route == "/infer_glb":
+                    for gk, cast in (
+                        ("conf_thres", float), ("mask_black_bg", bool),
+                        ("mask_white_bg", bool), ("prediction_mode", str),
+                    ):
+                        if gk in kwargs:
+                            glb_kwargs[gk] = cast(kwargs.pop(gk))
                 t0 = time.time()
                 preds = run_infer(**kwargs)
                 dt = time.time() - t0
                 hdr = {"X-Inference-Seconds": f"{dt:.3f}"}
-                buf = io.BytesIO()
-                # the client's own images are not echoed back
-                np.savez(buf, **{k: v for k, v in preds.items() if k != "images"})
-                self._send(200, buf.getvalue(), "application/octet-stream", hdr)
+                if route == "/infer_glb":
+                    H, W = np.asarray(kwargs["images"]).shape[1:3]
+                    body = _glb_from_preds(preds, H, W, **glb_kwargs)
+                    self._send(200, body, "model/gltf-binary", hdr)
+                else:
+                    buf = io.BytesIO()
+                    # the client's own images are not echoed back
+                    np.savez(buf, **{k: v for k, v in preds.items() if k != "images"})
+                    self._send(200, buf.getvalue(), "application/octet-stream", hdr)
             except Exception as e:  # noqa: BLE001 — report to the client
                 body = json.dumps({"error": f"{type(e).__name__}: {e}"}).encode()
                 code = 503 if isinstance(e, InferenceTimeout) else 400
@@ -668,7 +704,7 @@ def serve(session: InferenceSession, port: int = 8000, background: bool = False,
     t.start()
     print(
         f"inference server on :{httpd.server_address[1]} "
-        "(POST /infer, GET /healthz)"
+        "(POST /infer, POST /infer_glb, GET /healthz)"
     )
     if warmup_frame_counts:
         t0 = time.time()

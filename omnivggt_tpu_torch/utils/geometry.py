@@ -4,7 +4,8 @@
     with sign standardisation;
   - closed-form SE3 inverse;
   - the 9-dim absT_quaR_FoV pose codec;
-  - depth unprojection to camera and world points.
+  - depth unprojection to camera and world points;
+  - the Colmap <-> OpenCV principal-point conventions (numpy).
 """
 
 from __future__ import annotations
@@ -210,3 +211,19 @@ def unproject_depth_map_to_point_map(depth_map, extrinsics_cam, intrinsics_cam) 
         for d, e, k in zip(depth_map, extrinsics_cam, intrinsics_cam)
     ]
     return torch.stack(world).cpu().numpy()
+
+
+def colmap_to_opencv_intrinsics(K: np.ndarray) -> np.ndarray:
+    """Shift the principal point by -0.5 px (Colmap pixel-centre convention ->
+    OpenCV)."""
+    K = np.array(K, copy=True)
+    K[..., 0, 2] -= 0.5
+    K[..., 1, 2] -= 0.5
+    return K
+
+
+def opencv_to_colmap_intrinsics(K: np.ndarray) -> np.ndarray:
+    K = np.array(K, copy=True)
+    K[..., 0, 2] += 0.5
+    K[..., 1, 2] += 0.5
+    return K

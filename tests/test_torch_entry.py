@@ -1,10 +1,14 @@
-"""Entry points of the PyTorch port: it imports and runs without JAX, the
-chip smoke test refuses a machine without CUDA, the scene loader matches
-the JAX package's, the CLI runs end to end, and safetensors load strictly."""
+"""Entry points of the PyTorch port: it imports and runs without JAX (and
+without PIL, OpenCV, matplotlib and onnxruntime), the chip smoke test
+refuses a machine without CUDA, the scene loader matches the JAX package's,
+the CLI runs end to end (the GLB and the viewer too), and safetensors load
+strictly."""
 
 import os
 import subprocess
 import sys
+import threading
+import urllib.request
 from pathlib import Path
 
 import numpy as np
@@ -15,24 +19,48 @@ from omnivggt_tpu.data import loader as JLoad
 from omnivggt_tpu_torch import config as TC
 from omnivggt_tpu_torch.data import loader as TLoad
 from omnivggt_tpu_torch.models import omnivggt as TM
+from tests.torch_port_util import free_port, read_glb
 
 REPO = Path(__file__).resolve().parents[1]
 
 _GUARD = r"""
 import importlib, pkgutil, sys
-sys.modules["jax"] = None            # any `import jax` now raises ImportError
-sys.modules["omnivggt_tpu"] = None
+import numpy as np
+BLOCKED = ("jax", "omnivggt_tpu", "PIL", "cv2", "matplotlib", "onnxruntime")
+for name in BLOCKED:
+    sys.modules[name] = None         # any `import jax` (PIL, cv2, ...) now raises ImportError
 import torch
 import omnivggt_tpu_torch
 for m in pkgutil.walk_packages(omnivggt_tpu_torch.__path__, "omnivggt_tpu_torch."):
     importlib.import_module(m.name)
 from omnivggt_tpu_torch.config import tiny_test_config
+from omnivggt_tpu_torch.eval.trajectory import eval_metrics
 from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
+from omnivggt_tpu_torch.serving import _glb_from_preds
+from omnivggt_tpu_torch.utils.geometry import pose_encoding_to_extri_intri
+from omnivggt_tpu_torch.viz.server import build_payload, camera_wire_segments
 model = OmniVGGT(tiny_test_config(), device="cpu", seed=0)
 with torch.inference_mode():
     out = model(torch.rand(2, 28, 28, 3))
 assert out["depth"].shape == (1, 2, 28, 28, 1) and torch.isfinite(out["depth"]).all()
-bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "omnivggt_tpu") and sys.modules[m] is not None]
+# the scene outputs run on numpy alone: the GLB, the viewer's payload, the metrics
+preds = {k: v[0].float().numpy() for k, v in out.items() if k != "pose_enc_list"}
+for mode in ("Predicted Pointmap", "Depth"):
+    assert _glb_from_preds(preds, 28, 28, conf_thres=25.0, prediction_mode=mode)[:4] == b"glTF"
+ext = pose_encoding_to_extri_intri(out["pose_enc"], (28, 28))[0][0].numpy()
+segs, seg_cols = camera_wire_segments(ext, 1.0)
+n = 2 * 28 * 28
+payload = build_payload(preds["world_points"].reshape(-1, 3), np.zeros((n, 3), np.uint8),
+                        preds["world_points_conf"].reshape(-1), np.repeat(np.arange(2.0), n // 2),
+                        2, segs, seg_cols)
+assert int.from_bytes(payload[:4], "little") == n
+E = np.tile(np.eye(4), (2, 1, 1))
+E[:, :3] = ext
+c2w = np.linalg.inv(E)
+gt = c2w.copy()
+gt[:, :3, 3] += 0.1
+assert all(np.isfinite(v) for v in eval_metrics(c2w, gt).values())
+bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED + ("jaxlib",) and sys.modules[m] is not None]
 assert not bad, bad
 print("ok")
 """
@@ -112,7 +140,7 @@ def test_loader_matches_jax(scene):
         TLoad.load_images_and_cameras(str(scene / "cameras"))
 
 
-def test_inference_cli_tiny(scene):
+def test_inference_cli_tiny(scene, capsys):
     from omnivggt_tpu_torch import inference
 
     folder = str(scene / "images")
@@ -127,9 +155,32 @@ def test_inference_cli_tiny(scene):
     # random weights may predict a zero field of view (an infinite focal
     # length in `intrinsic`, in both packages); everything else is finite
     assert all(np.isfinite(v).all() for k, v in preds.items() if k != "intrinsic")
-    for extra in (["--no_viewer", "--save_glb"], []):
-        with pytest.raises(SystemExit, match="not ported"):
-            inference.main(["--image_folder", folder, "--tiny", *extra])
+    # --save_glb writes <parent of the image folder>/scene.glb; without
+    # --no_viewer the viewer serves the predictions (--background_mode: on a
+    # daemon thread, so main returns)
+    port = free_port()
+    capsys.readouterr()
+    preds = inference.main([
+        "--image_folder", folder, "--tiny", "--save_glb", "--background_mode", "--port", str(port),
+        "--target_size", "56", "--device", "cpu", "--conf_threshold", "10",
+    ])
+    glb = scene / "scene.glb"
+    assert f"saved {glb}" in capsys.readouterr().out
+    gltf, _ = read_glb(glb.read_bytes())
+    assert len(gltf["meshes"]) == 1 + 3  # the points, one frustum per frame
+    viewers = [t for t in threading.enumerate() if getattr(t, "httpd", None)
+               and t.httpd.server_address[1] == port]
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=30) as r:
+            assert r.status == 200 and b"<canvas" in r.read()
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/data", timeout=30) as r:
+            data = r.read()
+        assert int.from_bytes(data[:4], "little") == preds["depth"][..., 0].size
+    finally:
+        for t in viewers:
+            t.httpd.shutdown()
+            t.httpd.server_close()
+    assert len(viewers) == 1
     with pytest.raises(SystemExit, match="multiple of the 14-px patch"):
         inference.main(["--image_folder", folder, "--tiny", "--no_viewer", "--target_size", "50"])
     # the default device is cuda, and there is none here: a clear error, no

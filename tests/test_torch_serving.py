@@ -7,7 +7,6 @@ certificate file read across both packages.
 import dataclasses
 import io
 import json
-import socket
 import threading
 import time
 import urllib.error
@@ -23,7 +22,7 @@ from omnivggt_tpu.models import omnivggt as JM
 from omnivggt_tpu_torch import certification as TCert
 from omnivggt_tpu_torch import serving as TS
 from omnivggt_tpu_torch.models import omnivggt as TM
-from tests.torch_port_util import OUTPUT_KEYS, tiny_pair
+from tests.torch_port_util import OUTPUT_KEYS, free_port, tiny_pair
 
 HW = 28
 
@@ -53,12 +52,6 @@ def _aux(S, seed=5):
         depth=rng.uniform(0.5, 3.0, size=(S, HW, HW, 1)).astype(np.float32),
         mask=np.ones((S, HW, HW), np.float32), camera_gt_index=[0, 2], depth_gt_index=[1],
     )
-
-
-def _free_port():
-    with socket.socket() as s:
-        s.bind(("", 0))
-        return s.getsockname()[1]
 
 
 def _post(port, path, body, headers=None):
@@ -254,9 +247,11 @@ def test_backend_probe_states():
 
 def test_http_endpoint(model):
     """POST /infer with an .npz body, GET /healthz, bearer auth, a
-    malformed body (400), an unknown path (404) and /infer_glb (501)."""
+    malformed body (400), an unknown path (404), and POST /infer_glb: 200
+    with a GLB equal to _glb_from_preds of the /infer answer (the same
+    forward; the request's images added back), 401 without the token."""
     session = TS.InferenceSession(model, buckets=(2, 4))
-    port = _free_port()
+    port = free_port()
     httpd, _ = TS.serve(session, port=port, background=True, token="s3cret",
                         probe=TS.BackendProbe(device="cpu"))
     auth = {"Authorization": "Bearer s3cret"}
@@ -275,8 +270,17 @@ def test_http_endpoint(model):
         assert health["status"] == "ok" and health["ready"] is True
         assert health["buckets"] == [2, 4] and health["batching"] is False
         assert str((4, HW, HW, True, True, True, 1)) in health["compiled"]
+        glb_kw = dict(conf_thres=25.0, mask_black_bg=True, prediction_mode="Depth")
+        with _post(port, "/infer_glb", _npz(images=imgs, **{k: np.asarray(v) for k, v in (
+                *_aux(3).items(), *glb_kw.items())}), auth) as r:
+            assert r.status == 200 and r.headers["Content-Type"] == "model/gltf-binary"
+            assert float(r.headers["X-Inference-Seconds"]) >= 0
+            glb = r.read()
+        answer = {k: got[k] for k in got.files}
+        assert glb == TS._glb_from_preds({**answer, "images": imgs}, HW, HW, **glb_kw)
+        assert glb[:4] == b"glTF"
         for path, headers, code in (("/infer", {}, 401), ("/infer", {"Authorization": "Bearer x"}, 401),
-                                    ("/infer_glb", auth, 501), ("/nope", auth, 404)):
+                                    ("/infer_glb", {}, 401), ("/nope", auth, 404)):
             with pytest.raises(urllib.error.HTTPError) as exc:
                 _post(port, path, body, headers)
             assert exc.value.code == code, path
@@ -296,7 +300,7 @@ def test_http_timeout_returns_503_and_batching(model):
     session._execute = lambda reqs: (release.wait(30.0), execute(reqs))[1]
     probe = TS.BackendProbe(interval_s=60.0, timeout_s=0.2, device="cpu")
     probe._probe_once = lambda: release.wait(30.0)
-    port = _free_port()
+    port = free_port()
     httpd, _ = TS.serve(session, port=port, background=True, request_timeout_s=0.3, probe=probe,
                         batch_window_ms=1.0)
     try:
@@ -340,7 +344,7 @@ def test_healthz_answers_before_warmup_finishes(model):
     release = threading.Event()
     real_warmup = session.warmup
     session.warmup = lambda **kw: (release.wait(30.0), real_warmup(**kw))[1]
-    port = _free_port()
+    port = free_port()
     result = {}
     th = threading.Thread(
         target=lambda: result.update(ret=TS.serve(

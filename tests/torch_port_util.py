@@ -17,6 +17,9 @@ threads per worker oversubscribes the cores.
 
 import copy
 import functools
+import json
+import socket
+import struct
 from unittest import mock
 
 import jax
@@ -195,3 +198,45 @@ def port_loss_grads(model, tcfg, batch, attn_impl, **kw):
     loss = TLS.total_loss(preds, tb, (HW, HW))["total"]
     loss.backward()
     return loss.item(), grads_of(model)
+
+
+# scene outputs (tests/test_torch_viz.py and the CLI / serving tests)
+
+
+def free_port():
+    with socket.socket() as s:
+        s.bind(("", 0))
+        return s.getsockname()[1]
+
+
+def read_glb(data: bytes):
+    """(glTF JSON, BIN chunk) of a GLB; asserts the header (magic, version 2,
+    the stated length) and the JSON and BIN chunk framing."""
+    magic, version, length = struct.unpack_from("<III", data, 0)
+    assert (magic, version, length) == (0x46546C67, 2, len(data))
+    jlen, jtype = struct.unpack_from("<II", data, 12)
+    assert jtype == 0x4E4F534A
+    gltf = json.loads(data[20 : 20 + jlen])
+    blen, btype = struct.unpack_from("<II", data, 20 + jlen)
+    assert btype == 0x004E4942 and 28 + jlen + blen == len(data)
+    return gltf, data[28 + jlen :]
+
+
+def glb_accessor(gltf: dict, bin_chunk: bytes, index: int) -> np.ndarray:
+    """One accessor of a GLB as a numpy array ((count, width) or (count,))."""
+    acc = gltf["accessors"][index]
+    view = gltf["bufferViews"][acc["bufferView"]]
+    dtype = {5126: np.float32, 5121: np.uint8, 5125: np.uint32}[acc["componentType"]]
+    width = {"VEC3": 3, "VEC4": 4, "SCALAR": 1}[acc["type"]]
+    arr = np.frombuffer(bin_chunk, dtype, acc["count"] * width, view["byteOffset"])
+    return arr.reshape(acc["count"], width) if width > 1 else arr
+
+
+def glb_meshes(data: bytes):
+    """The POSITION arrays of a GLB's meshes, in order (the point cloud
+    first when there is one)."""
+    gltf, bin_chunk = read_glb(data)
+    return [
+        glb_accessor(gltf, bin_chunk, m["primitives"][0]["attributes"]["POSITION"])
+        for m in gltf["meshes"]
+    ]
