@@ -127,6 +127,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
      requests of 5 and 8 frames, the padded one against an exact-mode
      session; under "ring_fused" the constructor refuses bucket mode and
      serves exact mode.
+ 13. (f) fine-tuning from shards, after 6: four samples in SceneDataset
+     layout made with numpy from a seed (S=4, 518 px, GT as in 6) written
+     by write_shards into two tar shards and read back through
+     ShardedSampleStream bytes-equal as a set; the training CLI
+     (omnivggt_tpu_torch.tools.train.main, on the card by default) streaming
+     them with --batch 2 on OmniVGGTConfig() for 4 steps: every logged
+     loss finite, grad_norm > 0, the exact kernel launches (4 steps of 6's
+     counts: the batch is a grid axis), the step time, peak memory and the
+     final checkpoint's size and save time; the train gate of 6 at B=2 on a
+     batch from the stream, which two planted faults must break (the last
+     key tile skipped in every backward; delta = 0 only on the rows of the
+     batch's second sample); remat="dots" against remat=True at B=1 S=4 on
+     6's batch (learning rate 0, so both run on the same weights): step
+     medians, peak memory, equal launches, one profiled step each, loss and
+     trunk gradients bitwise equal or within the train gate; the photometric augmentation on a CUDA
+     view against its CPU copy (parameters drawn on the CPU from generators
+     seeded alike) within 1e-6, and its time.
 Bounds (bound_ms) are the larger of the bytes each kernel must move over
 3.35 TB/s and its matrix-product operations over the H100 SXM's published
 peak for their type: 989 TFLOP/s bf16 dense, 1,979 TOP/s int8, 67 TFLOP/s
@@ -142,8 +159,10 @@ package's reference-parity heads.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import io
 import json
+import os
 import re
 import socket
 import statistics
@@ -164,7 +183,12 @@ POSE_TOL = REL_TOL = 2e-2  # the JAX package's serving gate (_probe_failures)
 # training, kernel path vs plain path: the loss, and the cosine of the trunk's
 # gradients. 1 - cosine read 1.4e-6 sound, 1.3e-4 with the last key tile
 # skipped in every backward and 1.3e-2 with delta = 0 (H100 runs of this
-# script): the limit 1e-5 sits between the sound reading and the faults
+# script); at B=2 (phase (f)) 1.9e-6 sound, 1.8e-5 with the last key tile
+# skipped and 3.4e-4 with delta = 0 on the second sample's rows: the limit
+# 1e-5 sits between the sound readings and the faults. The last key tile
+# skipped in the second sample alone read 6.6e-6, inside it: the gate is
+# coarse, and check_backward holds the kernels entry by entry at the B=2
+# shapes with that fault planted
 LOSS_REL_TOL, GRAD_COS_MIN = 1e-2, 1 - 1e-5
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: bf16 dense, HBM
 PEAK_INT8, PEAK_FP32 = 1979e12, 67e12  # int8 dense; fp32 outside the tensor cores
@@ -433,10 +457,13 @@ def check_kernels(FK, dev):
     # bounded head-major variant (global attention, qk-norm), the bounded
     # packed variant (frame attention) and the masked running-max packed
     # variant (DINOv2, valid prefix 1374 of 1376); the head-major
-    # running-max variant serves weights that fail the logit bound
+    # running-max variant serves weights that fail the logit bound; global
+    # attention of a B=2 S=4 train step (phase (f)) is the head-major grid's
+    # batch axis at 2 (its frame and DINOv2 shapes are the 8 frames above)
     cases = [
         ("flash_attention", "global bounded", (1, S * 1374, 16, 64), None, True),
         ("flash_attention", "global running-max", (1, S * 1374, 16, 64), None, False),
+        ("flash_attention", "global bounded B=2", (2, S_TRAIN * 1374, 16, 64), None, True),
         ("flash_attention_packed", "frame bounded", (S, 1374, 16, 64), None, True),
         ("flash_attention_packed", "dino running-max kv 1374", (S, 1376, 16, 64), 1374, False),
     ]
@@ -499,6 +526,7 @@ def check_tma_forms(FK, dev):
     cases = [
         ("global bounded", (1, S * P_TOKENS, 16, 64), None, True, False),
         ("global running-max", (1, S * P_TOKENS, 16, 64), None, False, False),
+        ("global bounded B=2", (2, S_TRAIN * P_TOKENS, 16, 64), None, True, False),
         ("frame bounded", (S, P_TOKENS, 16, 64), None, True, True),
         ("dino running-max kv 1374", (S, 1376, 16, 64), 1374, False, True),
         ("dynamic kv_valid 1374", (S, 1376, 16, 64), kv_dyn, True, True),
@@ -546,51 +574,78 @@ def ratios(grads, ref, tols):
 
 
 # which of (LSE, dq, dk, dv) each planted fault must push past its tolerance
-MUST_FAIL = {"delta=0": (1, 2), "last key tile skipped": (0, 1, 2, 3)}
+MUST_FAIL = {"delta=0": (1, 2), "last key tile skipped": (0, 1, 2, 3),
+             "last key tile skipped in sample 1": (0, 1, 2, 3)}
 
 
-def backward_faults(FK, q, k, v, o, do, lse, kv, bounded, ref, tols, lse_ref, lse_tol):
-    """Plants two faults in the kernels' inputs: delta = 0 (o zeroed for
-    the dq kernel, a zero delta for dk/dv) and the last key tile skipped
-    (kv_valid cut to a multiple of 64, for the forward's LSE and the
-    backward). Returns {fault: [largest err/tol of LSE, dq, dk, dv]}."""
+def backward_faults(FK, q, k, v, o, do, lse, kv, bounded, ref, tols, lse_ref, lse_tol,
+                    two_samples):
+    """Plants faults in the kernels' inputs: delta = 0 (o zeroed for the dq
+    kernel, a zero delta for dk/dv) and the last key tile skipped (kv_valid
+    cut to a multiple of 64, for the forward's LSE and the backward); with
+    two_samples (a B=2 step's batch axis, sample-major: sample 1 is its
+    second half) also the last key tile skipped in sample 1's rows alone,
+    sample 0's from the sound launches. Returns {fault: [largest err/tol of
+    LSE, dq, dk, dv]}."""
     n = k.shape[1] if kv is None else int(kv)
     cut = (n - 1) // 64 * 64
+    packed = q.shape[1] <= FK.PACKED_MAX_KEYS
     zero_o = torch.zeros_like(o)
     dq0, _ = FK.flash_attention_bwd_dq(q, k, v, zero_o, do, lse, kv, bounded)
     dk0, dv0 = FK.flash_attention_bwd_dkv(q, k, v, do, lse, torch.zeros_like(lse), kv, bounded)
-    _, lse_cut = FK._launch(q, k, v, cut, bounded, packed=q.shape[1] <= FK.PACKED_MAX_KEYS,
-                            with_lse=True)
+    _, lse_cut = FK._launch(q, k, v, cut, bounded, packed=packed, with_lse=True)
     dq1, dk1, dv1 = FK.flash_attention_backward(q, k, v, o, do, lse, cut, bounded)
     torch.cuda.synchronize()
-    lse_ratio = ((lse_cut - lse_ref).abs() / lse_tol).max().item()
-    return {
+    faults = {
         "delta=0": [float("nan")] + [r[1] for r in ratios((dq0, dk0, dv0), ref, tols)],
-        "last key tile skipped": [lse_ratio] + [r[1] for r in ratios((dq1, dk1, dv1), ref, tols)],
+        "last key tile skipped": [((lse_cut - lse_ref).abs() / lse_tol).max().item()]
+        + [r[1] for r in ratios((dq1, dk1, dv1), ref, tols)],
     }
+    if two_samples:
+        h = q.shape[0] // 2
+        one = (q[h:], k[h:], v[h:])
+        _, lse_h = FK._launch(*one, cut, bounded, packed=packed, with_lse=True)
+        lse_1 = torch.cat([lse[:h], lse_h])
+        sound = FK.flash_attention_backward(q, k, v, o, do, lse, kv, bounded)
+        bad = FK.flash_attention_backward(*one, o[h:], do[h:], lse[h:], cut, bounded)
+        grads = [torch.cat([a[:h], b]) for a, b in zip(sound, bad)]
+        torch.cuda.synchronize()
+        faults["last key tile skipped in sample 1"] = (
+            [((lse_1 - lse_ref).abs() / lse_tol).max().item()]
+            + [r[1] for r in ratios(grads, ref, tols)])
+    return faults
 
 
 def check_backward(FK, dev):
     """The forward kernel's LSE against attention_plain's and the two
     backward kernels against attention_backward_plain (given the kernel's
     o and the plain LSE) at the training shapes, with per-entry
-    tolerances; on the training path, two planted faults must fail them."""
+    tolerances; on the training path, two planted faults must fail them,
+    and at a B=2 step's shapes (phase (f): the grids' batch axis at 2 for
+    global attention, 8 frames for frame attention and DINOv2) a third,
+    confined to the second sample's rows."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     n_tok = S_TRAIN * 1374
     kv_dyn = torch.tensor(1374, device=dev)
-    # (label, q shape, kv_valid, bounded, q scale, on the training path)
+    # (label, q shape, kv_valid, bounded, q scale, path): path "B=1" is the
+    # train phase's step (its times go into the kernels line), "B=2" phase
+    # (f)'s (DINOv2 runs unpadded in training: 1374 tokens)
     cases = [
-        ("global bounded", (1, n_tok, 16, 64), None, True, 1.0, True),
-        ("frame bounded", (S_TRAIN, 1374, 16, 64), None, True, 1.0, True),
-        ("dino running-max", (S_TRAIN, 1374, 16, 64), None, False, 1.0, True),
-        ("dynamic kv_valid 1374", (S_TRAIN, 1376, 16, 64), kv_dyn, False, 1.0, False),
-        ("clamp saturation q x 40", (S_TRAIN, 1374, 16, 64), None, True, 40.0, False),
+        ("global bounded", (1, n_tok, 16, 64), None, True, 1.0, "B=1"),
+        ("frame bounded", (S_TRAIN, 1374, 16, 64), None, True, 1.0, "B=1"),
+        ("dino running-max", (S_TRAIN, 1374, 16, 64), None, False, 1.0, "B=1"),
+        ("global bounded B=2", (2, n_tok, 16, 64), None, True, 1.0, "B=2"),
+        ("frame bounded B=2", (2 * S_TRAIN, 1374, 16, 64), None, True, 1.0, "B=2"),
+        ("dino running-max B=2", (2 * S_TRAIN, 1374, 16, 64), None, False, 1.0, "B=2"),
+        ("dino running-max kv 1374 B=2", (2 * S_TRAIN, 1376, 16, 64), 1374, False, 1.0, "B=2"),
+        ("dynamic kv_valid 1374", (S_TRAIN, 1376, 16, 64), kv_dyn, False, 1.0, None),
+        ("clamp saturation q x 40", (S_TRAIN, 1374, 16, 64), None, True, 40.0, None),
     ]
     names = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
     results = {n: {"errs": [], "ms": [], "plain_ms": [], "bound": [], "library_ms": []}
                for n in names}
-    for label, shape, kv, bounded, q_scale, on_path in cases:
+    for label, shape, kv, bounded, q_scale, path in cases:
         B, N, H, D = shape
         q, k, v, do = (
             torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16) for _ in range(4)
@@ -628,8 +683,9 @@ def check_backward(FK, dev):
         ref = FK.attention_backward_plain(*f, lse_ref, kv, bounded)
         tols = FK.backward_tolerance(*f, lse_ref, kv, bounded, lse_err=lse_err)
         checked = ratios((dq, dk, dv), ref, tols)
-        faults = (backward_faults(FK, q, k, v, o, do, lse, kv, bounded, ref, tols, lse_ref, lse_tol)
-                  if on_path else {})
+        faults = (backward_faults(FK, q, k, v, o, do, lse, kv, bounded, ref, tols, lse_ref,
+                                  lse_tol, two_samples=path == "B=2")
+                  if path else {})
         errs = [c[0] for c in checked]
         del f, ref, tols, o_ref, lse_ref, lse_tol, lse_diff
         torch.cuda.empty_cache()
@@ -669,7 +725,7 @@ def check_backward(FK, dev):
                 raise AssertionError(f"the tolerances do not reject a planted fault ({fault})")
         results[names[0]]["errs"].append(errs[0])
         results[names[1]]["errs"].append(max(errs[1:]))
-        if on_path:
+        if path == "B=1":
             for n, ms, bnd in ((names[0], dq_ms, bnd_dq), (names[1], dkv_ms, bnd_dkv)):
                 results[n]["ms"].append(ms)
                 results[n]["plain_ms"].append(plain_ms)
@@ -683,16 +739,11 @@ def check_backward(FK, dev):
 def train_phase(FK, cfg, dev, card):
     """The flagship train step: timing, launches, descent, and one step's
     loss and gradients against the plain-attention path."""
-    from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
     from omnivggt_tpu_torch.train.optim import make_finetune_optimizer
     from omnivggt_tpu_torch.train.step import init_state, make_train_step, synthetic_batch
 
     t0 = time.perf_counter()
-    model = OmniVGGT(cfg, device=dev, seed=0).train()
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    with torch.no_grad():  # unit-scale camera token, as in the forward phase
-        model.aggregator.camera_token.normal_(generator=gen)
+    model = new_model_for_training(cfg, dev)
     optimizer = make_finetune_optimizer(model, learning_rate=1e-4, warmup_steps=1, total_steps=100)
     step_fn = make_train_step(cfg, optimizer, use_aux_inputs=True, remat=True)
     state = init_state(model, optimizer)
@@ -726,18 +777,7 @@ def train_phase(FK, cfg, dev, card):
         raise AssertionError("grad_norm is 0")
     if not history[-1]["total"] < history[0]["total"]:
         raise AssertionError("the training loss does not descend on the fixed batch")
-    depth, dino = cfg.aggregator.depth, cfg.aggregator.backbone.depth
-    # remat runs each frame/global attention forward twice (the pass and
-    # its recomputation); DINOv2 is not rematted; every attention has one
-    # backward (dq then dk/dv)
-    expect = {
-        "flash_attention": 2 * depth,
-        "flash_attention_packed": 2 * depth + dino,
-        "flash_attention_bwd_dq": 2 * depth + dino,
-        "flash_attention_bwd_dkv": 2 * depth + dino,
-        "flash_attention_int8": 0,
-        "flash_attention_packed_stream": 0,
-    }
+    expect = train_step_launches(cfg)
     print(f"main path launches per train step: {launches} (expected {expect})")
     if launches != expect:
         raise AssertionError(f"train-step kernel launches {launches}, expected {expect}")
@@ -751,43 +791,134 @@ def train_phase(FK, cfg, dev, card):
     profile_breakdown(f"train step S={S_TRAIN}", lambda: step_fn(state, batch))
 
     # one step's loss and gradients: kernels vs plain attention, same
-    # weights, over the trunk (aggregator and DINOv2: every parameter whose
-    # gradient passes through an attention backward); then the same with a
-    # planted fault in the backward, which the limits must reject
+    # weights, over the trunk; then with each planted fault in the backward
     del optimizer, state
     torch.cuda.empty_cache()
-    trunk = [name for name, _ in model.named_parameters() if name.startswith("aggregator.")]
-    params = dict(model.named_parameters())
+    train_gate(FK, cfg, model, batch, ("delta=0", "last key tile skipped"), check_reference=True)
+    return launches
 
-    def loss_and_trunk_grads(impl):
-        fn = make_train_step(cfg, None, use_aux_inputs=True, remat=True, attn_impl=impl)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses = fn.loss_and_grads(model, batch, 0)
-        torch.cuda.synchronize()
-        print(f"loss and gradients, attention {impl}: {(time.perf_counter() - t0) * 1e3:.2f} ms, "
-              f"total loss {losses['total'].item():.6f}")
-        grads = {n: params[n].grad.detach().clone() for n in trunk if params[n].grad is not None}
-        model.zero_grad(set_to_none=True)
-        return losses["total"].item(), grads
 
-    loss_p, g_p = loss_and_trunk_grads("plain")
+def train_step_launches(cfg) -> dict:
+    """Kernel launches per train step with remat on, at any batch size (the
+    batch is a grid axis): remat runs each frame/global attention forward
+    twice (the pass and its recomputation); DINOv2 is not rematted; every
+    attention has one backward (dq then dk/dv)."""
+    depth, dino = cfg.aggregator.depth, cfg.aggregator.backbone.depth
+    return {
+        "flash_attention": 2 * depth,
+        "flash_attention_packed": 2 * depth + dino,
+        "flash_attention_bwd_dq": 2 * depth + dino,
+        "flash_attention_bwd_dkv": 2 * depth + dino,
+        "flash_attention_int8": 0,
+        "flash_attention_packed_stream": 0,
+    }
+
+
+def new_model_for_training(cfg, dev):
+    """The flagship with fp32 master weights and a unit-scale camera token
+    (as in the forward phase), in training mode."""
+    from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
+
+    model = OmniVGGT(cfg, device=dev, seed=0).train()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    with torch.no_grad():
+        model.aggregator.camera_token.normal_(generator=gen)
+    return model
+
+
+def trunk_gradient_gate(label, loss_k, g_k, loss_p, g_p):
+    """The train gate: loss relative difference <= LOSS_REL_TOL and the
+    cosine of the trunk's gradients >= GRAD_COS_MIN, (loss_k, g_k) against
+    the reference (loss_p, g_p); prints the readings and returns whether
+    both hold."""
     n_p = sum((b.double() ** 2).sum() for b in g_p.values()).item() ** 0.5
+    dot = sum((g_k[n].double() * b.double()).sum() for n, b in g_p.items()).item()
+    n_k = sum((a.double() ** 2).sum() for a in g_k.values()).item() ** 0.5
+    leaves = sorted((((g_k[n] - b).double().norm() / b.double().norm()).item(), n)
+                    for n, b in g_p.items() if b.abs().max() > 0)
+    loss_rel, cos = abs(loss_k - loss_p) / abs(loss_p), dot / (n_k * n_p)
+    print(f"train gate [{label}]: loss rel {loss_rel:.3e} (limit "
+          f"{LOSS_REL_TOL:g}), trunk gradient 1 - cosine {1 - cos:.3e} (limit "
+          f"{1 - GRAD_COS_MIN:.0e}), trunk grad norms {n_k:.4f} / {n_p:.4f} over "
+          f"{len(g_p)} leaves; leaf relative errors: median "
+          f"{leaves[len(leaves) // 2][0]:.3e}, worst {leaves[-1][1]} {leaves[-1][0]:.3e}")
+    return loss_rel <= LOSS_REL_TOL and cos >= GRAD_COS_MIN
 
-    def gate(label, loss_k, g_k):
-        dot = sum((g_k[n].double() * b.double()).sum() for n, b in g_p.items()).item()
-        n_k = sum((a.double() ** 2).sum() for a in g_k.values()).item() ** 0.5
-        leaves = sorted((((g_k[n] - b).double().norm() / b.double().norm()).item(), n)
-                        for n, b in g_p.items() if b.abs().max() > 0)
-        loss_rel, cos = abs(loss_k - loss_p) / abs(loss_p), dot / (n_k * n_p)
-        print(f"train gate [{label}] vs plain path: loss rel {loss_rel:.3e} (limit "
-              f"{LOSS_REL_TOL:g}), trunk gradient 1 - cosine {1 - cos:.3e} (limit "
-              f"{1 - GRAD_COS_MIN:.0e}), trunk grad norms {n_k:.4f} / {n_p:.4f} over "
-              f"{len(g_p)} leaves; leaf relative errors: median "
-              f"{leaves[len(leaves) // 2][0]:.3e}, worst {leaves[-1][1]} {leaves[-1][0]:.3e}")
-        return loss_rel <= LOSS_REL_TOL and cos >= GRAD_COS_MIN
 
-    if not gate("kernels", *loss_and_trunk_grads("auto")):
+class _CheckpointedBlocks:
+    """ops.layers with `block` under torch.utils.checkpoint: swapped into
+    models.dinov2 for the plain reference, whose DINOv2 (not rematted)
+    would otherwise keep every block's fp32 probabilities for the backward
+    (about 1.9 GB a block at 8 frames: 46 GB at B=2 S=4). The recomputation
+    repeats the same operations, so the gradients are the same numbers."""
+
+    def __init__(self, layers):
+        self._layers = layers
+
+    def __getattr__(self, name):
+        return getattr(self._layers, name)
+
+    def block(self, *args, **kwargs):
+        from torch.utils.checkpoint import checkpoint
+
+        return checkpoint(self._layers.block, *args, use_reentrant=False, **kwargs)
+
+
+def loss_and_trunk_grads(cfg, model, batch, impl, remat=True, checkpoint_dino=False):
+    """One step's total loss and the trunk's gradients (aggregator and
+    DINOv2: every parameter whose gradient passes through an attention
+    backward) under attention `impl`, without an update; checkpoint_dino:
+    each DINOv2 block under torch.utils.checkpoint (_CheckpointedBlocks)."""
+    from omnivggt_tpu_torch.models import dinov2
+    from omnivggt_tpu_torch.train.step import make_train_step
+
+    fn = make_train_step(cfg, None, use_aux_inputs=True, remat=remat, attn_impl=impl)
+    layers = dinov2.L
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        if checkpoint_dino:
+            dinov2.L = _CheckpointedBlocks(layers)
+        losses = fn.loss_and_grads(model, batch, 0)
+    finally:
+        dinov2.L = layers
+    torch.cuda.synchronize()
+    print(f"loss and gradients, attention {impl}, remat {remat}"
+          f"{', DINOv2 blocks checkpointed' if checkpoint_dino else ''}: "
+          f"{(time.perf_counter() - t0) * 1e3:.2f} ms, total loss {losses['total'].item():.6f}")
+    grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
+             if n.startswith("aggregator.") and p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return losses["total"].item(), grads
+
+
+def train_gate(FK, cfg, model, batch, faults, check_reference=False):
+    """The kernel path's loss and trunk gradients against the plain path's
+    on the same weights and batch; then the same with each named planted
+    fault in the backward, which the gate must reject. Faults: "delta=0",
+    "last key tile skipped" (in every backward), "delta=0 in sample 1"
+    (only on the rows of the batch's second sample: the second half of
+    every attention's batch axis, which is sample-major). The plain path
+    checkpoints its DINOv2 blocks (at B=2 it would not fit otherwise);
+    check_reference: first hold it against the plain path without, loss
+    and trunk gradients bitwise or within the gate."""
+    loss_p, g_p = loss_and_trunk_grads(cfg, model, batch, "plain", checkpoint_dino=True)
+    if check_reference:
+        loss_u, g_u = loss_and_trunk_grads(cfg, model, batch, "plain")
+        bitwise = loss_u == loss_p and all(torch.equal(g_u[n], g) for n, g in g_p.items())
+        print(f"plain reference, DINOv2 blocks checkpointed vs not: loss and trunk gradients "
+              f"bitwise equal: {bitwise}")
+        if not bitwise and not trunk_gradient_gate("plain, DINOv2 checkpointed vs not", loss_p,
+                                                   g_p, loss_u, g_u):
+            raise AssertionError("checkpointing DINOv2 changes the plain reference")
+        # the same call run twice: the card's own spread (reported, not held)
+        trunk_gradient_gate("plain, not checkpointed, the same call again",
+                            *loss_and_trunk_grads(cfg, model, batch, "plain"), loss_u, g_u)
+        del g_u
+        torch.cuda.empty_cache()
+    if not trunk_gradient_gate("kernels vs plain", *loss_and_trunk_grads(cfg, model, batch, "auto"),
+                               loss_p, g_p):
         raise AssertionError("the kernel path's train step disagrees with the plain path")
     sound_backward = FK.flash_attention_backward
 
@@ -800,17 +931,243 @@ def train_phase(FK, cfg, dev, card):
         n = k.shape[1] if kv is None else int(kv)
         return sound_backward(q, k, v, o, do, lse, (n - 1) // 64 * 64, bounded)
 
+    def in_sample_1(fault):
+        def planted(q, k, v, o, do, lse, kv, bounded):
+            out = sound_backward(q, k, v, o, do, lse, kv, bounded)
+            h = q.shape[0] // 2
+            bad = fault(q[h:], k[h:], v[h:], o[h:], do[h:], lse[h:], kv, bounded)
+            return tuple(torch.cat([a[:h], b]) for a, b in zip(out, bad))
+
+        return planted
+
+    planted = {"delta=0": delta_zero, "last key tile skipped": last_tile_skipped,
+               "delta=0 in sample 1": in_sample_1(delta_zero)}
     passed = {}
     try:
-        for label, fault in (("fault delta=0", delta_zero),
-                             ("fault last key tile skipped", last_tile_skipped)):
-            FK.flash_attention_backward = fault
-            passed[label] = gate(label, *loss_and_trunk_grads("auto"))
+        for label in faults:
+            FK.flash_attention_backward = planted[label]
+            passed[label] = trunk_gradient_gate(
+                f"fault {label} vs plain", *loss_and_trunk_grads(cfg, model, batch, "auto"), loss_p,
+                g_p)
     finally:
         FK.flash_attention_backward = sound_backward
     if any(passed.values()):
         raise AssertionError(f"the train gate does not reject a planted fault: {passed}")
-    return launches
+
+
+B_SHARDS, N_SHARD_SAMPLES, CLI_STEPS = 2, 4, 4
+
+
+def sample_digest(sample) -> bytes:
+    """The bytes of a sample: every array's name, dtype, shape and data."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(sample):
+        a = np.ascontiguousarray(sample[k])
+        h.update(f"{k} {a.dtype} {a.shape}".encode())
+        h.update(a.tobytes())
+    return h.digest()
+
+
+def check_augmentation_on_the_card(dev, card):
+    """The photometric augmentation on a CUDA view against its CPU copy,
+    parameters drawn on the CPU from generators seeded alike: whole draws
+    over seeds 0-39 (jitter in each order, grayscale and blur when drawn),
+    and each operation with its parameter given; within 1e-6."""
+    from omnivggt_tpu_torch.data import augmentation as TA
+
+    view = torch.rand((IMG, IMG, 3), generator=torch.Generator().manual_seed(5))
+    view_cuda = view.to(dev)
+    augment = TA.make_augmentation(gau_blur=True)
+    worst, applied = 0.0, 0
+    for seed in range(40):
+        out_cuda = augment(torch.Generator().manual_seed(seed), view_cuda)
+        out_cpu = augment(torch.Generator().manual_seed(seed), view)
+        worst = max(worst, (out_cuda.cpu() - out_cpu).abs().max().item())
+        applied += not torch.equal(out_cpu, view)
+    ops = {
+        "color_jitter": lambda im: TA.color_jitter(im, 1.3, 0.7, 1.2, -0.06, (3, 1, 0, 2)),
+        "to_grayscale": TA.to_grayscale,
+        "gaussian_blur": lambda im: TA.gaussian_blur(im, 0.7),
+    }
+    for name, op in ops.items():
+        err = (op(view_cuda).cpu() - op(view)).abs().max().item()
+        print(f"augmentation {name}: CUDA vs CPU max abs {err:.3e} (limit 1e-6)")
+        worst = max(worst, err)
+    print(f"augmentation make_augmentation(gau_blur=True), 40 draws ({applied} changed the "
+          f"view): CUDA vs CPU max abs over every check {worst:.3e} (limit 1e-6)")
+    if worst > 1e-6:
+        raise AssertionError(f"the augmentation on the card differs from the CPU's: {worst}")
+    ms = median_ms(lambda: augment(torch.Generator().manual_seed(0), view_cuda), 10)
+    ms_jitter = median_ms(lambda: ops["color_jitter"](view_cuda), 10)
+    print(f"augmentation of one {IMG}px view on the card: {ms:.3f} ms a draw (seed 0), "
+          f"color_jitter alone {ms_jitter:.3f} ms; card {card}")
+
+
+def shards_phase(FK, cfg, dev, card):
+    """(f) fine-tuning from shards: samples written to tar shards and read
+    back; the training CLI streaming them at --batch 2 on the flagship with
+    the kernels' launches per step; the train gate at B=2 with its planted
+    faults; remat="dots" against remat=True; the augmentation on the card."""
+    import shutil
+    import tempfile
+
+    from omnivggt_tpu_torch.data.streaming import ShardedSampleStream, batch_stream, write_shards
+    from omnivggt_tpu_torch.tools import train as train_cli
+    from omnivggt_tpu_torch.train import checkpointing as TCK
+    from omnivggt_tpu_torch.train.optim import make_finetune_optimizer
+    from omnivggt_tpu_torch.train.step import (
+        batch_to_device, init_state, make_train_step, synthetic_batch,
+    )
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_shards_")
+    try:
+        # 1. shards: written, then read back through the stream as a set
+        # SceneDataset layout: synthetic_batch's arrays (its masks are (S,))
+        samples = [{k: v.numpy() for k, v in synthetic_batch(S_TRAIN, IMG, "cpu", 10 + i).items()}
+                   for i in range(N_SHARD_SAMPLES)]
+        t0 = time.perf_counter()
+        paths = write_shards(samples, os.path.join(tmp, "shards"), samples_per_shard=2)
+        write_s = time.perf_counter() - t0
+        pattern = os.path.join(tmp, "shards", "shard-*.tar")
+        t0 = time.perf_counter()
+        back = list(ShardedSampleStream(pattern, shuffle_buffer=4, seed=0, repeat=False))
+        read_s = time.perf_counter() - t0
+        size_mb = sum(os.path.getsize(p) for p in paths) / 1e6
+        if sorted(map(sample_digest, back)) != sorted(map(sample_digest, samples)):
+            raise AssertionError("the shards do not give back the samples written")
+        print(f"shards: {len(samples)} samples of {S_TRAIN} views at {IMG}px into {len(paths)} "
+              f"shards, {size_mb:.1f} MB, written in {write_s:.2f} s, read back bytes-equal "
+              f"(as a set) in {read_s:.2f} s; disk free under {tmp}: "
+              f"{shutil.disk_usage(tmp).free / 1e9:.1f} GB")
+        del samples, back
+
+        # 2. the training CLI at full width, streaming the shards at B=2
+        ckpt_dir = os.path.join(tmp, "run")
+        saves, sound_save = [], TCK.save_train_state
+
+        def timed_save(*args, **kwargs):
+            t0 = time.perf_counter()
+            path = sound_save(*args, **kwargs)
+            saves.append((path, os.path.getsize(path), time.perf_counter() - t0))
+            return path
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        TCK.save_train_state = timed_save
+        try:
+            FK.reset_launches()
+            t0 = time.perf_counter()
+            state = train_cli.main([
+                "--shards", pattern, "--batch", str(B_SHARDS), "--views", str(S_TRAIN),
+                "--steps", str(CLI_STEPS), "--log_every", "1", "--warmup", "1",
+                "--save_every", "1000", "--ckpt_dir", ckpt_dir,
+            ])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+            launches = FK.launches()
+        finally:
+            TCK.save_train_state = sound_save
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        if next(state.model.parameters()).device.type != dev.type:
+            raise AssertionError("the training CLI did not train on the card by default")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        with open(os.path.join(ckpt_dir, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        for m in logged:
+            print("cli step " + ", ".join(f"{k} {v}" for k, v in sorted(m.items())))
+        if [m["step"] for m in logged] != list(range(1, CLI_STEPS + 1)):
+            raise AssertionError(f"the CLI logged steps {[m['step'] for m in logged]}")
+        if not all(np.isfinite(m[k]) for m in logged for k in m):
+            raise AssertionError("a loss or grad_norm of the CLI run is not finite")
+        if not all(m["grad_norm"] > 0 for m in logged):
+            raise AssertionError("grad_norm is 0 in the CLI run")
+        expect = {k: CLI_STEPS * n for k, n in train_step_launches(cfg).items()}
+        print(f"main path launches over {CLI_STEPS} train steps at B={B_SHARDS} from shards: "
+              f"{launches} (expected {expect})")
+        if launches != expect:
+            raise AssertionError(f"B={B_SHARDS} train-step launches {launches}, expected {expect}")
+        step_ms = statistics.median(m["sec_per_step"] for m in logged[1:]) * 1e3
+        (ckpt, ckpt_bytes, save_s), = saves
+        print(f"flagship train step B={B_SHARDS} S={S_TRAIN} {IMG}px from shards (CLI): "
+              f"{step_ms:.0f} ms median of steps 2-{CLI_STEPS} "
+              f"({', '.join(str(m['sec_per_step']) for m in logged)} s a step), "
+              f"{B_SHARDS * S_TRAIN / step_ms * 1e3:.3f} views/s, peak memory {peak_gb:.3f} GB, "
+              f"CLI wall {cli_s:.2f} s; checkpoint {os.path.basename(ckpt)} "
+              f"{ckpt_bytes / 1e9:.3f} GB saved in {save_s:.2f} s; card {card}")
+        shutil.rmtree(ckpt_dir)
+
+        # 3. the train gate at B=2 on a batch from the stream
+        stream = ShardedSampleStream(pattern, shuffle_buffer=4, seed=1, repeat=False)
+        batch = batch_to_device(next(iter(batch_stream(stream, B_SHARDS))), dev)
+        if tuple(batch["images"].shape) != (B_SHARDS, S_TRAIN, IMG, IMG, 3):
+            raise AssertionError(f"stream batch images {tuple(batch['images'].shape)}")
+        model = new_model_for_training(cfg, dev)
+        train_gate(FK, cfg, model, batch,
+                   ("last key tile skipped", "delta=0 in sample 1"))
+
+        # 4. remat="dots" against remat=True on the same weights: B=1 S=4 on
+        # the train phase's batch, then B=2 on the streamed one
+        optimizer = make_finetune_optimizer(model, learning_rate=0.0, warmup_steps=1,
+                                            total_steps=100)  # the weights stay as they are
+        for label, b in (("B=1", synthetic_batch(S_TRAIN, IMG, dev, seed=3)), ("B=2", batch)):
+            readings = {}
+            for remat in (True, "dots"):
+                step_fn = make_train_step(cfg, optimizer, use_aux_inputs=True, remat=remat)
+                state = init_state(model, optimizer)
+                step_fn(state, b)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                times = []
+                for i in range(3):
+                    if i == 0:
+                        FK.reset_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    step_fn(state, b)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    if i == 0:
+                        step_launches = FK.launches()
+                readings[remat] = (statistics.median(times), times,
+                                   torch.cuda.max_memory_allocated() / 1e9, step_launches)
+                print(f"remat={remat!r}: train step {label} S={S_TRAIN} {IMG}px "
+                      f"{readings[remat][0]:.2f} ms median of 3 "
+                      f"({', '.join(f'{t:.2f}' for t in times)}), peak memory "
+                      f"{readings[remat][2]:.3f} GB, launches {step_launches}; card {card}")
+                profile_breakdown(f"train step {label} S={S_TRAIN} remat={remat!r}",
+                                  lambda: step_fn(state, b))
+                del state
+                torch.cuda.empty_cache()
+            if (readings[True][3] != readings["dots"][3]
+                    or readings[True][3] != train_step_launches(cfg)):
+                raise AssertionError(f"remat launches differ at {label}: {readings[True][3]} vs "
+                                     f"{readings['dots'][3]}")
+            loss_full, g_full = loss_and_trunk_grads(cfg, model, b, "auto", remat=True)
+            loss_dots, g_dots = loss_and_trunk_grads(cfg, model, b, "auto", remat="dots")
+            bitwise = loss_full == loss_dots and all(
+                torch.equal(g_dots[n], g) for n, g in g_full.items())
+            print(f"remat='dots' vs remat=True at {label}: loss and trunk gradients bitwise "
+                  f"equal: {bitwise}; step {readings['dots'][0] - readings[True][0]:+.2f} ms, "
+                  f"peak memory {readings['dots'][2] - readings[True][2]:+.3f} GB")
+            if not bitwise and not trunk_gradient_gate(f"remat='dots' vs remat=True, {label}",
+                                                       loss_dots, g_dots, loss_full, g_full):
+                raise AssertionError(f"remat='dots' disagrees with remat=True at {label}")
+            trunk_gradient_gate(f"remat=True, the same call again, {label} (reported)",
+                                *loss_and_trunk_grads(cfg, model, b, "auto", remat=True),
+                                loss_full, g_full)
+            del g_full, g_dots
+            torch.cuda.empty_cache()
+        del optimizer, model, batch
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # 5. the augmentation on the card
+    check_augmentation_on_the_card(dev, card)
 
 
 def new_results():
@@ -2156,6 +2513,8 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     train_launches = train_phase(FK, cfg, dev, card)
+    torch.cuda.empty_cache()
+    shards_phase(FK, cfg, dev, card)
     # a kernel's launches on the main path that runs it: one train step, or
     # one served S=8 request for the serving kernels; the probes' in their phase
     # the ring wrappers' in the sharded flagship forwards

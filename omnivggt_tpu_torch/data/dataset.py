@@ -1,21 +1,23 @@
 """Training dataset: scene folders -> model-ready batches (counterpart of
-omnivggt_tpu/data/dataset.py, for the example folder layout).
+omnivggt_tpu/data/dataset.py).
 
-  - `SceneDataset`: a directory of scenes, each images/ [cameras/]
-    [depths/] (the reference example layout), read through the port's
-    data/loader.py. Each scene is loaded once (LRU-cached), and its
-    ground-truth world points come from unprojecting GT depth with GT
-    cameras.
+  - `SceneDataset`: a directory of scenes: example-layout folders (images/
+    [cameras/] [depths/]), extracted ScanNet scenes and CO3D sequences,
+    each read through the format-dispatching `data/formats.load_scene`.
+    Each scene is loaded once (LRU-cached), and its ground-truth world
+    points come from unprojecting GT depth with GT cameras.
   - View selection: a sample draws S views around a random anchor by the
     pairwise camera-distance ranking (data/view_selection.py).
   - Modality-dropout masks: each sample keeps camera/depth GT for a random
     subset of frames, with a camera-kept view first.
+  - Optional photometric augmentation (data/augmentation.py), drawn from a
+    torch.Generator seeded from the sample's numpy rng.
   - `prefetch()`: a bounded background-thread iterator so host-side loading
     overlaps device steps.
 
-Samples are numpy; with the same seed they equal the JAX package's. Not
-ported yet: the ScanNet and CO3D readers (data/formats.py) and the
-photometric augmentation (data/augmentation.py).
+Samples are numpy; with the same seed they equal the JAX package's
+(without augmentation: the two packages draw its parameters from different
+generators).
 """
 
 from __future__ import annotations
@@ -26,8 +28,9 @@ import threading
 from typing import Iterator, List, Optional
 
 import numpy as np
+import torch
 
-from omnivggt_tpu_torch.data.loader import load_images_and_cameras
+from omnivggt_tpu_torch.data.formats import is_co3d_sequence, is_scannet_scene, load_scene
 from omnivggt_tpu_torch.data.view_selection import compute_ranking
 from omnivggt_tpu_torch.utils.geometry import unproject_depth_map_to_point_map
 
@@ -60,17 +63,26 @@ class SceneDataset:
         target_size: int = 518,
         camera_keep_prob: float = 0.5,
         depth_keep_prob: float = 0.5,
+        augment=None,
         seed: int = 0,
         cache_scenes: int = 16,
     ):
+        """augment: None, or augment(generator, view) -> view on (H, W, 3)
+        tensors (data/augmentation.make_augmentation), applied to each view
+        of a sample after the normalisation."""
         self.views_per_sample = views_per_sample
         self.camera_keep_prob = camera_keep_prob
         self.depth_keep_prob = depth_keep_prob
+        self.augment = augment
         self.target_size = target_size
         self._rng = np.random.default_rng(seed)
 
         def is_scene(p: str) -> bool:
-            return os.path.isdir(os.path.join(p, "images"))
+            return (
+                os.path.isdir(os.path.join(p, "images"))
+                or is_scannet_scene(p)
+                or is_co3d_sequence(p)
+            )
 
         self.scene_dirs: List[str] = sorted(
             p
@@ -83,19 +95,12 @@ class SceneDataset:
             raise ValueError(f"no scene folders under {root}")
         # preprocessed scenes are hundreds of MB each at 518 px; bound the
         # cache (LRU) so large training roots don't accumulate every scene
-        # in host RAM
+        # in host RAM (past that scale, stream shards: data/streaming.py)
         self.cache_scenes = max(1, cache_scenes)
         self._cache = {}
 
     def _load(self, scene_dir: str):
-        def opt(sub):
-            p = os.path.join(scene_dir, sub)
-            return p if os.path.isdir(p) else None
-
-        return load_images_and_cameras(
-            os.path.join(scene_dir, "images"), camera_folder=opt("cameras"),
-            depth_folder=opt("depths"), target_size=self.target_size,
-        )
+        return load_scene(scene_dir, target_size=self.target_size)
 
     def _scene(self, idx: int):
         if idx in self._cache:
@@ -187,6 +192,12 @@ class SceneDataset:
             exv = En[:, :3].astype(np.float32)
             # frames without camera GT carry no meaningful extrinsics
             exv[~have_cam] = 0.0
+
+        if self.augment is not None:
+            # one generator a sample, seeded from the sample's rng (which so
+            # advances as the JAX package's does), drawn from view by view
+            gen = torch.Generator().manual_seed(int(rng.integers(2**31)))
+            imgs = np.stack([self.augment(gen, torch.from_numpy(im)).numpy() for im in imgs])
 
         return {
             "images": imgs[None],

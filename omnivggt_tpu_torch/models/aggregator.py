@@ -13,7 +13,9 @@ injection (counterpart of omnivggt_tpu/models/aggregator.py).
     patchified with its mask; frames without it get the learned placeholder;
   - training: `remat` recomputes each (frame, global) pair in the backward
     (torch.utils.checkpoint, as jax.checkpoint wraps the JAX scan step;
-    DINOv2 is not recomputed), and `train_generator` enables stochastic
+    DINOv2 is not recomputed; remat="dots" keeps the linear layers'
+    outputs, as the JAX package's dots_with_no_batch_dims_saveable
+    policy does), and `train_generator` enables stochastic
     depth at the model config's drop_path_rate. Its keep masks for every block are drawn
     before the loop (as the JAX package splits its keys outside the scan),
     so the recomputed pair drops the same samples as the first pass.
@@ -21,11 +23,14 @@ injection (counterpart of omnivggt_tpu/models/aggregator.py).
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts,
+)
 
 from omnivggt_tpu_torch.config import AggregatorConfig
 from omnivggt_tpu_torch.models import dinov2
@@ -158,6 +163,31 @@ def compute_pose_encoding(
     return G.extri_intri_to_pose_encoding(ex_n, K, image_size_hw)
 
 
+def _dots_saveable(ctx, op, *args, **kwargs):
+    """The selective-checkpoint policy of remat="dots" (the JAX package's
+    jax.checkpoint_policies.dots_with_no_batch_dims_saveable): keep the
+    outputs of the products without batch dimensions, which are the linear
+    layers' (F.linear dispatches aten.addmm, or aten.mm without a bias), and
+    recompute everything else. Attention is not such a product: its batched
+    matmuls (aten.bmm) and the flash kernels' autograd Functions (not aten
+    ops, so never cached) run again in the recomputation, as the Pallas
+    call does under jax.checkpoint.
+
+    For parity with the JAX package's remat options: it is no faster than
+    remat=True on any shape measured. The dispatch mode that applies the
+    policy runs Python on every op of the region, and that host time costs
+    more than the recompute of the products it saves (one H100, the flagship
+    at S=4: step medians -1 to +246 ms at B=1 and +186 to +213 ms at B=2,
+    every profiled step 227 to 476 ms slower, with 4.9 and 9.7 GB more
+    memory; chip_smoke.py's fine-tuning phase)."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_DOTS_CONTEXT = functools.partial(create_selective_checkpoint_contexts, _dots_saveable)
+
+
 def apply(
     p: Aggregator,
     images: torch.Tensor,
@@ -170,7 +200,7 @@ def apply(
     allow_bounded: bool = True,
     approx_gelu: bool = False,
     pad_tokens: bool = True,
-    remat: bool = False,
+    remat: Union[bool, str] = False,
     train_generator: Optional[torch.Generator] = None,
     drop_path_rate: float = 0.0,
     num_valid_frames=None,
@@ -190,7 +220,9 @@ def apply(
     shard (which takes the padded frames' mask only under "allgather").
 
     remat: recompute each layer pair in the backward instead of keeping its
-    activations (only while grad is enabled). train_generator: a generator
+    activations (only while grad is enabled): True or "full" keeps nothing,
+    "dots" keeps the outputs of the matrix products without batch
+    dimensions (`_dots_saveable`). train_generator: a generator
     on the images' device that enables stochastic depth at drop_path_rate
     (None: eval, deterministic).
 
@@ -304,9 +336,11 @@ def apply(
     wanted = set(output_layers)
     outputs = {}
     tokens = tokens.to(dtype)
+    ckpt_kw = {"context_fn": _DOTS_CONTEXT} if remat == "dots" else {}
     for i in range(cfg.depth):
         if remat and torch.is_grad_enabled():
-            frame_inter, global_inter = checkpoint(pair, tokens, i, *keeps[i], use_reentrant=False)
+            frame_inter, global_inter = checkpoint(pair, tokens, i, *keeps[i], use_reentrant=False,
+                                                   **ckpt_kw)
         else:
             frame_inter, global_inter = pair(tokens, i, *keeps[i])
         tokens = global_inter if cfg.aa_order[0] == "frame" else frame_inter

@@ -183,7 +183,7 @@ def apply(
     attn_impl: str = "auto",
     sharding=None,
     pad_tokens: bool = True,
-    remat: bool = False,
+    remat=False,
     train_generator: Optional[torch.Generator] = None,
     num_valid_frames=None,
 ):
@@ -200,7 +200,8 @@ def apply(
     outputs equal the unpadded forward's. The fast modes come from cfg:
     trunk_quant, attn_quant, head_quant, approx_gelu, head_dtype.
 
-    remat: recompute each aggregator layer pair in the backward.
+    remat: recompute each aggregator layer pair in the backward (True or
+    "full"; "dots" keeps the linear layers' outputs).
     train_generator: a generator on the images' device that enables the
     aggregator's stochastic depth at cfg.aggregator.drop_path_rate (None:
     deterministic eval)."""

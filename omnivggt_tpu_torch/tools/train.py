@@ -1,22 +1,28 @@
 """Training CLI of the PyTorch port (counterpart of tools/train.py).
 
-Scene folders (the example layout, data/dataset.py) feed the one-device
-train step (train/step.py) with the layer-decay fine-tune optimizer
-(train/optim.py), metric logging to {ckpt_dir}/metrics.jsonl, and
-checkpoint save/resume (train/checkpointing.py). It runs on --device
-(default cuda, which must exist); --device cpu runs the kernels' plain
-versions on the CPU.
+Scene roots (example-layout folders, ScanNet scenes, CO3D sequences;
+data/dataset.py, one scene a step) or pre-built streaming tar shards
+(data/streaming.py, --batch scenes a step) feed the one-device train step
+(train/step.py) with the layer-decay fine-tune optimizer (train/optim.py),
+metric logging to {ckpt_dir}/metrics.jsonl, and checkpoint save/resume
+(train/checkpointing.py). It runs on --device (default cuda, which must
+exist); --device cpu runs the kernels' plain versions on the CPU.
 
     # fine-tune on a folder of scenes, one GPU
     python -m omnivggt_tpu_torch.tools.train --data_root scenes/ --steps 1000 \\
         --checkpoint OmniVGGT.safetensors --ckpt_dir runs/ft
 
+    # stream shards (written by omnivggt_tpu_torch.tools.make_shards), two
+    # scenes a step
+    python -m omnivggt_tpu_torch.tools.train --shards 'shards/shard-*.tar' \\
+        --batch 2 --steps 10000 --ckpt_dir runs/ft
+
     # smoke run on the CPU with the tiny config
     python -m omnivggt_tpu_torch.tools.train --data_root scenes/ --tiny \\
         --device cpu --steps 2 --views 2 --target_size 28
 
-Not ported yet, and refused: --shards (streaming tar shards), --mesh and
---state_sharding other than none (multi-device training).
+Not ported yet, and refused: --mesh and --state_sharding other than none
+(multi-device training).
 """
 
 from __future__ import annotations
@@ -31,9 +37,10 @@ def parse_args(argv=None):
     ap = argparse.ArgumentParser(description="OmniVGGT training (PyTorch)")
     src = ap.add_mutually_exclusive_group(required=True)
     src.add_argument("--data_root", help="root of scene folders")
-    src.add_argument("--shards", help="glob of streaming tar shards (not ported yet)")
+    src.add_argument("--shards", help="glob of streaming tar shards")
     ap.add_argument("--steps", type=int, default=1000)
     ap.add_argument("--views", type=int, default=4, help="views per sample")
+    ap.add_argument("--batch", type=int, default=1, help="scenes per batch (shards mode)")
     ap.add_argument("--target_size", type=int, default=518)
     ap.add_argument("--tiny", action="store_true", help="tiny config (CPU smoke runs)")
     ap.add_argument("--checkpoint", help="init from an OmniVGGT .safetensors")
@@ -56,16 +63,15 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, given in (("--shards", args.shards), ("--mesh", args.mesh),
+    for flag, given in (("--mesh", args.mesh),
                         ("--state_sharding", args.state_sharding != "none")):
         if given:
             raise SystemExit(
-                f"{flag} is not ported yet: omnivggt_tpu_torch trains on one device "
-                "from --data_root; use the JAX CLI (tools/train.py)"
+                f"{flag} is not ported yet: omnivggt_tpu_torch trains on one device; "
+                "use the JAX CLI (tools/train.py)"
             )
 
     from omnivggt_tpu_torch.config import OmniVGGTConfig, tiny_test_config
-    from omnivggt_tpu_torch.data.dataset import SceneDataset, prefetch
     from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
     from omnivggt_tpu_torch.train.checkpointing import resume_or_init, save_train_state
     from omnivggt_tpu_torch.train.optim import make_finetune_optimizer
@@ -101,11 +107,20 @@ def main(argv=None):
     if start:
         print(f"resumed from {args.ckpt_dir} at step {start}")
 
-    ds = SceneDataset(
-        args.data_root, views_per_sample=args.views, target_size=args.target_size, seed=args.seed,
-    )
-    print(f"{len(ds)} scene(s) under {args.data_root}")
-    batches = prefetch(ds.batches())
+    if args.data_root:
+        from omnivggt_tpu_torch.data.dataset import SceneDataset, prefetch
+
+        ds = SceneDataset(
+            args.data_root, views_per_sample=args.views, target_size=args.target_size,
+            seed=args.seed,
+        )
+        print(f"{len(ds)} scene(s) under {args.data_root}")
+        batches = prefetch(ds.batches())
+    else:
+        from omnivggt_tpu_torch.data.streaming import ShardedSampleStream, batch_stream
+
+        stream = ShardedSampleStream(args.shards, shuffle_buffer=64, seed=args.seed)
+        batches = batch_stream(stream, args.batch)
 
     os.makedirs(args.ckpt_dir, exist_ok=True)
     logger = MetricLogger(jsonl_path=os.path.join(args.ckpt_dir, "metrics.jsonl"))

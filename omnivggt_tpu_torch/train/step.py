@@ -8,8 +8,7 @@ the trunk casts them to bf16 at use (config.compute_dtype), the heads and
 the optimizer state run in fp32.
 
 The multi-device paths of the JAX step (a mesh `sharding`, ZeRO-2/FSDP
-`state_sharding`) are not ported yet (the training CLI refuses them), and
-its remat="dots" policy raises.
+`state_sharding`) are not ported yet (the training CLI refuses them).
 """
 
 from __future__ import annotations
@@ -100,7 +99,7 @@ def make_train_step(
     optimizer: Optimizer,
     *,
     use_aux_inputs: bool = False,
-    remat: bool = True,
+    remat=True,
     seed: int = 0,
     attn_impl: str = "auto",
 ) -> Callable:
@@ -114,16 +113,20 @@ def make_train_step(
 
     Stochastic depth (cfg.aggregator.drop_path_rate > 0) draws from a
     generator seeded by (seed, step). DINOv2 runs unpadded (pad_tokens=False),
-    as in the JAX step. `train_step.loss_and_grads(model, batch, step)`
-    fills the parameters' .grad and returns the losses, without an update.
+    as in the JAX step. remat: True or "full" recomputes each aggregator
+    layer pair in the backward and keeps nothing of it, "dots" keeps the
+    linear layers' outputs (more memory, less recompute, but slower on the
+    H100: see aggregator._dots_saveable), False keeps every activation.
+    `train_step.loss_and_grads(model, batch, step)` fills the parameters'
+    .grad and returns the losses, without an update.
     """
     if (cfg.trunk_quant, cfg.attn_quant, cfg.head_quant) != ("none",) * 3:
         raise ValueError(
             "trunk_quant/attn_quant/head_quant are serving-only fast modes "
             "(round() kills the gradient); train with all set to 'none'"
         )
-    if remat not in (True, False):
-        raise NotImplementedError(f"remat={remat!r} is not ported yet (True or False)")
+    if remat not in (True, False, "full", "dots"):
+        raise ValueError(f"remat={remat!r}: True, 'full', 'dots' or False")
 
     def loss_and_grads(model, batch, step: int) -> dict:
         images = batch["images"]
@@ -142,7 +145,7 @@ def make_train_step(
         model.zero_grad(set_to_none=True)
         preds = M.apply(
             model, images, cfg, aux, attn_impl=attn_impl, pad_tokens=False,
-            remat=bool(remat), train_generator=generator,
+            remat=remat, train_generator=generator,
         )
         losses = LS.total_loss(preds, batch, (H, W))
         losses["total"].backward()

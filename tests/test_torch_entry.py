@@ -60,6 +60,18 @@ c2w = np.linalg.inv(E)
 gt = c2w.copy()
 gt[:, :3, 3] += 0.1
 assert all(np.isfinite(v) for v in eval_metrics(c2w, gt).values())
+# fine-tuning from shards runs on torch and numpy alone: shards, the stream,
+# batches, the augmentation
+import tempfile
+from omnivggt_tpu_torch.data.augmentation import make_augmentation
+from omnivggt_tpu_torch.data.streaming import ShardedSampleStream, batch_stream, write_shards
+with tempfile.TemporaryDirectory() as d:
+    write_shards(({"images": np.full((1, 2, 4, 4, 3), i, np.float32), "camera_mask": np.ones(2, bool)}
+                  for i in range(2)), d)
+    b = next(iter(batch_stream(ShardedSampleStream(d + "/shard-*.tar", repeat=False), 2)))
+assert b["images"].shape == (2, 2, 4, 4, 3) and b["camera_mask"].shape == (2, 2)
+aug = make_augmentation(gau_blur=True)(torch.Generator().manual_seed(0), torch.rand(8, 8, 3))
+assert aug.shape == (8, 8, 3) and 0 <= aug.min() and aug.max() <= 1
 bad = [m for m in sys.modules if m.split(".")[0] in BLOCKED + ("jaxlib",) and sys.modules[m] is not None]
 assert not bad, bad
 print("ok")

@@ -6,13 +6,16 @@ init, bridged with params_from_jax) go through both packages:
   - losses: each loss, with and without camera_valid (rtol 1e-5);
   - make_train_step over 3 steps: losses, grad_norm and the final
     parameters;
-  - remat, stochastic depth, descent, checkpoints, the dataset, view
-    ranking, metric logging and the training CLI.
+  - a B=2 step on a batch from the shard stream (batch_stream);
+  - remat (True, "dots" against the JAX package's "dots"), stochastic
+    depth, descent, checkpoints, the dataset, view ranking, metric logging
+    and the training CLI (scene folders and shards).
 The optimizer is in tests/test_torch_optim.py.
 """
 
 import dataclasses
 import json
+from unittest import mock
 
 import numpy as np
 import pytest
@@ -34,8 +37,8 @@ from omnivggt_tpu_torch.train import checkpointing as TCK
 from omnivggt_tpu_torch.train import losses as TLS
 from omnivggt_tpu_torch.train import step as TS
 from tests.torch_port_util import (
-    HW, assert_trees_close, port_loss_grads, random_cameras, t, tbatch, tiny_pair, to_np,
-    train_batch,
+    HW, assert_trees_close, jax_loss_grads, port_loss_grads, random_cameras, t, tbatch, tiny_pair,
+    to_np, train_batch,
 )
 
 # ---------------------------------------------------------------------------
@@ -84,6 +87,39 @@ def test_remat_gradients_equal_no_remat(drop_path):
                                     train_generator=gen))
     assert out[0][0] == out[1][0]
     assert_trees_close(out[0][1], out[1][1], rel=0.0, floor=1e-7)
+
+
+def test_remat_dots_matches_jax_and_full_remat():
+    """remat="dots" (the linear layers' outputs kept, the rest recomputed)
+    against the JAX package's remat="dots" (jax.checkpoint with
+    dots_with_no_batch_dims_saveable), and equal to the port's remat=True:
+    saving a product's output or recomputing it gives the same numbers.
+    Attention is recomputed under both policies, as the Pallas call is under
+    jax.checkpoint: the attention Function's forward runs as often."""
+    from omnivggt_tpu_torch.ops.kernels import flash_attention as FK
+
+    jcfg, tcfg, params, model = tiny_pair(seed=4)
+    batch = train_batch(S=2, seed=8)
+    loss_j, grads_j = jax_loss_grads(params, jcfg, batch, "xla", remat="dots")
+    calls, plain = {}, FK.attention_plain
+    for remat in ("dots", True, False):
+        n = [0]
+
+        def counting(*a, **kw):
+            n[0] += kw.get("return_lse", False)
+            return plain(*a, **kw)
+
+        with mock.patch.object(FK, "attention_plain", counting):
+            calls[remat] = (port_loss_grads(model, tcfg, batch, "flash", remat=remat), n[0])
+    (loss_t, grads_t), n_dots = calls["dots"]
+    np.testing.assert_allclose(loss_t, loss_j, rtol=1e-5)
+    assert_trees_close(grads_t, params_from_jax(grads_j, tcfg), rel=1e-4, floor=1e-7)
+    (loss_full, grads_full), n_full = calls[True]
+    assert loss_full == loss_t
+    assert_trees_close(grads_t, grads_full, rel=0.0)
+    # every aggregator attention runs twice under either policy, once without
+    n_none = calls[False][1]
+    assert n_dots == n_full == n_none + 2 * tcfg.aggregator.depth > n_none
 
 
 def test_drop_path_generator():
@@ -138,6 +174,45 @@ def test_train_step_matches_jax():
     assert_trees_close(dict(model.named_parameters()), want, rel=0.0, floor=2e-5)
 
 
+def _stream_batch(scenes, tmp_path, n=2, views=2):
+    """A B=n batch the way the CLI's --shards mode makes it: SceneDataset
+    samples written to shards, streamed, and stacked by batch_stream."""
+    from omnivggt_tpu_torch.data.streaming import ShardedSampleStream, batch_stream, write_shards
+
+    ds = TD.SceneDataset(str(scenes), views_per_sample=views, target_size=HW, seed=2)
+    write_shards((ds.sample() for _ in range(n)), str(tmp_path / "shards"), samples_per_shard=1)
+    stream = ShardedSampleStream(str(tmp_path / "shards" / "shard-*.tar"), shuffle_buffer=4,
+                                 seed=0, repeat=False)
+    return next(iter(batch_stream(stream, n)))
+
+
+def test_train_step_b2_from_shards_matches_jax(scenes, tmp_path):
+    """make_train_step at B=2 on a batch from the shard stream ((2, S)
+    camera/depth masks and camera_valid, per-sample GT): 3 steps in both
+    packages, losses, grad_norm and the final parameters, as
+    test_train_step_matches_jax holds B=1."""
+    batch = _stream_batch(scenes, tmp_path)
+    assert batch["images"].shape == (2, 2, HW, HW, 3) and batch["camera_mask"].shape == (2, 2)
+    assert not np.array_equal(batch["images"][0], batch["images"][1])
+    jcfg, tcfg, params, model = tiny_pair(seed=0)
+    hp = dict(learning_rate=1e-3, warmup_steps=1, total_steps=100)
+    opt_j = JS.make_optimizer(**hp)
+    step_j = JS.make_train_step(jcfg, opt_j, use_aux_inputs=True, remat=True)
+    state_j = JS.init_state(jax.tree.map(jnp.asarray, params), opt_j)
+    opt_t = TS.make_optimizer(model, **hp)
+    step_t = TS.make_train_step(tcfg, opt_t, use_aux_inputs=True, remat=True)
+    state_t = TS.init_state(model, opt_t)
+    jb, tb = {k: jnp.asarray(v) for k, v in batch.items()}, tbatch(batch)
+    for _ in range(3):
+        state_j, m_j = step_j(state_j, jb)
+        state_t, m_t = step_t(state_t, tb)
+        assert m_t.keys() == m_j.keys()
+        for key in m_j:
+            np.testing.assert_allclose(m_t[key].item(), float(m_j[key]), rtol=2e-5, err_msg=key)
+    want = params_from_jax(to_np(state_j.params), tcfg)
+    assert_trees_close(dict(model.named_parameters()), want, rel=0.0, floor=2e-5)
+
+
 def test_train_step_descends():
     _, tcfg, _, model = tiny_pair(seed=0)
     opt = TS.make_optimizer(model, learning_rate=1e-3, warmup_steps=1, total_steps=100)
@@ -158,8 +233,8 @@ def test_train_step_refuses_what_is_not_ported():
     opt = TS.make_optimizer(model)
     with pytest.raises(ValueError, match="serving-only"):
         TS.make_train_step(dataclasses.replace(tcfg, attn_quant="int8"), opt)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        TS.make_train_step(tcfg, opt, remat="dots")
+    with pytest.raises(ValueError, match="remat='foo'"):
+        TS.make_train_step(tcfg, opt, remat="foo")
 
 
 # ---------------------------------------------------------------------------
@@ -240,6 +315,28 @@ def test_dataset_matches_jax(scenes):
     assert len(batches) == 2 and batches[0]["images"].shape == (1, 3, 28, 28, 3)
 
 
+@pytest.mark.parametrize("row_chunk", [0, 3, 4, 12])
+def test_pairwise_distance_and_rotation_angle_match_jax(row_chunk):
+    """rotation_angle_deg, and pairwise_extrinsic_distance with and without
+    its row chunks (3 divides N = 12; 4 too; 12 is not below N, so one
+    pass), against the JAX package's."""
+    rng = np.random.default_rng(9)
+    ex, _ = random_cameras(rng, 1, 12)
+    ex = ex[0]
+    for i, j in ((0, 1), (2, 7), (5, 5)):
+        np.testing.assert_allclose(TV.rotation_angle_deg(ex[i, :, :3], ex[j, :, :3]),
+                                   float(JV.rotation_angle_deg(ex[i, :, :3], ex[j, :, :3])),
+                                   atol=2e-2 if i == j else 1e-4)
+    got = TV.pairwise_extrinsic_distance(ex, 0.7, row_chunk=row_chunk)
+    want = np.asarray(JV.pairwise_extrinsic_distance(jnp.asarray(ex), 0.7, row_chunk=row_chunk))
+    assert got.shape == (12, 12) and got.dtype == np.float32
+    # off the diagonal within fp32 rounding; on it, arccos is steep at 1
+    off = ~np.eye(12, dtype=bool)
+    np.testing.assert_allclose(got[off], want[off], rtol=0, atol=2e-5)
+    np.testing.assert_allclose(got[~off], want[~off], rtol=0, atol=5e-4)
+    np.testing.assert_array_equal(got, TV.pairwise_extrinsic_distance(ex, 0.7))
+
+
 def test_view_ranking_matches_jax():
     rng = np.random.default_rng(8)
     ex, _ = random_cameras(rng, 1, 7)
@@ -270,8 +367,9 @@ def test_metric_logger(tmp_path):
 
 def test_train_cli_tiny(scenes, tmp_path):
     """--tiny --device cpu trains, logs and saves; a second run resumes;
-    the multi-device and streaming options stop with "not ported yet";
-    without --device the default cuda raises here."""
+    shards made by make_shards train at --batch 2, log, save and resume;
+    the multi-device options stop with "not ported yet"; without --device
+    the default cuda raises here."""
     from omnivggt_tpu_torch.tools import train
 
     ck = tmp_path / "run"
@@ -286,8 +384,22 @@ def test_train_cli_tiny(scenes, tmp_path):
     for extra in (["--mesh", "1,2"], ["--state_sharding", "zero2"]):
         with pytest.raises(SystemExit, match="not ported yet"):
             train.main(base + ["--steps", "1", *extra])
-    with pytest.raises(SystemExit, match="not ported yet"):
-        train.main(["--shards", "x-*.tar", "--tiny", "--device", "cpu"])
+    from omnivggt_tpu_torch.tools import make_shards
+
+    make_shards.main(["--data_root", str(scenes), "--out", str(tmp_path / "shards"),
+                      "--num_samples", "6", "--views", "2", "--target_size", "28",
+                      "--samples_per_shard", "2"])
+    ck = tmp_path / "run_shards"
+    shards = ["--shards", str(tmp_path / "shards" / "shard-*.tar"), "--batch", "2", "--tiny",
+              "--device", "cpu", "--ckpt_dir", str(ck), "--log_every", "1", "--save_every", "1",
+              "--warmup", "1"]
+    state = train.main(shards + ["--steps", "2"])
+    assert state.step == 2 and TCK.latest_checkpoint(str(ck)).endswith("step_00000002.pt")
+    logged = [json.loads(x) for x in (ck / "metrics.jsonl").read_text().splitlines()]
+    assert [m["step"] for m in logged] == [1, 2]
+    assert all(np.isfinite(m["total"]) and m["grad_norm"] > 0 for m in logged)
+    state = train.main(shards + ["--steps", "3"])
+    assert state.step == 3 and state.optimizer.count == 3
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--data_root", str(scenes), "--tiny", "--steps", "1"])
