@@ -144,6 +144,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
      trunk gradients bitwise equal or within the train gate; the photometric augmentation on a CUDA
      view against its CPU copy (parameters drawn on the CPU from generators
      seeded alike) within 1e-6, and its time.
+ 14. (g) checkpoints and the library surface, after 5 (before 11), with the
+     safetensors and huggingface_hub packages made unimportable: the
+     fp32 flagship (camera token as in 5) through save_pretrained and
+     from_pretrained ("keep" and "float32"), every state dict bitwise
+     equal, file size and times; both trunks cast and the S=8 forward of
+     the loaded model bitwise equal to the original's (else the worst
+     difference under the same-answer gate), 24 + 48 launches; the
+     reference layout: write_safetensors, from_safetensors and
+     tools/convert_checkpoint -> from_pretrained bitwise, and two planted
+     faults that must raise (a tensor dropped: strict load; the file cut by
+     1 MB); TF32 switches at torch's defaults for one step: the forward
+     still bitwise equal (its exact_fp32 guard), the inference CLI on cuda
+     leaving both switches off, and the guard bypassed as a planted fault
+     that must differ (the TF32 heads' deltas, printed); guard_predictions
+     clean, then a NaN in a depth-head weight reported under depth;
+     enable_nan_debugging stopping at frame block 3 with a NaN planted
+     there, its hook removed after; tools/profile_forward at S=8 (family
+     table, trace with CUDA kernel events) and flops_estimate over 5's
+     median forward in TFLOP/s; a vit_large DINOv2 with fused SwiGLU blocks
+     (hidden 2736) on the 8 frames: 24 packed launches, against its plain
+     path within the serving gate's 2e-2 (median relative error), times.
 Bounds (bound_ms) are the larger of the bytes each kernel must move over
 3.35 TB/s and its matrix-product operations over the H100 SXM's published
 peak for their type: 989 TFLOP/s bf16 dense, 1,979 TOP/s int8, 67 TFLOP/s
@@ -153,7 +174,10 @@ summary; the last line is {"ok": true, "device": {...}}.
 Matmul precision: the heads run fp32, and both TF32 switches are off
 (torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 =
 False), so fp32 convolutions and matmuls keep full fp32 as in the JAX
-package's reference-parity heads.
+package's reference-parity heads; the forward keeps them off itself
+(utils/platform.exact_fp32), which phase (g) checks under torch's defaults.
+The profiler's kernel families and profile_breakdown are
+omnivggt_tpu_torch/utils/profiling.py's.
 """
 
 from __future__ import annotations
@@ -218,29 +242,6 @@ SOURCES = {
     "ring_flash_attention_hbm": "omnivggt_tpu_torch/csrc/ring_attention.cu",
 }
 N_RANKS = 4  # logical ranks of the sharded phases
-# kernel families of the profiled device time, first match wins
-FAMILIES = (
-    ("flash_fwd_head_major", ("flash_fwd_head_major",)),
-    ("flash_fwd_token_major", ("flash_fwd_token_major",)),
-    ("ring_step_tma int8 (int8 ring, TMA + wgmma)",
-     tuple(f"ring_step_tma<{d}, {b}, 4>" for d in (64, 128) for b in ("true", "false"))),
-    ("ring_step_tma bf16 (bf16 ring, TMA + wgmma)", ("ring_step_tma",)),
-    ("ring_stage (the rings' staging copy)", ("ring_stage",)),
-    ("conv3x3 kernel", ("conv3x3_bf16", "conv3x3_fp32")),
-    ("flash_bwd_dq", ("flash_bwd_dq",)),
-    ("flash_bwd_dkv", ("flash_bwd_dkv",)),
-    ("cuDNN convolutions (fwd, dgrad, wgrad)",
-     ("conv", "cudnn", "xmma", "implicit", "dgrad", "wgrad", "fprop")),
-    ("GEMMs (cuBLAS)", ("gemm", "cutlass", "nvjet", "sm90_", "sm80_", "ampere")),
-    ("LayerNorm", ("layer_norm", "layernorm")),
-    ("optimizer and clip (foreach)", ("multi_tensor", "foreach")),
-    ("upsample / interpolate", ("upsample", "interp")),
-    ("cat", ("cat",)),
-    ("copies and casts", ("copy", "cast")),
-    ("reductions", ("reduce",)),
-)
-
-
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -263,41 +264,13 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def family(name: str) -> str:
-    low = name.lower()
-    for fam, keys in FAMILIES:
-        if any(k in low for k in keys):
-            return fam
-    return "other elementwise"
-
-
 def profile_breakdown(label, run):
-    """One iteration of run() under torch.profiler: its wall time, the
-    summed kernel time (and so the device's idle share) and a table of
-    device time by kernel family. A measurement, not a check: a profiler
-    that records no device time is reported as such."""
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    fams, counts = defaultdict(float), defaultdict(int)
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA or evt.self_device_time_total <= 0:
-            continue
-        fams[family(evt.key)] += evt.self_device_time_total / 1e3
-        counts[family(evt.key)] += evt.count
-    total = sum(fams.values())
-    if total <= 0:
-        print(f"profile {label}: the profiler recorded no device time (not measured)")
-        return
-    print(f"profile {label}: wall {wall_ms:.2f} ms, summed kernel time {total:.2f} ms, "
-          f"device idle {max(0.0, 1 - total / wall_ms) * 100:.1f}%, "
-          f"{sum(counts.values())} kernel launches")
-    for fam, ms in sorted(fams.items(), key=lambda kv: -kv[1]):
-        print(f"  | {fam} | {counts[fam]} | {ms:.2f} ms | {ms / total * 100:.1f}% |")
+    """utils.profiling.profile_breakdown, imported at the call: this script
+    runs alone (without the package) far enough to refuse a machine
+    without CUDA."""
+    from omnivggt_tpu_torch.utils import profiling
+
+    profiling.profile_breakdown(label, run)
 
 
 def bound(flops, nbytes, int8_ops=0, fp32_flops=0):
@@ -2333,6 +2306,322 @@ def sharded_serving_phase(model, dev, card):
     gate("ring_fused, exact mode, S=8", exact.infer(**reqs[8]), ring_session.infer(**reqs[8]))
 
 
+def _must_raise(what, exc, fn):
+    """A planted fault must raise `exc`; loading or running through it fails
+    the run."""
+    try:
+        fn()
+    except exc as e:
+        print(f"  planted fault {what}: raised {type(e).__name__}: {str(e)[:150]}")
+        return e
+    raise AssertionError(f"planted fault {what} did not raise {exc.__name__}")
+
+
+def _state_dicts_equal(label, a, b):
+    sa, sb = a.state_dict(), b.state_dict()
+    if sa.keys() != sb.keys():
+        raise AssertionError(f"{label}: state dict keys differ")
+    for k in sa:
+        if sa[k].dtype != sb[k].dtype or not torch.equal(sa[k], sb[k]):
+            raise AssertionError(f"{label}: {k} differs")
+    print(f"  {label}: {len(sa)} tensors bitwise equal")
+
+
+def _outputs_equal(label, ref, got):
+    """True when every output is bitwise equal; else prints the worst
+    differences and holds them to the same-answer gate (dense median
+    relative error <= 2^-10, the serving gate on pose_enc)."""
+    from omnivggt_tpu_torch.models import omnivggt as TM
+
+    keys = ("pose_enc", "depth", "depth_conf", "world_points", "world_points_conf")
+    if all(torch.equal(ref[k], got[k]) for k in keys):
+        print(f"  {label}: outputs bitwise equal")
+        return True
+    worst = {k: float((ref[k].float() - got[k].float()).abs().max()) for k in keys}
+    readings = TM._probe_readings(*({k: o[k].float().cpu().numpy() for k in TM.PROBE_KEYS}
+                                    for o in (ref, got)))
+    print(f"  {label}: NOT bitwise; worst |diff| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+          + "; gate " + ", ".join(f"{k} {v:.3e}" for k, v in readings.items()))
+    dense = {k: v for k, v in readings.items() if k != "pose_enc_maxabs"}
+    if readings["pose_enc_maxabs"] > POSE_TOL or any(not v <= 2.0**-10 for v in dense.values()):
+        raise AssertionError(f"{label}: outside the same-answer gate")
+    return False
+
+
+def checkpoint_phase(FK, cfg, dev, card, inputs, fwd_ms, expect):
+    """(g) Checkpoints and the library surface on the card, after phase 5:
+    save_pretrained / from_pretrained and the reference layout with the
+    port's own safetensors I/O (the safetensors and huggingface_hub
+    packages made unimportable for the phase), bitwise round trips and
+    forwards, planted faults (a tensor dropped, a truncated file), TF32
+    under torch's defaults (the forward's guard, the inference CLI, the
+    guard bypassed as a planted fault: the TF32 heads' deltas), validation
+    (guard_predictions, enable_nan_debugging), profiling (profile_forward,
+    achieved TFLOP/s), and a SwiGLU DINOv2 at full width. Frees what it
+    builds."""
+    import contextlib
+    import shutil
+    import tempfile
+
+    from omnivggt_tpu_torch.checkpoint import cast_trunk_params, write_safetensors
+    from omnivggt_tpu_torch.config import vit_large
+    from omnivggt_tpu_torch.models import aggregator as TA
+    from omnivggt_tpu_torch.models import dinov2 as TD
+    from omnivggt_tpu_torch.models import omnivggt as TM
+    from omnivggt_tpu_torch.tools import convert_checkpoint, profile_forward
+    from omnivggt_tpu_torch.utils import platform as TPl
+    from omnivggt_tpu_torch.utils.profiling import flops_estimate
+    from omnivggt_tpu_torch.utils.validation import enable_nan_debugging, guard_predictions
+
+    print(f"(g) checkpoints and the library surface; card {card}")
+    # 1. no package needed: the port reads and writes safetensors itself
+    hidden = {name: sys.modules.get(name) for name in ("safetensors", "huggingface_hub")}
+    for name in hidden:
+        sys.modules[name] = None
+    tmp = tempfile.mkdtemp(prefix="omnivggt_ckpt_")
+    try:
+        # 2. checkpoint round trip on the card
+        model = TM.OmniVGGT(cfg, device=dev, seed=0)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(1)
+        with torch.no_grad():
+            model.aggregator.camera_token.normal_(generator=gen)  # as phase 5 draws it
+        model.eval()
+        native = os.path.join(tmp, "native")
+        t0 = time.perf_counter()
+        model.save_pretrained(native)
+        save_s = time.perf_counter() - t0
+        size_gb = os.path.getsize(os.path.join(native, TM.WEIGHTS_NAME)) / 1e9
+        print(f"  save_pretrained: model.safetensors {size_gb:.3f} GB in {save_s:.2f} s "
+              f"({size_gb / save_s:.2f} GB/s); card {card}")
+        loaded = {}
+        for head_dtype in ("keep", "float32"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loaded[head_dtype] = TM.OmniVGGT.from_pretrained(native, head_dtype=head_dtype,
+                                                             device=dev).eval()
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            print(f"  from_pretrained(head_dtype={head_dtype!r}): {load_s:.2f} s "
+                  f"({size_gb / load_s:.2f} GB/s)")
+            _state_dicts_equal(f"from_pretrained({head_dtype!r}) vs the saved model",
+                               loaded[head_dtype], model)
+        shutil.rmtree(native)
+        original, restored, fp32 = model, loaded["keep"], loaded["float32"]
+        del model, loaded
+        cast_trunk_params(original)
+        cast_trunk_params(restored)
+        with torch.inference_mode():
+            out_orig = original(**inputs)
+            FK.reset_launches()
+            out_rest = restored(**inputs)
+            torch.cuda.synchronize()
+            launches = FK.launches()
+        print(f"  launches per forward of the loaded model: {launches}")
+        if launches != expect:
+            raise AssertionError(f"kernel launches {launches}, expected {expect}")
+        roundtrip_bitwise = _outputs_equal(f"S={S} forward, loaded vs original", out_orig, out_rest)
+
+        # 3. the reference layout: one file, read back, converted, faults
+        ref_path = os.path.join(tmp, "reference.safetensors")
+        sd = fp32.state_dict()
+        t0 = time.perf_counter()
+        write_safetensors(ref_path, sd)
+        print(f"  write_safetensors (reference layout): {os.path.getsize(ref_path) / 1e9:.3f} GB "
+              f"in {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        m = TM.OmniVGGT.from_safetensors(ref_path, head_dtype="float32", device=dev)
+        torch.cuda.synchronize()
+        print(f"  from_safetensors: {time.perf_counter() - t0:.2f} s")
+        _state_dicts_equal("from_safetensors vs the saved model", m, fp32)
+        del m
+        converted = os.path.join(tmp, "converted")
+        convert_checkpoint.main([ref_path, converted, "--head_dtype", "float32"])
+        m = TM.OmniVGGT.from_pretrained(converted, device=dev)
+        _state_dicts_equal("convert_checkpoint -> from_pretrained vs the saved model", m, fp32)
+        del m
+        shutil.rmtree(converted)
+        dropped = os.path.join(tmp, "dropped.safetensors")
+        gone = "depth_head.scratch.output_conv1.weight"
+        write_safetensors(dropped, {k: v for k, v in sd.items() if k != gone})
+        _must_raise(f"{gone} dropped from the file", RuntimeError,
+                    lambda: TM.OmniVGGT.from_safetensors(dropped, head_dtype="float32", device=dev))
+        os.remove(dropped)
+        os.truncate(ref_path, os.path.getsize(ref_path) - (1 << 20))
+        _must_raise("the file truncated by 1 MB", ValueError,
+                    lambda: TM.OmniVGGT.from_safetensors(ref_path, head_dtype="float32", device=dev))
+        os.remove(ref_path)
+        del sd, fp32
+        torch.cuda.empty_cache()
+
+        # 4. TF32 under torch's defaults (matmul off, cuDNN on)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            print(f"  TF32 switches set to torch's defaults: {TPl.tf32_switches()}")
+            with torch.inference_mode():
+                out_tf32 = restored(**inputs)
+                _outputs_equal(f"S={S} forward under torch's TF32 defaults vs step 2", out_rest, out_tf32)
+                guard, TM.exact_fp32 = TM.exact_fp32, contextlib.nullcontext
+                try:
+                    out_bypass = restored(**inputs)  # planted fault: the heads' guard bypassed
+                finally:
+                    TM.exact_fp32 = guard
+            if all(torch.equal(out_rest[k], out_bypass[k]) for k in ("depth", "world_points")):
+                raise AssertionError("the forward without its TF32 guard equals the guarded one")
+            readings = TM._probe_readings(*({k: o[k].float().cpu().numpy() for k in TM.PROBE_KEYS}
+                                            for o in (out_rest, out_bypass)))
+            worst = {k: float((out_rest[k] - out_bypass[k]).abs().max())
+                     for k in ("pose_enc", "depth", "world_points", "depth_conf")}
+            print("  planted fault, the forward's TF32 guard bypassed (TF32 heads): worst |diff| "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+                  + "; serving gate readings " + ", ".join(f"{k} {v:.3e}" for k, v in readings.items())
+                  + f" (limits {POSE_TOL:g} / {REL_TOL:g}); card {card}")
+            del out_tf32, out_bypass
+            from omnivggt_tpu_torch import inference
+            from omnivggt_tpu_torch.data import loader
+
+            def synthetic_folder(*args, **kwargs):  # reading a folder needs PIL
+                n = 2
+                return (inputs["images"][:n].cpu().numpy(), np.zeros((1, n, 3, 4), np.float32),
+                        np.zeros((1, n, 3, 3), np.float32),
+                        np.zeros((1, n, IMG, IMG, 1), np.float32),
+                        np.zeros((1, n, IMG, IMG), np.float32), [], [])
+
+            real_loader = loader.load_images_and_cameras
+            loader.load_images_and_cameras = synthetic_folder
+            try:
+                preds = inference.main(["--image_folder", tmp, "--no_viewer", "--device", "cuda"])
+            finally:
+                loader.load_images_and_cameras = real_loader
+            if not all(np.isfinite(preds[k]).all() for k in ("depth", "world_points")):
+                raise AssertionError("the inference CLI's outputs are not finite")
+            print(f"  inference CLI (--device cuda, random weights) left the TF32 switches "
+                  f"{TPl.tf32_switches()}")
+            if TPl.tf32_switches() != (False, False):
+                raise AssertionError("the inference CLI left TF32 on")
+            del preds
+        finally:
+            TPl.set_tf32(False)  # chip_smoke's own mode
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 5. validation
+        problems = guard_predictions(out_rest)
+        print(f"  guard_predictions on the S={S} outputs: {problems}")
+        if problems:
+            raise AssertionError(f"guard_predictions: {problems}")
+        w = restored.depth_head.scratch.output_conv2[2].weight
+        kept = w.detach().clone()
+        with torch.no_grad():
+            w[0, 0, 0, 0] = float("nan")
+        with torch.inference_mode():
+            problems = guard_predictions(restored(**inputs))
+        with torch.no_grad():
+            w.copy_(kept)
+        print(f"  guard_predictions with a NaN in depth_head.scratch.output_conv2.2.weight: {problems}")
+        if not any(p.startswith("depth:") for p in problems) or any(
+                p.startswith(("world_points", "pose_enc")) for p in problems):
+            raise AssertionError(f"the NaN in the depth head was reported as {problems}")
+        from torch.nn.modules import module as nn_module
+
+        block = restored.aggregator.frame_blocks[3]
+        w = block.attn.proj.weight
+        kept = w.detach().clone()
+        with torch.no_grad():
+            w[0, 0] = float("nan")
+        n_hooks = len(nn_module._global_forward_hooks)
+        enable_nan_debugging()
+        try:
+            with torch.inference_mode():
+                err = _must_raise("a NaN in frame block 3's attn.proj.weight under "
+                                  "enable_nan_debugging()", FloatingPointError,
+                                  lambda: restored(**inputs))
+            hooks_on = len(nn_module._global_forward_hooks)
+        finally:
+            enable_nan_debugging(False)
+            with torch.no_grad():
+                w.copy_(kept)
+        hooks_off = len(nn_module._global_forward_hooks)
+        in_block = any(err.module is mod for mod in block.modules())
+        print(f"  raised at a module of frame block 3: {in_block} "
+              f"({type(err.module).__name__}); global forward hooks {n_hooks} -> {hooks_on} -> "
+              f"{hooks_off}")
+        if not in_block or hooks_on != n_hooks + 1 or hooks_off != n_hooks:
+            raise AssertionError("enable_nan_debugging did not stop at frame block 3 or left its hook")
+        del original, restored, out_orig, out_rest, block, w, kept, err
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 6. profiling
+        logdir = os.path.join(tmp, "trace")
+        prof = profile_forward.main(["--views", str(S), "--logdir", logdir])
+        with open(os.path.join(logdir, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        n_kernels = sum(1 for e in events if e.get("cat") == "kernel")
+        print(f"  trace {os.path.getsize(os.path.join(logdir, 'trace.json')) / 1e6:.1f} MB, "
+              f"{n_kernels} CUDA kernel events")
+        if not n_kernels:
+            raise AssertionError("the trace holds no CUDA kernel event")
+        flops = flops_estimate(cfg, S)
+        print(f"  flops_estimate(OmniVGGTConfig(), {S}) = {flops / 1e12:.3f} TFLOP; over phase 5's "
+              f"median forward {fwd_ms:.2f} ms: {flops / fwd_ms / 1e9:.2f} TFLOP/s, "
+              f"{flops / fwd_ms / 1e9 / (PEAK_FLOPS / 1e12) * 100:.2f}% of 989 TFLOP/s bf16 dense; "
+              f"profile_forward's wall {prof['wall_ms']:.2f} ms; card {card}")
+        del prof, events
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # 7. SwiGLU DINOv2 at full width
+        vcfg = vit_large(ffn_layer="swiglufused")
+        with torch.device("meta"):
+            vit = TD.DinoVisionTransformer(vcfg)
+        vit.to_empty(device=dev)
+        TM.init_weights(vit, torch.Generator(device=dev).manual_seed(2))
+        hidden_w = vit.blocks[0].mlp.w3.in_features
+        if (len(vit.blocks), vcfg.embed_dim, hidden_w) != (24, 1024, 2736):
+            raise AssertionError(f"SwiGLU DINOv2: {len(vit.blocks)} blocks, hidden {hidden_w}")
+        mean = torch.tensor(TA._RESNET_MEAN, device=dev)
+        std = torch.tensor(TA._RESNET_STD, device=dev)
+        imgs = ((inputs["images"] - mean) / std).to(torch.bfloat16)
+        with torch.inference_mode():
+            TD.apply(vit, imgs)
+            torch.cuda.synchronize()
+            FK.reset_launches()
+            tok = TD.apply(vit, imgs)
+            torch.cuda.synchronize()
+            launches = FK.launches()
+            ref = TD.apply(vit, imgs, attn_impl="plain")
+            kernel_ms = median_ms(lambda: TD.apply(vit, imgs), 5)
+            plain_ms = median_ms(lambda: TD.apply(vit, imgs, attn_impl="plain"), 3)
+        want = {k: 0 for k in launches}
+        want["flash_attention_packed"] = vcfg.depth
+        print(f"  SwiGLU DINOv2 (vit_large, swiglufused, hidden {hidden_w}), S={S} {IMG}px: "
+              f"launches {launches}")
+        if launches != want:
+            raise AssertionError(f"SwiGLU DINOv2 launches {launches}, expected {want}")
+        a, b = ref.double(), tok.double()
+        med_rel = float(((a - b).abs() / (a.abs() + 1e-3)).median())
+        finite = bool(torch.isfinite(tok).all())
+        print(f"  SwiGLU DINOv2 kernel path vs plain: median relative error {med_rel:.3e} "
+              f"(limit {REL_TOL:g}), finite {finite}; {kernel_ms:.2f} ms, plain "
+              f"{plain_ms:.2f} ms; card {card}")
+        if not finite or not med_rel <= REL_TOL or tok.shape != (S, (IMG // 14) ** 2, 1024):
+            raise AssertionError("SwiGLU DINOv2 kernel path fails against the plain path")
+        del vit, imgs, tok, ref, a, b
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        for name, mod in hidden.items():
+            if mod is None:
+                del sys.modules[name]
+            else:
+                sys.modules[name] = mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"(g) passed: round trip bitwise {roundtrip_bitwise}")
+
+
 def synthetic_inputs(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -2504,6 +2793,7 @@ def main() -> int:
     )
     del preds, ref
     torch.cuda.empty_cache()
+    checkpoint_phase(FK, cfg, dev, card, inputs, fwd_ms, expect)
     ring_launches = sharded_phase(model, cfg, inputs, dev, card, FK, RK)
     sharded_serving_phase(model, dev, card)
     del inputs

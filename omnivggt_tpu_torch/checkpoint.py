@@ -1,8 +1,15 @@
-"""Checkpoints: the JAX parameter bridge, strict safetensors loading, and
-the bf16 trunk cast (counterpart of omnivggt_tpu/checkpoint.py).
+"""Checkpoints: the safetensors format, the JAX parameter bridge, strict
+loading, and the bf16 trunk cast (counterpart of omnivggt_tpu/checkpoint.py).
 
 The port's modules use the reference's state-dict names, so a reference
 safetensors file loads with `load_state_dict(strict=True)`.
+`read_safetensors` / `write_safetensors` implement the file format with
+torch and numpy alone (the `safetensors` package is not needed): an 8-byte
+little-endian header length, a JSON header of {name: {dtype, shape,
+data_offsets}} and an optional "__metadata__" of strings, padded with
+spaces to 8 bytes, then the tensors' raw little-endian bytes. The writer
+lays a file out as the `safetensors` package does (largest dtype first,
+then by name), so both write the same bytes for the same tensors.
 `params_from_jax` is the inverse of omnivggt_tpu.checkpoint.convert_state_dict:
 it turns the JAX package's parameter pytree (numpy leaves) into this
 package's state dict, unstacking the per-layer stacks and transposing
@@ -11,7 +18,11 @@ package's state dict, unstacking the per-layer stacks and transposing
 
 from __future__ import annotations
 
-from typing import Dict
+import json
+import math
+import os
+import sys
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -55,10 +66,8 @@ class StateDictEmitter:
         if "q_norm" in p["attn"]:
             self.norm(f"{prefix}.attn.q_norm", p["attn"]["q_norm"])
             self.norm(f"{prefix}.attn.k_norm", p["attn"]["k_norm"])
-        if "w12" in p["mlp"]:
-            raise NotImplementedError("SwiGLU blocks are not ported")
-        self.linear(f"{prefix}.mlp.fc1", p["mlp"]["fc1"])
-        self.linear(f"{prefix}.mlp.fc2", p["mlp"]["fc2"])
+        for name in ("w12", "w3") if "w12" in p["mlp"] else ("fc1", "fc2"):
+            self.linear(f"{prefix}.mlp.{name}", p["mlp"][name])
         if "ls1" in p:
             self.raw(f"{prefix}.ls1.gamma", p["ls1"]["gamma"])
             self.raw(f"{prefix}.ls2.gamma", p["ls2"]["gamma"])
@@ -147,12 +156,134 @@ def params_from_jax(params, cfg: OmniVGGTConfig) -> Dict[str, torch.Tensor]:
     return e.state_dict()
 
 
+# the file format's dtypes, in the order the `safetensors` package lays a
+# file out (largest first): its Dtype enum's, of which these are the ones
+# torch holds
+SAFETENSORS_DTYPES = {
+    "I64": torch.int64, "F64": torch.float64, "F32": torch.float32, "I32": torch.int32,
+    "BF16": torch.bfloat16, "F16": torch.float16, "I16": torch.int16, "I8": torch.int8,
+    "U8": torch.uint8, "BOOL": torch.bool,
+}
+_DTYPE_NAMES = {v: k for k, v in SAFETENSORS_DTYPES.items()}
+_DTYPE_RANK = {k: i for i, k in enumerate(SAFETENSORS_DTYPES)}
+
+
+def _parse_header(path: str):
+    """(header dict without "__metadata__", data start, file size) of a
+    safetensors file, every entry (and the metadata) checked against the
+    file: a malformed file raises ValueError before any tensor is read."""
+    size = os.path.getsize(path)
+    if size < 8:
+        raise ValueError(f"{path}: {size} bytes, shorter than the 8-byte header length")
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        if 8 + n > size:
+            raise ValueError(f"{path}: header length {n} runs past the end of the file ({size} bytes)")
+        raw = f.read(n)
+    try:
+        header = json.loads(raw.decode("utf-8"))
+    except (UnicodeDecodeError, json.JSONDecodeError) as e:
+        raise ValueError(f"{path}: the header is not JSON ({e})") from None
+    if not isinstance(header, dict):
+        raise ValueError(f"{path}: the header is not a JSON object")
+    meta = header.pop("__metadata__", None)
+    if meta is not None and not (
+        isinstance(meta, dict) and all(isinstance(v, str) for v in meta.values())
+    ):
+        raise ValueError(f"{path}: __metadata__ must map strings to strings")
+    data_len = size - 8 - n
+    spans = []
+    for name, info in header.items():
+        if not isinstance(info, dict) or set(info) != {"dtype", "shape", "data_offsets"}:
+            raise ValueError(f"{path}: entry {name!r} is not {{dtype, shape, data_offsets}}")
+        if info["dtype"] not in SAFETENSORS_DTYPES:
+            raise ValueError(f"{path}: {name!r} has an unknown dtype {info['dtype']!r}")
+        shape, offs = info["shape"], info["data_offsets"]
+        if not (isinstance(shape, list) and all(type(d) is int and d >= 0 for d in shape)):
+            raise ValueError(f"{path}: {name!r} has a malformed shape {shape!r}")
+        if not (isinstance(offs, list) and len(offs) == 2
+                and all(type(o) is int for o in offs) and 0 <= offs[0] <= offs[1] <= data_len):
+            raise ValueError(
+                f"{path}: {name!r} has offsets {offs!r} outside the data area of {data_len} bytes"
+            )
+        nbytes = math.prod(shape) * SAFETENSORS_DTYPES[info["dtype"]].itemsize
+        if offs[1] - offs[0] != nbytes:
+            raise ValueError(
+                f"{path}: {name!r} of shape {shape} in {info['dtype']} needs {nbytes} bytes, "
+                f"its offsets span {offs[1] - offs[0]}"
+            )
+        spans.append((offs[0], offs[1], name))
+    end = 0
+    for begin, stop, name in sorted(spans):
+        if begin != end:
+            raise ValueError(
+                f"{path}: {name!r} starts at byte {begin} of the data area, the tensors before "
+                f"it end at {end} (offsets overlap or leave a gap)"
+            )
+        end = stop
+    if end != data_len:
+        raise ValueError(
+            f"{path}: the tensors cover {end} bytes of a data area of {data_len} "
+            "(offsets do not cover it exactly)"
+        )
+    return header, 8 + n, size
+
+
+def read_safetensors(path: str, device=None) -> Dict[str, torch.Tensor]:
+    """Every tensor of a safetensors file, each copied once from a map of
+    the file onto `device` (default the CPU). The whole header is checked
+    first (`_parse_header`), so a malformed file loads nothing."""
+    if sys.byteorder != "little":
+        raise RuntimeError("safetensors files are little-endian; this host is not")
+    header, start, size = _parse_header(path)
+    device = torch.device("cpu" if device is None else device)
+    out = {}
+    if size == start:
+        return {name: torch.empty(info["shape"], dtype=SAFETENSORS_DTYPES[info["dtype"]],
+                                  device=device) for name, info in header.items()}
+    # a private (copy-on-write) map: torch needs a writable buffer, and the
+    # file is never written
+    data = torch.from_numpy(np.memmap(path, dtype=np.uint8, mode="c", offset=start))
+    for name, info in header.items():
+        begin, stop = info["data_offsets"]
+        raw = torch.empty(stop - begin, dtype=torch.uint8, device=device)
+        raw.copy_(data[begin:stop])
+        out[name] = raw.view(SAFETENSORS_DTYPES[info["dtype"]]).reshape(info["shape"])
+    return out
+
+
+def write_safetensors(path: str, tensors: Dict[str, torch.Tensor],
+                      metadata: Optional[Dict[str, str]] = None) -> None:
+    """Write `tensors` (any devices, any strides) as a safetensors file, in
+    the layout of the `safetensors` package: tensors ordered by dtype,
+    largest first, then by name; a compact JSON header padded with spaces to
+    a multiple of 8 bytes."""
+    for name, t in tensors.items():
+        if t.dtype not in _DTYPE_NAMES:
+            raise ValueError(f"{name!r}: dtype {t.dtype} has no safetensors name")
+    names = sorted(tensors, key=lambda k: (_DTYPE_RANK[_DTYPE_NAMES[tensors[k].dtype]], k))
+    header = {} if metadata is None else {"__metadata__": dict(metadata)}
+    offset = 0
+    for name in names:
+        t = tensors[name]
+        nbytes = t.numel() * t.element_size()
+        header[name] = {"dtype": _DTYPE_NAMES[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
+    raw = json.dumps(header, separators=(",", ":"), ensure_ascii=False).encode("utf-8")
+    raw += b" " * (-len(raw) % 8)
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for name in names:
+            t = tensors[name].detach().to("cpu").contiguous().reshape(-1)
+            f.write(memoryview(t.view(torch.uint8).numpy()))
+
+
 def load_safetensors(model: nn.Module, path: str) -> None:
     """Strictly load a reference safetensors checkpoint into `model`: every
     parameter must be present and nothing may be left over."""
-    from safetensors.torch import load_file
-
-    sd = load_file(path, device=str(next(model.parameters()).device))
+    sd = read_safetensors(path, device=next(model.parameters()).device)
     sd = {
         k: v for k, v in sd.items()
         if not k.endswith(_IGNORED_SUFFIXES) and ".rope." not in k

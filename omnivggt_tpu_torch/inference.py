@@ -77,13 +77,13 @@ def main(argv=None):
     from omnivggt_tpu_torch.config import OmniVGGTConfig, tiny_test_config
     from omnivggt_tpu_torch.data.loader import load_images_and_cameras
     from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
-    from omnivggt_tpu_torch.utils.device import resolve_device
     from omnivggt_tpu_torch.utils.geometry import (
         pose_encoding_to_extri_intri,
         unproject_depth_map_to_point_map,
     )
+    from omnivggt_tpu_torch.utils.platform import ensure_platform
 
-    device = resolve_device(args.device)
+    device = ensure_platform(args.device)  # TF32 off: the fp32 heads keep full fp32
     print(f"device: {torch.cuda.get_device_name(0) if device.type == 'cuda' else 'cpu'}")
     if args.tiny:
         model = OmniVGGT(tiny_test_config(), device=device)

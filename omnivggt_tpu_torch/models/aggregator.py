@@ -347,4 +347,4 @@ def apply(
         if i in wanted:
             # (frame ‖ global) in this fixed order for either aa_order
             outputs[i] = torch.cat([frame_inter, global_inter], dim=-1)
-    return outputs, psi
+    return L.run_forward_hooks(p, (images,), (outputs, psi))

@@ -70,4 +70,4 @@ def apply(p: CameraHead, tokens_last: torch.Tensor, num_valid_frames=None) -> to
                 fl_act=cfg.fl_act,
             )
         )
-    return torch.stack(activated)
+    return L.run_forward_hooks(p, (tokens_last,), torch.stack(activated))

@@ -3,7 +3,8 @@
 Conv patchify, cls token plus the learned pos embed (bicubic antialiased
 interpolation to the patch grid), register tokens inserted after the
 pos-embed add, `depth` pre-LN blocks (LayerScale, LN eps 1e-6, no qk-norm,
-no RoPE), final LayerNorm; returns the normalised patch tokens.
+no RoPE; the feed-forward of `cfg.ffn_layer`: "mlp", "swiglu" or
+"swiglufused"), final LayerNorm; returns the normalised patch tokens.
 
 With `pad_tokens` the token count is padded to a multiple of 8 (1374 ->
 1376 at 518 px) and the pad tokens are masked out as keys through a static
@@ -30,8 +31,6 @@ class DinoVisionTransformer(nn.Module):
 
     def __init__(self, cfg: DinoV2Config):
         super().__init__()
-        if cfg.ffn_layer != "mlp":
-            raise NotImplementedError(f"ffn_layer {cfg.ffn_layer!r}")
         self.cfg = cfg
         C = cfg.embed_dim
         self.patch_embed = L.PatchEmbed(cfg.patch_size, cfg.in_chans, C)
@@ -44,7 +43,7 @@ class DinoVisionTransformer(nn.Module):
         self.blocks = nn.ModuleList(
             L.Block(
                 C, cfg.num_heads, mlp_ratio=cfg.mlp_ratio,
-                init_values=cfg.init_values, qk_norm=cfg.qk_norm,
+                init_values=cfg.init_values, qk_norm=cfg.qk_norm, ffn_layer=cfg.ffn_layer,
             )
             for _ in range(cfg.depth)
         )
@@ -118,4 +117,4 @@ def apply(
             int8_dense=int8_dense, int8_qk=int8_qk,
         )
     x = L.layer_norm(p.norm, x, cfg.ln_eps)
-    return x[:, 1 + cfg.num_register_tokens : n_valid]
+    return L.run_forward_hooks(p, (images,), x[:, 1 + cfg.num_register_tokens : n_valid])

@@ -241,4 +241,6 @@ def apply(p: DPTHead, layers, images_hw, patch_start_idx: int, dtype=torch.float
     preds, conf = activate_head(
         out.float(), activation=cfg.activation, conf_activation=cfg.conf_activation
     )
-    return preds.reshape(B, S, *preds.shape[1:]), conf.reshape(B, S, *conf.shape[1:])
+    return L.run_forward_hooks(
+        p, (layers,), (preds.reshape(B, S, *preds.shape[1:]), conf.reshape(B, S, *conf.shape[1:]))
+    )

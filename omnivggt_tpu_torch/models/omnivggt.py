@@ -6,7 +6,14 @@ pose_enc (B,S,9), pose_enc_list (iters,B,S,9), depth (B,S,H,W,1),
 depth_conf (B,S,H,W), world_points (B,S,H,W,3), world_points_conf
 (B,S,H,W), images (B,S,H,W,3). The aggregator trunk runs in
 `config.compute_dtype` (bf16 by default) and the heads in
-`config.head_dtype` (fp32); only the layers the heads read are kept.
+`config.head_dtype` (fp32); only the layers the heads read are kept. The
+forward runs fp32 work in full fp32 whatever torch's TF32 switches say
+(utils/platform.exact_fp32), as the JAX package's reference-parity heads do.
+
+Checkpoints: `from_safetensors` reads a reference file; `save_pretrained`
+writes the port's own directory (config.json as the JAX package writes it,
+model.safetensors under the reference's names) and `from_pretrained` reads
+it back, or a JAX-written config.json beside such weights.
 
 The fast serving modes (`trunk_quant`, `attn_quant`, `head_quant`,
 `approx_gelu`, bf16 heads) are certified per checkpoint by
@@ -19,14 +26,19 @@ runs it and keeps the verdict next to the checkpoint
 from __future__ import annotations
 
 import dataclasses
+import glob
+import json
 import logging
 import math
+import os
+import re
 from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
 
+from omnivggt_tpu_torch import config as C
 from omnivggt_tpu_torch.config import OmniVGGTConfig
 from omnivggt_tpu_torch.models import aggregator as agg
 from omnivggt_tpu_torch.models import camera_head as chead
@@ -34,6 +46,44 @@ from omnivggt_tpu_torch.models import dpt_head as dhead
 from omnivggt_tpu_torch.models.aggregator import AuxInputs
 from omnivggt_tpu_torch.ops import layers as L
 from omnivggt_tpu_torch.utils.device import resolve_device
+from omnivggt_tpu_torch.utils.platform import exact_fp32
+
+
+CONFIG_NAME, WEIGHTS_NAME = "config.json", "model.safetensors"
+# only a plausible 'org/name' id goes to the hub: a mistyped local path must
+# say that no such directory exists, not try a download
+_HUB_ID = re.compile(r"[A-Za-z0-9][\w.\-]*/[\w.\-]+")
+
+
+def config_from_dict(raw: dict) -> OmniVGGTConfig:
+    """An OmniVGGTConfig from a save_pretrained `config.json` of either
+    package, read as the JAX package's from_pretrained reads it (lists to
+    tuples, the same defaults for the fields older files lack), and the
+    port's head_quant and bounded_attn_logits when present."""
+
+    def tup(d, keys):
+        return {k: tuple(v) if k in keys and isinstance(v, list) else v for k, v in d.items()}
+
+    return OmniVGGTConfig(
+        img_size=raw["img_size"],
+        patch_size=raw["patch_size"],
+        embed_dim=raw["embed_dim"],
+        aggregator=C.AggregatorConfig(**tup(raw["aggregator"], ["aa_order"])),
+        camera_head=C.CameraHeadConfig(**raw["camera_head"]),
+        depth_head=C.DPTHeadConfig(
+            **tup(raw["depth_head"], ["out_channels", "intermediate_layer_idx"])
+        ),
+        point_head=C.DPTHeadConfig(
+            **tup(raw["point_head"], ["out_channels", "intermediate_layer_idx"])
+        ),
+        compute_dtype=raw["compute_dtype"],
+        head_dtype=raw.get("head_dtype", "float32"),
+        approx_gelu=raw.get("approx_gelu", False),
+        trunk_quant=raw.get("trunk_quant", "none"),
+        attn_quant=raw.get("attn_quant", "none"),
+        head_quant=raw.get("head_quant", "none"),
+        bounded_attn_logits=raw.get("bounded_attn_logits", True),
+    )
 
 
 def needed_layers(cfg: OmniVGGTConfig):
@@ -149,6 +199,89 @@ class OmniVGGT(nn.Module):
         model.config = config
         return model
 
+    def save_pretrained(self, directory: str) -> str:
+        """The port's own checkpoint: `config.json` (written as the JAX
+        package's save_pretrained writes it) and the state dict under the
+        reference's names in `model.safetensors` (the JAX package writes
+        Orbax `params/` there, which needs JAX and tensorstore)."""
+        from omnivggt_tpu_torch.checkpoint import write_safetensors
+
+        os.makedirs(directory, exist_ok=True)
+        with open(os.path.join(directory, CONFIG_NAME), "w") as f:
+            json.dump(dataclasses.asdict(self.config), f, indent=2)
+        write_safetensors(os.path.join(directory, WEIGHTS_NAME), self.state_dict())
+        return directory
+
+    @classmethod
+    def from_pretrained(cls, directory: str, head_dtype: str = "keep", device=None):
+        """Load a directory written by save_pretrained onto `device` (default
+        "cuda"), or, given a hub repo id ('org/name') that is not a local
+        directory, the reference checkpoint from the hub (needs
+        huggingface_hub and the network; without them a RuntimeError says
+        so). A mistyped local path raises FileNotFoundError.
+
+        head_dtype: "keep" (default) serves the saved config's modes;
+        "auto" resets them to reference parity and certifies them anew, as
+        from_safetensors does (without the quantising rungs; the verdict is
+        kept beside model.safetensors, keyed on its content);
+        "float32" / "bfloat16" force that head dtype. The fixed-max softmax
+        is turned off when the weights break its logit bound."""
+        from omnivggt_tpu_torch.checkpoint import load_safetensors
+        from omnivggt_tpu_torch.utils.validation import check_bounded_logits_safe
+
+        if not os.path.isdir(directory) and _HUB_ID.fullmatch(directory):
+            return cls._from_hub(directory, head_dtype="auto" if head_dtype == "keep" else head_dtype,
+                                 device=device)
+        cfg_path = os.path.join(directory, CONFIG_NAME)
+        if not os.path.isfile(cfg_path):
+            raise FileNotFoundError(f"no checkpoint directory with a {CONFIG_NAME} at {directory!r}")
+        with open(cfg_path) as f:
+            cfg = config_from_dict(json.load(f))
+        if head_dtype not in ("keep", "auto"):
+            cfg = dataclasses.replace(cfg, head_dtype=head_dtype)
+        model = cls(cfg, device=device, seed=None)
+        weights = os.path.join(directory, WEIGHTS_NAME)
+        load_safetensors(model, weights)
+        head_dim = cfg.embed_dim // cfg.aggregator.num_heads
+        if cfg.bounded_attn_logits and not check_bounded_logits_safe(model, head_dim):
+            cfg = dataclasses.replace(cfg, bounded_attn_logits=False)
+        if head_dtype == "auto":
+            cfg = dataclasses.replace(cfg, head_dtype="float32", approx_gelu=False,
+                                      trunk_quant="none", attn_quant="none", head_quant="none")
+            cfg = _certify_cached(model.eval(), cfg, weights, quantising_rungs=False)
+        model.config = cfg
+        return model
+
+    @classmethod
+    def _from_hub(cls, repo_id: str, head_dtype: str = "auto", device=None):
+        """Fetch a reference-layout safetensors checkpoint from the hub and
+        load it with from_safetensors."""
+        try:
+            from huggingface_hub import snapshot_download
+        except ImportError as e:
+            raise RuntimeError(
+                f"{repo_id!r} is not a local checkpoint directory and "
+                "huggingface_hub is not installed, so it cannot be fetched "
+                "from the hub. Download the safetensors file manually and "
+                "use OmniVGGT.from_safetensors(path)."
+            ) from e
+        try:
+            snap = snapshot_download(repo_id, allow_patterns=["*.safetensors"])
+        except Exception as e:
+            raise RuntimeError(
+                f"could not download {repo_id!r} from the hub (offline "
+                "environment?). Download the safetensors file manually and "
+                "use OmniVGGT.from_safetensors(path)."
+            ) from e
+        files = sorted(glob.glob(os.path.join(snap, "**", "*.safetensors"), recursive=True))
+        if len(files) != 1:
+            raise RuntimeError(
+                f"hub snapshot {snap!r} holds {len(files)} .safetensors files "
+                f"({[os.path.basename(f) for f in files]}); load one with "
+                "OmniVGGT.from_safetensors(path)."
+            )
+        return cls.from_safetensors(files[0], device=device, head_dtype=head_dtype)
+
     def forward(
         self,
         images,
@@ -208,40 +341,43 @@ def apply(
     if images.ndim == 4:
         images = images[None]
     B, S, H, W, _ = images.shape
-    layers, patch_start_idx = agg.apply(
-        model.aggregator, images, aux,
-        output_layers=needed_layers(cfg),
-        dtype=cfg.trunk_dtype,
-        attn_impl=attn_impl,
-        sharding=sharding,
-        allow_bounded=cfg.bounded_attn_logits,
-        approx_gelu=cfg.approx_gelu,
-        pad_tokens=pad_tokens,
-        remat=remat,
-        train_generator=train_generator,
-        drop_path_rate=cfg.aggregator.drop_path_rate,
-        num_valid_frames=num_valid_frames,
-        int8_dense=cfg.trunk_quant,
-        int8_qk=cfg.attn_quant == "int8",
-    )
-    pose_enc_list = chead.apply(
-        model.camera_head, layers[cfg.aggregator.depth - 1].to(cfg.heads_dtype),
-        num_valid_frames=num_valid_frames,
-    )
-    predictions = {"pose_enc": pose_enc_list[-1], "pose_enc_list": pose_enc_list}
-    for name, head, key in (
-        ("depth_head", model.depth_head, "depth"),
-        ("point_head", model.point_head, "world_points"),
-    ):
-        hcfg = getattr(cfg, name)
-        preds, conf = dhead.apply(
-            head, [layers[i] for i in hcfg.intermediate_layer_idx], (H, W),
-            patch_start_idx, dtype=cfg.heads_dtype, quant=cfg.head_quant,
+    # full fp32 wherever the forward runs fp32, whatever the caller's TF32
+    # switches (utils/platform.exact_fp32); bf16 work is unaffected
+    with exact_fp32():
+        layers, patch_start_idx = agg.apply(
+            model.aggregator, images, aux,
+            output_layers=needed_layers(cfg),
+            dtype=cfg.trunk_dtype,
+            attn_impl=attn_impl,
+            sharding=sharding,
+            allow_bounded=cfg.bounded_attn_logits,
+            approx_gelu=cfg.approx_gelu,
+            pad_tokens=pad_tokens,
+            remat=remat,
+            train_generator=train_generator,
+            drop_path_rate=cfg.aggregator.drop_path_rate,
+            num_valid_frames=num_valid_frames,
+            int8_dense=cfg.trunk_quant,
+            int8_qk=cfg.attn_quant == "int8",
         )
-        predictions[key] = preds
-        predictions[f"{key}_conf"] = conf
-    predictions["images"] = images
-    return predictions
+        pose_enc_list = chead.apply(
+            model.camera_head, layers[cfg.aggregator.depth - 1].to(cfg.heads_dtype),
+            num_valid_frames=num_valid_frames,
+        )
+        predictions = {"pose_enc": pose_enc_list[-1], "pose_enc_list": pose_enc_list}
+        for name, head, key in (
+            ("depth_head", model.depth_head, "depth"),
+            ("point_head", model.point_head, "world_points"),
+        ):
+            hcfg = getattr(cfg, name)
+            preds, conf = dhead.apply(
+                head, [layers[i] for i in hcfg.intermediate_layer_idx], (H, W),
+                patch_start_idx, dtype=cfg.heads_dtype, quant=cfg.head_quant,
+            )
+            predictions[key] = preds
+            predictions[f"{key}_conf"] = conf
+        predictions["images"] = images
+        return predictions
 
 
 def make_aux(

@@ -7,7 +7,8 @@ plain functions that take a module the way the JAX functions take a
 parameter dict, and cast each weight to the activation dtype at its point
 of use:
 
-  - linear, layer_norm (fp32 statistics), mlp (exact-erf or tanh GELU);
+  - linear, layer_norm (fp32 statistics), mlp (exact-erf or tanh GELU, or
+    SwiGLU: silu(x1) * x2 through a fused `w12`, then `w3`);
   - qlinear_int8 / dense / qconv2d_int8: the W8A8 fast modes. Weights are
     quantised per output channel at each use, activations per row (per
     image for a convolution), the product is an exact int8 x int8 -> int32
@@ -20,6 +21,9 @@ of use:
   - attention: fused qkv, per-head-dim q/k LayerNorm, 2D RoPE;
   - block: pre-LN with LayerScale and, when training, stochastic depth
     (drop_path) from keep masks the caller draws;
+  - run_forward_hooks: block, attention, mlp and the model's parts run the
+    global module forward hooks on their outputs, as a module's __call__
+    would;
   - patch_embed and conv2d, channels-last like the JAX package.
 """
 
@@ -30,6 +34,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.nn.modules import module as _nn_module
 
 from omnivggt_tpu_torch.ops.attention import scaled_dot_product_attention
 from omnivggt_tpu_torch.ops.kernels.flash_attention import _scale_of
@@ -50,6 +55,35 @@ class Mlp(nn.Module):
         self.fc2 = nn.Linear(hidden, out_dim or dim, bias=bias)
 
 
+class SwiGLUFFN(nn.Module):
+    """SwiGLU feed-forward parameters under the reference's names: `w12`
+    (dim -> 2 * hidden, the two gates fused) and `w3` (hidden -> out)."""
+
+    def __init__(self, dim: int, hidden: int, out_dim: Optional[int] = None, bias: bool = True):
+        super().__init__()
+        self.w12 = nn.Linear(dim, 2 * hidden, bias=bias)
+        self.w3 = nn.Linear(hidden, out_dim or dim, bias=bias)
+
+
+def swiglu_hidden_fused(hidden_features: int) -> int:
+    """The fused SwiGLU's hidden width: 2/3 of the GELU MLP's, rounded up to
+    a multiple of 8 (ops/layers.py::swiglu_hidden_fused)."""
+    return (int(hidden_features * 2 / 3) + 7) // 8 * 8
+
+
+def make_ffn(dim: int, mlp_ratio: float, ffn_layer: str = "mlp", bias: bool = True) -> nn.Module:
+    """The block's feed-forward for an `ffn_layer` of "mlp", "swiglu" or
+    "swiglufused", as the JAX package's block_init builds it."""
+    hidden = int(dim * mlp_ratio)
+    if ffn_layer == "mlp":
+        return Mlp(dim, hidden, bias=bias)
+    if ffn_layer in ("swiglu", "swiglufused"):
+        if ffn_layer == "swiglufused":
+            hidden = swiglu_hidden_fused(hidden)
+        return SwiGLUFFN(dim, hidden, bias=bias)
+    raise NotImplementedError(ffn_layer)
+
+
 class Attention(nn.Module):
     def __init__(self, dim: int, num_heads: int, *, qkv_bias=True, proj_bias=True, qk_norm=False):
         super().__init__()
@@ -65,12 +99,13 @@ class Attention(nn.Module):
 
 class Block(nn.Module):
     """Pre-LN transformer block parameters (norm1, attn, norm2, mlp, and
-    ls1/ls2 when init_values is set)."""
+    ls1/ls2 when init_values is set); `ffn_layer` picks the feed-forward
+    (make_ffn)."""
 
     def __init__(
         self, dim: int, num_heads: int, *, mlp_ratio: float = 4.0, qkv_bias=True,
         proj_bias=True, ffn_bias=True, init_values: Optional[float] = None,
-        qk_norm=False,
+        qk_norm=False, ffn_layer: str = "mlp",
     ):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim)
@@ -78,7 +113,7 @@ class Block(nn.Module):
             dim, num_heads, qkv_bias=qkv_bias, proj_bias=proj_bias, qk_norm=qk_norm
         )
         self.norm2 = nn.LayerNorm(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), bias=ffn_bias)
+        self.mlp = make_ffn(dim, mlp_ratio, ffn_layer, bias=ffn_bias)
         if init_values:
             self.ls1 = LayerScale(dim, init_values)
             self.ls2 = LayerScale(dim, init_values)
@@ -98,6 +133,24 @@ class PatchEmbed(nn.Module):
 # ---------------------------------------------------------------------------
 # plain functions
 # ---------------------------------------------------------------------------
+
+
+def run_forward_hooks(p: nn.Module, args: tuple, out):
+    """Run the global module forward hooks
+    (torch.nn.modules.module.register_module_forward_hook) on a layer's
+    output, as nn.Module.__call__ does for a module's forward. The port's
+    layers are plain functions over their modules, so without this such a
+    hook (utils.validation.enable_nan_debugging) would see only the
+    top-level call. Nothing runs while no global hook is registered."""
+    hooks = _nn_module._global_forward_hooks
+    if not hooks:
+        return out
+    with_kwargs = _nn_module._global_forward_hooks_with_kwargs
+    for hook_id, hook in tuple(hooks.items()):
+        res = hook(p, args, {}, out) if with_kwargs.get(hook_id) else hook(p, args, out)
+        if res is not None:
+            out = res
+    return out
 
 
 def _cast(t: Optional[torch.Tensor], dtype):
@@ -194,12 +247,18 @@ def layer_norm(p: Optional[nn.LayerNorm], x: torch.Tensor, eps: float = 1e-5) ->
     return F.layer_norm(x.float(), (x.shape[-1],), w, b, eps).to(x.dtype)
 
 
-def mlp(p: Mlp, x: torch.Tensor, approx_gelu: bool = False, int8_dense=False) -> torch.Tensor:
-    """fc1 -> GELU (exact erf, or tanh with approx_gelu) -> fc2; int8_dense
-    (a trunk_quant mode) picks which of the two run W8A8."""
+def mlp(p, x: torch.Tensor, approx_gelu: bool = False, int8_dense=False) -> torch.Tensor:
+    """fc1 -> GELU (exact erf, or tanh with approx_gelu) -> fc2 for an Mlp;
+    w12 -> silu(x1) * x2 -> w3 for a SwiGLUFFN (approx_gelu does not apply).
+    int8_dense (a trunk_quant mode) picks which of the two products run
+    W8A8: fc1 / w12 take the LayerNorm-fed gate, fc2 / w3 the residual
+    writers'."""
     q_ln, q_res = _quant_gates(int8_dense)
+    if isinstance(p, SwiGLUFFN):
+        x1, x2 = dense(p.w12, x, q_ln).chunk(2, dim=-1)
+        return run_forward_hooks(p, (x,), dense(p.w3, F.silu(x1) * x2, q_res))
     h = F.gelu(dense(p.fc1, x, q_ln), approximate="tanh" if approx_gelu else "none")
-    return dense(p.fc2, h, q_res)
+    return run_forward_hooks(p, (x,), dense(p.fc2, h, q_res))
 
 
 def conv2d(p, x: torch.Tensor, stride=1, padding=0, int8: bool = False) -> torch.Tensor:
@@ -348,7 +407,7 @@ def attention(
         o = scaled_dot_product_attention(
             q, k, v, impl=impl, kv_valid=kv_valid, bounded_logits=bounded, qk_int8=int8_qk
         )
-    return dense(p.proj, o.reshape(B, N, C), q_res)
+    return run_forward_hooks(p, (x,), dense(p.proj, o.reshape(B, N, C), q_res))
 
 
 def block(
@@ -372,6 +431,7 @@ def block(
     is stochastic depth, active only when `drop_path_keep` (2, x.shape[0]
     keep masks, drop_path_masks) is given and drop_path_rate > 0."""
     use_dp = drop_path_rate > 0.0 and drop_path_keep is not None
+    x_in = x
     h = attention(
         p.attn, layer_norm(p.norm1, x, ln_eps), rope_cos, rope_sin,
         ln_eps=ln_eps, impl=attn_impl, shard=shard, kv_valid=kv_valid,
@@ -388,7 +448,7 @@ def block(
         h = h * p.ls2.gamma.to(h.dtype)
     if use_dp:
         h = drop_path(h, drop_path_keep[1], drop_path_rate)
-    return x + h
+    return run_forward_hooks(p, (x_in,), x + h)
 
 
 def patch_embed(p: PatchEmbed, x: torch.Tensor) -> torch.Tensor:

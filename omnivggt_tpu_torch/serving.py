@@ -574,7 +574,11 @@ def serve(session: InferenceSession, port: int = 8000, background: bool = False,
     the connection. `warmup_frame_counts` runs those buckets at `warmup_hw`
     before traffic is accepted. The port binds and `/healthz` answers before
     warmup runs: it reports `{"status": "warming", "ready": false}` (200)
-    until warmup finishes, and inference POSTs get 503 meanwhile."""
+    until warmup finishes, and inference POSTs get 503 meanwhile. TF32 is
+    turned off for the process (utils/platform.ensure_platform)."""
+    from omnivggt_tpu_torch.utils.platform import ensure_platform
+
+    ensure_platform(session.device)
     warming = {"active": bool(warmup_frame_counts)}
     batcher = (
         Batcher(session, max_batch=max_batch, window_ms=batch_window_ms)

@@ -92,6 +92,10 @@ def main(argv=None):
     ap.add_argument("--out", help="write a reference-style metrics file")
     ap.add_argument("--plot", help="write a trajectory plot (png)")
     args = ap.parse_args(argv)
+    from omnivggt_tpu_torch.utils.platform import ensure_platform
+
+    # TF32 off; the file mode runs numpy on the host
+    ensure_platform(args.device if args.image_folder else "cpu")
 
     from omnivggt_tpu_torch.eval.trajectory import (
         eval_metrics, load_traj, plot_trajectory, pose_auc,

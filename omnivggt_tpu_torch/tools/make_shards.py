@@ -34,6 +34,10 @@ def main(argv=None):
 
     import numpy as np
 
+    from omnivggt_tpu_torch.utils.platform import ensure_platform
+
+    ensure_platform("cpu")  # host-only; TF32 off as at every entry point
+
     from omnivggt_tpu_torch.data.dataset import SceneDataset
     from omnivggt_tpu_torch.data.streaming import write_shards
 

@@ -76,10 +76,10 @@ def main(argv=None):
     from omnivggt_tpu_torch.train.checkpointing import resume_or_init, save_train_state
     from omnivggt_tpu_torch.train.optim import make_finetune_optimizer
     from omnivggt_tpu_torch.train.step import batch_to_device, init_state, make_train_step
-    from omnivggt_tpu_torch.utils.device import resolve_device
     from omnivggt_tpu_torch.utils.logging import MetricLogger
+    from omnivggt_tpu_torch.utils.platform import ensure_platform
 
-    device = resolve_device(args.device)
+    device = ensure_platform(args.device)  # TF32 off: the fp32 heads keep full fp32
     cfg = tiny_test_config() if args.tiny else OmniVGGTConfig()
     if args.drop_path > 0:
         cfg = dataclasses.replace(

@@ -5,10 +5,15 @@
   - closed-form SE3 inverse;
   - the 9-dim absT_quaR_FoV pose codec;
   - depth unprojection to camera and world points;
-  - the Colmap <-> OpenCV principal-point conventions (numpy).
+  - the Colmap <-> OpenCV principal-point conventions (numpy);
+  - point maps: normalize_pointcloud, geotrf (homogeneous transforms),
+    find_reciprocal_matches (scipy KD-trees, host) and
+    get_med_dist_between_poses.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -227,3 +232,107 @@ def opencv_to_colmap_intrinsics(K: np.ndarray) -> np.ndarray:
     K[..., 0, 2] += 0.5
     K[..., 1, 2] += 0.5
     return K
+
+
+def normalize_pointcloud(
+    pts: torch.Tensor,
+    norm_mode: str = "avg_dis",
+    valid: Optional[torch.Tensor] = None,
+    ret_factor: bool = False,
+):
+    """Divide (B, ..., 3) point maps by a per-batch distance statistic over
+    their valid points: norm_mode is "<avg|median|sqrt>_<dis|log1p|warp-log1p>".
+    median takes the lower of the two middle values (torch.nanmedian's);
+    warp-log1p also rescales each point by log1p(d) / d first."""
+    if pts.ndim < 3 or pts.shape[-1] != 3:
+        raise ValueError(f"points must be (B, ..., 3); got {tuple(pts.shape)}")
+    mode, dis_mode = norm_mode.split("_")
+    B = pts.shape[0]
+    flat = pts.reshape(B, -1, 3)
+    vmask = (valid.reshape(B, -1).bool() if valid is not None
+             else torch.ones(flat.shape[:2], dtype=torch.bool, device=pts.device))
+
+    dis = torch.linalg.vector_norm(torch.where(vmask[..., None], flat, 0.0), dim=-1)
+    if dis_mode == "log1p":
+        dis = torch.log1p(dis)
+    elif dis_mode == "warp-log1p":
+        log_dis = torch.log1p(dis)
+        warp = log_dis / dis.clamp(min=1e-8)
+        pts = pts * warp.reshape(pts.shape[:-1])[..., None]
+        dis = log_dis
+    elif dis_mode != "dis":
+        raise ValueError(f"bad {dis_mode=}")
+
+    nnz = vmask.sum(dim=1)
+    if mode == "avg":
+        factor = (dis * vmask).sum(dim=1) / (nnz + 1e-8)
+    elif mode == "median":
+        sorted_dis = torch.where(vmask, dis, torch.inf).sort(dim=1).values
+        idx = ((nnz - 1) // 2).clamp(min=0)
+        factor = sorted_dis.gather(1, idx[:, None])[:, 0]
+    elif mode == "sqrt":
+        factor = ((torch.sqrt(dis) * vmask).sum(dim=1) / (nnz + 1e-8)) ** 2
+    else:
+        raise ValueError(f"bad {mode=}")
+
+    factor = factor.clamp(min=1e-8).reshape((B,) + (1,) * (pts.ndim - 1))
+    res = pts / factor
+    if ret_factor:
+        return res, factor
+    return res
+
+
+def find_reciprocal_matches(P1: np.ndarray, P2: np.ndarray):
+    """Mutual nearest neighbours between two (N, 3) point sets through
+    scipy's KD-trees: (reciprocal_in_P2 bool (N2,), nn2_in_P1 int (N2,),
+    the number of matches)."""
+    from scipy.spatial import KDTree
+
+    tree1, tree2 = KDTree(P1), KDTree(P2)
+    _, nn1_in_P2 = tree2.query(P1, workers=-1)
+    _, nn2_in_P1 = tree1.query(P2, workers=-1)
+    reciprocal_in_P2 = nn1_in_P2[nn2_in_P1] == np.arange(len(nn2_in_P1))
+    return reciprocal_in_P2, nn2_in_P1, int(reciprocal_in_P2.sum())
+
+
+def get_med_dist_between_poses(poses) -> float:
+    """The median distance between the camera centres (translations) of
+    4x4 or 3x4 poses."""
+    from scipy.spatial.distance import pdist
+
+    return float(np.median(pdist([np.asarray(p)[:3, 3] for p in poses])))
+
+
+def geotrf(Trf, pts, ncol: Optional[int] = None, norm: float = 0):
+    """Apply a (batched) transform to points (..., 2|3): a rotation plus
+    translation when Trf is one column wider than the points, a linear map
+    when square; `norm` projects onto the z = norm plane."""
+    Trf = torch.as_tensor(Trf)
+    pts = torch.as_tensor(pts)
+    output_shape = pts.shape[:-1]
+    ncol = ncol or pts.shape[-1]
+
+    if Trf.ndim >= 3:
+        n = Trf.ndim - 2
+        if Trf.shape[:n] != pts.shape[:n]:
+            raise ValueError("batch size does not match")
+        Trf = Trf.reshape(-1, Trf.shape[-2], Trf.shape[-1])
+        if pts.ndim > Trf.ndim:
+            pts = pts.reshape(Trf.shape[0], -1, pts.shape[-1])
+        elif pts.ndim == 2:
+            pts = pts[:, None, :]
+
+    if pts.shape[-1] + 1 == Trf.shape[-1]:
+        T = Trf.transpose(-1, -2)
+        pts = pts @ T[..., :-1, :] + T[..., -1:, :]
+    elif pts.shape[-1] == Trf.shape[-1]:
+        pts = pts @ Trf.transpose(-1, -2)
+    else:
+        pts = (Trf @ pts.permute(*range(pts.ndim - 1, -1, -1))).transpose(-1, -2)
+
+    if norm:
+        pts = pts / pts[..., -1:]
+        if norm != 1:
+            pts = pts * norm
+
+    return pts[..., :ncol].reshape(*output_shape, ncol)

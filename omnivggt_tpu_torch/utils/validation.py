@@ -1,43 +1,76 @@
-"""Input validation at the serving boundary, and the qk-norm logit-bound
-check behind the fixed-max softmax.
+"""Input validation at the serving boundary, NaN detection, and the
+qk-norm logit-bound check behind the fixed-max softmax.
 
-Counterpart of validate_batch, qk_logit_bound and check_bounded_logits_safe
-in omnivggt_tpu/utils/validation.py. `validate_batch` checks shapes, ranges,
-finite values and camera sanity of one request with messages a caller can
-act on. After a per-head-dim LayerNorm with
-weight g and bias b, each row y of q (or k) has
-||y||_2 <= sqrt(D) * (max|g| + max|b|), so
-|q . k| / sqrt(D) <= sqrt(D) * A_q * A_k with A = max|g| + max|b|.
-The kernels clamp scores at 80; a bound comfortably under that keeps the
-bounded softmax exact, and loading a checkpoint turns the bounded mode off
-for weights that break it.
+Counterpart of omnivggt_tpu/utils/validation.py:
+  - validate_batch: shapes, ranges, finite values and camera sanity of one
+    request, with messages a caller can act on;
+  - guard_predictions: a NaN/Inf scan over a prediction dict (tensors on
+    any device, or arrays);
+  - enable_nan_debugging: the counterpart of `jax_debug_nans`. A global
+    module forward hook raises FloatingPointError at the first module
+    whose floating output holds a NaN (the port's functional layers run
+    global hooks, ops/layers.run_forward_hooks), and autograd's anomaly
+    mode does the same for the backward;
+  - qk_logit_bound / check_bounded_logits_safe: after a per-head-dim
+    LayerNorm with weight g and bias b, each row y of q (or k) has
+    ||y||_2 <= sqrt(D) * (max|g| + max|b|), so
+    |q . k| / sqrt(D) <= sqrt(D) * A_q * A_k with A = max|g| + max|b|.
+    The kernels clamp scores at 80; a bound comfortably under that keeps
+    the bounded softmax exact, and loading a checkpoint turns the bounded
+    mode off for weights that break it.
 """
 
 from __future__ import annotations
 
 import logging
 import math
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
+import torch
 from torch import nn
+from torch.nn.modules.module import register_module_forward_hook
 
 from omnivggt_tpu_torch.ops.layers import Attention
+from omnivggt_tpu_torch.utils.pytree import check_valid_array
 
 
 class ValidationError(ValueError):
     pass
 
 
-def check_valid_array(x, name: str = "array") -> Optional[str]:
-    """NaN/Inf guard: a message, or None when x is finite (or None)."""
-    if x is None:
-        return None
-    x = np.asarray(x)
-    n_nan, n_inf = int(np.isnan(x).sum()), int(np.isinf(x).sum())
-    if n_nan or n_inf:
-        return f"{name}: {n_nan} NaNs, {n_inf} Infs out of {x.size}"
-    return None
+_NAN_HOOK = None
+
+
+def _holds_nan(out) -> bool:
+    if isinstance(out, torch.Tensor):
+        return out.is_floating_point() and bool(torch.isnan(out).any())
+    if isinstance(out, dict):
+        return any(_holds_nan(v) for v in out.values())
+    if isinstance(out, (list, tuple)):
+        return any(_holds_nan(v) for v in out)
+    return False
+
+
+def _nan_hook(module, args, out):
+    if _holds_nan(out):
+        err = FloatingPointError(f"NaN in the output of {type(module).__name__}")
+        err.module = module
+        raise err
+
+
+def enable_nan_debugging(enabled: bool = True) -> None:
+    """Raise FloatingPointError (with the module as `.module`) at the first
+    module whose floating output holds a NaN, and turn on autograd's
+    anomaly detection for the backward; False removes both. NaN only, as
+    jax_debug_nans. Each check reads the device, so this is for debugging."""
+    global _NAN_HOOK
+    if _NAN_HOOK is not None:
+        _NAN_HOOK.remove()
+        _NAN_HOOK = None
+    if enabled:
+        _NAN_HOOK = register_module_forward_hook(_nan_hook)
+    torch.autograd.set_detect_anomaly(enabled)
 
 
 def validate_batch(
@@ -96,6 +129,20 @@ def validate_batch(
                     )
     if problems:
         raise ValidationError("invalid batch:\n  " + "\n  ".join(problems))
+
+
+def guard_predictions(predictions: Dict, raise_on_error: bool = False) -> List[str]:
+    """Scan a prediction dict for NaN/Inf; returns (and optionally raises)
+    the list of problems."""
+    problems = []
+    for key, value in predictions.items():
+        if hasattr(value, "ndim"):
+            msg = check_valid_array(value, key)
+            if msg:
+                problems.append(msg)
+    if problems and raise_on_error:
+        raise ValidationError("non-finite predictions:\n  " + "\n  ".join(problems))
+    return problems
 
 
 def qk_logit_bound(model: nn.Module, head_dim: int) -> float:

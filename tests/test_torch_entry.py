@@ -1,5 +1,6 @@
 """Entry points of the PyTorch port: it imports and runs without JAX (and
-without PIL, OpenCV, matplotlib and onnxruntime), the chip smoke test
+without PIL, OpenCV, matplotlib, onnxruntime, safetensors and
+huggingface_hub; checkpoints are written and read there), the chip smoke test
 refuses a machine without CUDA, the scene loader matches the JAX package's,
 the CLI runs end to end (the GLB and the viewer too), and safetensors load
 strictly."""
@@ -26,7 +27,8 @@ REPO = Path(__file__).resolve().parents[1]
 _GUARD = r"""
 import importlib, pkgutil, sys
 import numpy as np
-BLOCKED = ("jax", "omnivggt_tpu", "PIL", "cv2", "matplotlib", "onnxruntime")
+BLOCKED = ("jax", "omnivggt_tpu", "PIL", "cv2", "matplotlib", "onnxruntime", "safetensors",
+           "huggingface_hub")
 for name in BLOCKED:
     sys.modules[name] = None         # any `import jax` (PIL, cv2, ...) now raises ImportError
 import torch
@@ -88,6 +90,53 @@ def test_port_imports_and_runs_without_jax():
     proc = subprocess.run(
         [sys.executable, "-c", _GUARD], cwd=REPO, env=_env(), capture_output=True, text=True,
         timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+_CHECKPOINTS = r"""
+import sys, tempfile
+for name in ("jax", "omnivggt_tpu", "safetensors", "huggingface_hub"):
+    sys.modules[name] = None
+import torch
+from omnivggt_tpu_torch.checkpoint import write_safetensors
+from omnivggt_tpu_torch.config import tiny_test_config
+from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
+from omnivggt_tpu_torch.tools import convert_checkpoint
+src = OmniVGGT(tiny_test_config(), device="cpu", seed=0)
+want = src.state_dict()
+
+def same(model):
+    got = model.state_dict()
+    assert got.keys() == want.keys() and all(torch.equal(got[k], want[k]) for k in want)
+
+with tempfile.TemporaryDirectory() as d:
+    write_safetensors(d + "/ref.safetensors", want)
+    same(OmniVGGT.from_safetensors(d + "/ref.safetensors", tiny_test_config(), device="cpu",
+                                   head_dtype="float32"))
+    src.save_pretrained(d + "/native")
+    same(OmniVGGT.from_pretrained(d + "/native", device="cpu"))
+    convert_checkpoint.main([d + "/ref.safetensors", d + "/converted", "--tiny", "--device", "cpu",
+                             "--head_dtype", "float32"])
+    same(OmniVGGT.from_pretrained(d + "/converted", device="cpu"))
+    try:
+        OmniVGGT.from_pretrained("some-org/omnivggt", device="cpu")
+        raise AssertionError("a hub id loaded without huggingface_hub")
+    except RuntimeError as e:
+        assert "huggingface_hub is not installed" in str(e)
+print("ok")
+"""
+
+
+def test_checkpoints_without_safetensors_or_hub():
+    """write_safetensors -> from_safetensors, save_pretrained ->
+    from_pretrained and convert_checkpoint on a tiny CPU model, with the
+    safetensors and huggingface_hub packages (and JAX) unimportable: the
+    port needs neither package."""
+    proc = subprocess.run(
+        [sys.executable, "-c", _CHECKPOINTS], cwd=REPO, env=_env(), capture_output=True,
+        text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")

@@ -224,15 +224,18 @@ def test_init_weights_is_seeded():
 
 
 def test_unported_modes_raise():
-    """The int8 modes build now; what is still unported (a SwiGLU DINOv2)
-    and values outside the config's contract keep raising."""
+    """The int8 modes and SwiGLU DINOv2 blocks build now; an ffn_layer no
+    package knows and values outside the config's contract keep raising."""
     from omnivggt_tpu_torch.models import dinov2 as TD
 
     fast = dataclasses.replace(
         TC.tiny_test_config(), trunk_quant="int8", attn_quant="int8", head_quant="int8"
     )
     assert TM.OmniVGGT(fast, device="cpu").config.depth_head.quant == "int8"
-    with pytest.raises(NotImplementedError):
-        TD.DinoVisionTransformer(dataclasses.replace(TC.vit_small(), ffn_layer="swiglu"))
+    with torch.device("meta"):
+        vit = TD.DinoVisionTransformer(dataclasses.replace(TC.vit_small(), ffn_layer="swiglu"))
+        assert vit.blocks[0].mlp.w12.out_features == 2 * 4 * 384
+        with pytest.raises(NotImplementedError):
+            TD.DinoVisionTransformer(dataclasses.replace(TC.vit_small(), ffn_layer="moe"))
     with pytest.raises(ValueError):
         TC.OmniVGGTConfig(attn_quant="int4")
