@@ -165,6 +165,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
      median forward in TFLOP/s; a vit_large DINOv2 with fused SwiGLU blocks
      (hidden 2736) on the 8 frames: 24 packed launches, against its plain
      path within the serving gate's 2e-2 (median relative error), times.
+ 15. (h) multi-device training, after (f): the flagship (fp32 master
+     weights, camera token as in 5) at B=2, S=4, 518 px, use_aux_inputs,
+     remat, on make_mesh(data=2, seq=2) logical ranks under "allgather":
+     one step's loss and trunk gradients against the one-device step's on
+     the same weights (the train gate); then 3 steps (layer-decay AdamW,
+     learning rate 1e-4 after one warm-up step) from the same init on one
+     device and on the mesh under state_sharding "none", "zero2" and
+     "fsdp": every mode's losses and grad_norm within the train gate's
+     1e-2 of the one-device step's, zero2's and fsdp's final parameters
+     bitwise, within rtol 1e-4 / atol 1e-6 (tests/test_fsdp.py's) or within
+     4x the card's own spread (the mesh's "none" run twice) of the mesh's
+     "none" (the same reduction order; against one device the difference
+     is printed), kernels 1-4's launches a step equal across the
+     modes, the median step, peak memory, and the state bytes a rank holds
+     equal to fsdp.state_bytes_per_device; tools/dryrun_multichip --ranks 4
+     on the card (parts (a), (b), (c)); the training CLI under torchrun
+     --nproc_per_node 1 (--tiny, --mesh 1,2, --state_sharding zero2, two
+     synthetic shards, 2 steps: exit 0, metrics.jsonl and one checkpoint);
+     an NCCL process group of world size 1 in this process
+     (multihost_initialize on a local port): one zero2 step and one fsdp
+     step of the tiny config widened to head dim 64 at 224 px on a (1, 2)
+     mesh whose data axis is the group, every torch.distributed call on
+     CUDA tensors, against the same steps on logical ranks: bitwise, or (if
+     the card's kernels are not bitwise run to run) within 4x the spread of
+     the logical step run twice (both modes), the metrics within 1e-5.
 Bounds (bound_ms) are the larger of the bytes each kernel must move over
 3.35 TB/s and its matrix-product operations over the H100 SXM's published
 peak for their type: 989 TFLOP/s bf16 dense, 1,979 TOP/s int8, 67 TFLOP/s
@@ -838,15 +863,17 @@ class _CheckpointedBlocks:
         return checkpoint(self._layers.block, *args, use_reentrant=False, **kwargs)
 
 
-def loss_and_trunk_grads(cfg, model, batch, impl, remat=True, checkpoint_dino=False):
+def loss_and_trunk_grads(cfg, model, batch, impl, remat=True, checkpoint_dino=False,
+                         sharding=None):
     """One step's total loss and the trunk's gradients (aggregator and
     DINOv2: every parameter whose gradient passes through an attention
     backward) under attention `impl`, without an update; checkpoint_dino:
-    each DINOv2 block under torch.utils.checkpoint (_CheckpointedBlocks)."""
+    each DINOv2 block under torch.utils.checkpoint (_CheckpointedBlocks);
+    sharding: the step's ModelSharding (phase (h))."""
     from omnivggt_tpu_torch.models import dinov2
     from omnivggt_tpu_torch.train.step import make_train_step
 
-    fn = make_train_step(cfg, None, use_aux_inputs=True, remat=remat, attn_impl=impl)
+    fn = make_train_step(cfg, None, sharding, use_aux_inputs=True, remat=remat, attn_impl=impl)
     layers = dinov2.L
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -858,7 +885,8 @@ def loss_and_trunk_grads(cfg, model, batch, impl, remat=True, checkpoint_dino=Fa
         dinov2.L = layers
     torch.cuda.synchronize()
     print(f"loss and gradients, attention {impl}, remat {remat}"
-          f"{', DINOv2 blocks checkpointed' if checkpoint_dino else ''}: "
+          f"{', DINOv2 blocks checkpointed' if checkpoint_dino else ''}"
+          f"{f', mesh ({sharding.mesh.data}x{sharding.mesh.seq}) {sharding.global_attn}' if sharding else ''}: "
           f"{(time.perf_counter() - t0) * 1e3:.2f} ms, total loss {losses['total'].item():.6f}")
     grads = {n: p.grad.detach().clone() for n, p in model.named_parameters()
              if n.startswith("aggregator.") and p.grad is not None}
@@ -941,6 +969,365 @@ def sample_digest(sample) -> bytes:
         h.update(f"{k} {a.dtype} {a.shape}".encode())
         h.update(a.tobytes())
     return h.digest()
+
+
+MESH_TRAIN, H_STEPS = (2, 2), 3  # phase (h): (data, seq) logical ranks; steps a mode
+# the gate on the final parameters of two runs from one init, both fixed:
+# the share of elements outside tests/test_fsdp.py's tolerance (rtol 1e-4,
+# atol 1e-6), and the relative error of one run's update against the
+# other's, ||got - ref|| / ||ref - init||. A lost update reads 1 on both,
+# half an update ~0.5. The card's run-to-run spread (the upsample's
+# backward adds atomically, and Adam's first steps turn the sign of a
+# near-zero gradient into a whole step) moves few elements: PERF.md, phase (h)
+PARAM_RTOL, PARAM_ATOL, OUTSIDE_MAX = 1e-4, 1e-6, 1e-2
+UPDATE_GAP_TOL = 1e-1
+
+
+def per_rank_state_bytes(state) -> int:
+    """The bytes a rank holds of a TrainState: each parameter (one shard
+    of a sharded one under fsdp) and its two AdamW moments (one shard's
+    under zero2 and fsdp)."""
+    layout, opt, total = state.layout, state.optimizer, 0
+    for name, slots in opt.slots.items():
+        param = (layout.params[name] if layout is not None and layout.mode == "zero2"
+                 and name in layout.specs else slots[0])
+        moments = opt.adamw.state[slots[0]]
+        total += sum(t.numel() * t.element_size()
+                     for t in (param, moments["exp_avg"], moments["exp_avg_sq"]))
+    return total
+
+
+def params_against(label, got, ref, init, dev):
+    """Final parameters of two runs from the same `init` ({name: tensor},
+    any device; compared on `dev` one tensor at a time): whether they are
+    bitwise equal, how many elements leave PARAM_RTOL / PARAM_ATOL, the
+    worst difference, and the update gap ||got - ref|| / ||ref - init||.
+    Prints them; returns whether they pass the gate (bitwise, or within
+    OUTSIDE_MAX and UPDATE_GAP_TOL)."""
+    bitwise, outside, worst, n, diff_sq, update_sq = True, 0, 0.0, 0, 0.0, 0.0
+    for k, r in ref.items():
+        r, g, i = r.to(dev), got[k].to(dev), init[k].to(dev)
+        n += r.numel()
+        update_sq += torch.linalg.vector_norm(r - i).item() ** 2
+        if torch.equal(g, r):
+            continue
+        bitwise = False
+        d = g - r
+        diff_sq += torch.linalg.vector_norm(d).item() ** 2
+        d = d.abs()
+        worst = max(worst, d.max().item())
+        outside += int((d > PARAM_ATOL + PARAM_RTOL * r.abs()).sum())
+    gap = (diff_sq / update_sq) ** 0.5 if update_sq else float("inf")
+    print(f"  final parameters, {label}: bitwise {bitwise}; {outside} of {n} elements "
+          f"({outside / n:.3e}; limit {OUTSIDE_MAX:g}) outside rtol {PARAM_RTOL:g} atol "
+          f"{PARAM_ATOL:g}, max |diff| {worst:.3e}; update gap {gap:.3e} (limit "
+          f"{UPDATE_GAP_TOL:g})")
+    return bitwise or (outside <= OUTSIDE_MAX * n and gap <= UPDATE_GAP_TOL)
+
+
+def moments_of_the_next_shard(state):
+    """A planted fault of the zero2 / fsdp layouts: every sharded
+    parameter's chunks step with the AdamW moments of the next chunk."""
+    adam = state.optimizer.adamw.state
+    for name in state.layout.specs:
+        chunks = state.optimizer.slots[name]
+        entries = [adam[c] for c in chunks]
+        for c, e in zip(chunks, entries[1:] + entries[:1]):
+            adam[c] = e
+
+
+def sharded_train_phase(FK, cfg, dev, card, img=IMG):
+    """(h) multi-device training: the flagship step on a (2, 2) mesh of
+    logical ranks under every state sharding, against the one-device step;
+    the data axis as a process group (NCCL, world size 1) against logical
+    ranks; the training CLI under torchrun; the dry run."""
+    from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
+    from omnivggt_tpu_torch.parallel import collectives as C
+    from omnivggt_tpu_torch.parallel import fsdp
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh
+    from omnivggt_tpu_torch.parallel.sharding import ModelSharding
+    from omnivggt_tpu_torch.train.optim import make_finetune_optimizer
+    from omnivggt_tpu_torch.train.step import init_state, make_train_step, synthetic_batch
+
+    batch = synthetic_batch(S_TRAIN, img, dev, seed=3, scenes=2)  # the train phase's, and one
+    sharding = ModelSharding(make_mesh(*MESH_TRAIN, device=dev), "allgather")
+    mesh = sharding.mesh
+    print(f"sharded training: flagship B=2 S={S_TRAIN} {img}px, mesh ({mesh.data}x{mesh.seq}) "
+          f"logical ranks, global attention allgather, remat on, {H_STEPS} steps a mode; "
+          f"card {card}")
+
+    # 1. one step's loss and trunk gradients on the mesh against one device
+    # (the train gate), on the same weights
+    model = new_model_for_training(cfg, dev)
+    loss_1, g_1 = loss_and_trunk_grads(cfg, model, batch, "auto")
+    if not trunk_gradient_gate("mesh (2x2) vs one device", *loss_and_trunk_grads(
+            cfg, model, batch, "auto", sharding=sharding), loss_1, g_1):
+        raise AssertionError("the sharded step's gradients disagree with the one-device step's")
+    del model, g_1
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 2. three steps from the same init: one device, then every mode on the
+    # mesh, mesh none twice (the card's spread), and zero2 with a planted
+    # fault that the gate on the final parameters must catch
+    meta = OmniVGGT(cfg, device="meta", seed=None)
+    largest = max(p.numel() * p.element_size() for p in meta.parameters())
+    init = {k: v.detach().cpu() for k, v in new_model_for_training(cfg, dev).state_dict().items()}
+    runs = {}
+    for label, sh, mode, fault in (
+            ("one device", None, "none", None), ("mesh none", sharding, "none", None),
+            ("mesh none again", sharding, "none", None), ("mesh zero2", sharding, "zero2", None),
+            ("mesh fsdp", sharding, "fsdp", None),
+            ("mesh zero2, planted fault: moments of the next shard", sharding, "zero2",
+             moments_of_the_next_shard)):
+        model = new_model_for_training(cfg, dev)
+        # warmup 1: the first step's rate is 0, so Adam's first update sees two
+        # gradients; from a single one it moves every element by a whole step
+        # in its gradient's sign, and the mesh's other summation order, which
+        # flips near-zero gradients, takes one device's losses 1.3e-2 away in
+        # two steps (PERF.md, phase (h))
+        opt = make_finetune_optimizer(model, learning_rate=1e-4, warmup_steps=1, total_steps=100)
+        state = init_state(model, opt)
+        if mode != "none":
+            fsdp.shard_state(state, mesh, mode)
+        step_fn = make_train_step(cfg, opt, sh, use_aux_inputs=True, remat=True,
+                                  state_sharding=mode)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times, history = [], []
+        for i in range(H_STEPS):
+            if i == 1:
+                FK.reset_launches()
+                C.reset_calls()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if i == 1:
+                launches, calls = FK.launches(), C.calls()
+            history.append({k: v.item() for k, v in metrics.items()})
+            if fault is not None:
+                fault(state)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        held = per_rank_state_bytes(state)
+        want = fsdp.state_bytes_per_device(meta, mesh if sh is not None else 1, mode)
+        final = {k: v.detach().cpu() for k, v in (
+            state.layout.full_state_dict() if state.layout is not None
+            else model.state_dict()).items()}
+        runs[label] = dict(history=history, launches=launches, final=final)
+        for i, m in enumerate(history):
+            print(f"  {label} step {i}: " + ", ".join(f"{k} {v:.6f}" for k, v in sorted(m.items())))
+        print(f"{label}: train step B=2 S={S_TRAIN} {img}px {statistics.median(times):.2f} ms "
+              f"median of {H_STEPS} ({', '.join(f'{t:.2f}' for t in times)}), peak memory "
+              f"{peak_gb:.3f} GB, state {held / 1e9:.3f} GB a rank (state_bytes_per_device "
+              f"{want / 1e9:.3f} GB), launches a step {launches}, collectives a step "
+              f"{calls}; card {card}")
+        if not all(np.isfinite(v) for m in history for v in m.values()):
+            raise AssertionError(f"{label}: a loss or grad_norm is not finite")
+        if held != want:
+            raise AssertionError(f"{label}: a rank holds {held} bytes of state, "
+                                 f"state_bytes_per_device says {want}")
+        if label == "mesh fsdp":
+            save_fsdp_checkpoint(state, largest, card)
+        del state, model, opt, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    one, none = runs["one device"], runs["mesh none"]
+    params_against("mesh none again vs mesh none (the card's spread)",
+                   runs["mesh none again"]["final"], none["final"], init, dev)
+    for label in ("mesh none", "mesh zero2", "mesh fsdp"):
+        run = runs[label]
+        if run["launches"] != none["launches"]:
+            raise AssertionError(f"{label}: launches {run['launches']}, mesh none "
+                                 f"{none['launches']}")
+        worst = max(abs(g[k] - w[k]) / abs(w[k]) for g, w in zip(run["history"], one["history"])
+                    for k in w)
+        print(f"  {label} vs one device: losses and grad_norm, worst relative difference "
+              f"{worst:.3e} (limit {LOSS_REL_TOL:g})")
+        if worst > LOSS_REL_TOL:
+            raise AssertionError(f"{label}: losses or grad_norm leave the train gate")
+        for ref_label in ("one device", "mesh none") if label != "mesh none" else ("one device",):
+            if not params_against(f"{label} vs {ref_label}", run["final"],
+                                  runs[ref_label]["final"], init, dev):
+                raise AssertionError(f"{label}: final parameters differ from {ref_label}'s")
+    planted = "mesh zero2, planted fault: moments of the next shard"
+    if params_against(f"{planted} vs mesh none", runs[planted]["final"], none["final"], init, dev):
+        raise AssertionError("the gate on the final parameters passes moments of the wrong shard")
+    print(f"main path launches per sharded train step (mesh {MESH_TRAIN}, every mode): "
+          f"{none['launches']}; one device {one['launches']}")
+    del runs, one, none, init
+    gc.collect()
+
+    dryrun_phase()
+    torchrun_cli_phase(dev, card)
+    process_group_phase(dev, card)
+
+
+def save_fsdp_checkpoint(state, largest, card):
+    """A checkpoint of the flagship's fsdp state: the device memory the save
+    adds on top of the state (it gathers one tensor at a time onto the
+    host) must stay within two of the largest parameter's bytes."""
+    import shutil
+    import tempfile
+
+    from omnivggt_tpu_torch.train.checkpointing import save_train_state
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fsdp_ckpt_")
+    try:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        path = save_train_state(tmp, state)
+        save_s = time.perf_counter() - t0
+        added = torch.cuda.max_memory_allocated() - before
+        size = os.path.getsize(path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"mesh fsdp: checkpoint {size / 1e9:.3f} GB saved in {save_s:.2f} s, device memory "
+          f"added by the save {added / 1e6:.1f} MB (limit: twice the largest parameter, "
+          f"{2 * largest / 1e6:.1f} MB), state on the device {before / 1e9:.3f} GB; card {card}")
+    if added > 2 * largest:
+        raise AssertionError(f"the fsdp save added {added} bytes of device memory")
+
+
+def dryrun_phase():
+    """tools/dryrun_multichip --ranks 4 on the card: parts (a), (b), (c)."""
+    from omnivggt_tpu_torch.tools import dryrun_multichip
+
+    t0 = time.perf_counter()
+    if dryrun_multichip.main(["--ranks", "4"]) != 0:
+        raise AssertionError("the dry run failed on the card")
+    print(f"dryrun_multichip --ranks 4 on the card: {time.perf_counter() - t0:.2f} s")
+
+
+def torchrun_cli_phase(dev, card):
+    """The training CLI under torchrun --nproc_per_node 1 on the card:
+    --mesh 1,2 --state_sharding zero2, --tiny, 2 steps from two synthetic
+    shards; it must exit 0 and write metrics.jsonl and one checkpoint."""
+    import shutil
+    import tempfile
+
+    from omnivggt_tpu_torch.data.streaming import write_shards
+    from omnivggt_tpu_torch.train.step import synthetic_batch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_torchrun_")
+    try:
+        samples = [{k: v.numpy() for k, v in synthetic_batch(2, 28, "cpu", seed=i).items()}
+                   for i in range(4)]
+        write_shards(samples, os.path.join(tmp, "shards"), samples_per_shard=2)
+        ck = os.path.join(tmp, "run")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", "1", "-m", "omnivggt_tpu_torch.tools.train",
+               "--shards", os.path.join(tmp, "shards", "shard-*.tar"), "--views", "2", "--tiny",
+               "--mesh", "1,2", "--state_sharding", "zero2", "--steps", "2", "--warmup", "1",
+               "--log_every", "1", "--ckpt_dir", ck]
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+        print(proc.stdout[-2000:])
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"torchrun training CLI exited {proc.returncode}")
+        with open(os.path.join(ck, "metrics.jsonl")) as f:
+            logged = [json.loads(line) for line in f]
+        files = sorted(os.listdir(ck))
+        if [m["step"] for m in logged] != [1, 2] or files != ["metrics.jsonl", "step_00000002.pt"]:
+            raise AssertionError(f"torchrun CLI: logged steps {[m['step'] for m in logged]}, "
+                                 f"files {files}")
+        print(f"torchrun --nproc_per_node 1 training CLI (--tiny, mesh 1,2, zero2, cuda): exit 0 "
+              f"in {wall:.2f} s, {files}; card {card}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def process_group_phase(dev, card):
+    """The data axis over processes on CUDA tensors: an NCCL group of world
+    size 1 (this process), one zero2 step and one fsdp step on a (1, 2)
+    mesh of the tiny config widened to head dim 64 at 224 px, against the
+    same steps on logical ranks (run twice: the card's own spread, printed)."""
+    import torch.distributed as dist
+
+    from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
+    from omnivggt_tpu_torch.parallel import collectives as C
+    from omnivggt_tpu_torch.parallel import fsdp
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh, multihost_initialize
+    from omnivggt_tpu_torch.parallel.sharding import ModelSharding
+    from omnivggt_tpu_torch.tools.dryrun_multichip import dryrun_config
+    from omnivggt_tpu_torch.train.step import (
+        init_state, make_optimizer, make_train_step, synthetic_batch,
+    )
+
+    cfg = dryrun_config(dev)
+    batch = synthetic_batch(4, 224, dev, seed=5)
+
+    def one_step(mode, mesh):
+        model = OmniVGGT(cfg, device=dev, seed=0).train()
+        opt = make_optimizer(model, learning_rate=1e-3, warmup_steps=0, total_steps=100)
+        state = fsdp.shard_state(init_state(model, opt), mesh, mode, min_elems=0)
+        step = make_train_step(cfg, opt, ModelSharding(mesh, "allgather"), use_aux_inputs=True,
+                               state_sharding=mode)
+        C.reset_calls()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        final = {k: v.detach().clone() for k, v in state.layout.full_state_dict().items()}
+        return {k: v.item() for k, v in metrics.items()}, final, C.calls()
+
+    init = OmniVGGT(cfg, device=dev, seed=0).state_dict()
+    logical = make_mesh(data=1, seq=2, device=dev)
+    ref = {m: one_step(m, logical) for m in ("zero2", "fsdp")}
+    again = {m: one_step(m, logical) for m in ("zero2", "fsdp")}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    seen = defaultdict(list)
+    sound = {n: getattr(dist, n) for n in ("reduce_scatter_tensor", "all_gather_into_tensor",
+                                           "all_reduce")}
+
+    def counted(name):
+        def call(out, *args, **kwargs):
+            seen[name].append(out.device.type)
+            return sound[name](out, *args, **kwargs)
+        return call
+
+    t0 = time.perf_counter()
+    multihost_initialize(backend="nccl", world_size=1, rank=0,
+                         init_method=f"tcp://127.0.0.1:{port}", timeout=120)
+    try:
+        init_s = time.perf_counter() - t0
+        pmesh = make_mesh(data=1, seq=2, device=dev)
+        if pmesh.group is None or dist.get_backend() != "nccl":
+            raise AssertionError("the mesh did not take the NCCL group")
+        for n in sound:
+            setattr(dist, n, counted(n))
+        try:
+            got = {m: one_step(m, pmesh) for m in ("zero2", "fsdp")}
+        finally:
+            for n, fn in sound.items():
+                setattr(dist, n, fn)
+    finally:
+        dist.destroy_process_group()
+    print(f"NCCL process group, world size 1: initialised in {init_s:.2f} s; torch.distributed "
+          f"calls {({n: len(v) for n, v in seen.items()})}, on devices "
+          f"{sorted({d for v in seen.values() for d in v})}; card {card}")
+    if set(seen) != set(sound) or {d for v in seen.values() for d in v} != {dev.type}:
+        raise AssertionError(f"the collectives did not all run on {dev} tensors: {dict(seen)}")
+    for mode in ("zero2", "fsdp"):
+        (m_ref, p_ref, c_ref), (m_got, p_got, c_got) = ref[mode], got[mode]
+        if c_got != c_ref or not (c_got["reduce_scatter"] and c_got["all_gather"]):
+            raise AssertionError(f"{mode}: collectives {c_got} vs logical {c_ref}")
+        rel = max(abs(m_got[k] - v) / abs(v) for k, v in m_ref.items())
+        print(f"  {mode}: NCCL step vs logical ranks: metrics worst relative difference "
+              f"{rel:.3e} (limit 1e-5); metrics {m_got}; collectives {c_got}")
+        params_against(f"{mode}, logical ranks again vs logical ranks (the card's spread)",
+                       again[mode][1], p_ref, init, dev)
+        if rel > 1e-5 or not params_against(f"{mode}, NCCL vs logical ranks", p_got, p_ref,
+                                            init, dev):
+            raise AssertionError(f"{mode}: the NCCL step differs from logical ranks")
 
 
 def check_augmentation_on_the_card(dev, card):
@@ -2805,6 +3192,8 @@ def main() -> int:
     train_launches = train_phase(FK, cfg, dev, card)
     torch.cuda.empty_cache()
     shards_phase(FK, cfg, dev, card)
+    torch.cuda.empty_cache()
+    sharded_train_phase(FK, cfg, dev, card)
     # a kernel's launches on the main path that runs it: one train step, or
     # one served S=8 request for the serving kernels; the probes' in their phase
     # the ring wrappers' in the sharded flagship forwards

@@ -300,13 +300,18 @@ def apply(
     dp_rate = drop_path_rate if train_generator is not None else 0.0
     if dp_rate > 0.0:
         # (first block's, second block's) keep masks per layer pair, two
-        # residual branches each, drawn up front in a fixed order
+        # residual branches each, drawn up front in a fixed order; with the
+        # data axis over processes each draws the whole batch's and keeps
+        # its own scenes' rows, so the masks are the logical ranks' ones
         first_n, second_n = (B * S, B) if cfg.aa_order[0] == "frame" else (B, B * S)
-        keeps = [
-            (L.drop_path_masks(first_n, 2, dp_rate, train_generator, dev),
-             L.drop_path_masks(second_n, 2, dp_rate, train_generator, dev))
-            for _ in range(cfg.depth)
-        ]
+        mesh = sharding.mesh if sharding is not None else None
+        data, rank = (mesh.data, mesh.rank) if mesh is not None and mesh.group is not None else (1, 0)
+
+        def masks(n):
+            drawn = L.drop_path_masks(n * data, 2, dp_rate, train_generator, dev)
+            return drawn[:, rank * n:(rank + 1) * n]
+
+        keeps = [(masks(first_n), masks(second_n)) for _ in range(cfg.depth)]
     else:
         keeps = [(None, None)] * cfg.depth
 

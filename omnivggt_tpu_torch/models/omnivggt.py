@@ -324,8 +324,8 @@ def apply(
     images in [0, 1]. Returns the prediction dict (fp32 but `images`).
 
     sharding: a parallel.sharding.ModelSharding: the aggregator's attention
-    runs under its strategies over the mesh's logical ranks (inference; the
-    ring kernels have no backward).
+    runs under its strategies over the mesh's ranks (the "ring_fused"
+    kernels have no backward: train under "allgather" or "ring").
 
     num_valid_frames: an int or an integer scalar tensor on the images'
     device; frames at or past it are shape padding (bucketed serving) and

@@ -22,8 +22,9 @@ of use:
   - block: pre-LN with LayerScale and, when training, stochastic depth
     (drop_path) from keep masks the caller draws;
   - run_forward_hooks: block, attention, mlp and the model's parts run the
-    global module forward hooks on their outputs, as a module's __call__
-    would;
+    global module forward hooks and their module's own on their outputs,
+    and block runs its module's forward pre-hooks first
+    (run_forward_pre_hooks), as a module's __call__ would;
   - patch_embed and conv2d, channels-last like the JAX package.
 """
 
@@ -135,19 +136,34 @@ class PatchEmbed(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def run_forward_pre_hooks(p: nn.Module, args: tuple) -> None:
+    """Run the module's own forward pre-hooks
+    (module.register_forward_pre_hook) before a layer, as nn.Module.__call__
+    does before a module's forward; their results are not used. FSDP
+    (parallel/fsdp.py) gathers a block's sharded parameters in one."""
+    for hook in tuple(p._forward_pre_hooks.values()):
+        hook(p, args)
+
+
 def run_forward_hooks(p: nn.Module, args: tuple, out):
     """Run the global module forward hooks
-    (torch.nn.modules.module.register_module_forward_hook) on a layer's
-    output, as nn.Module.__call__ does for a module's forward. The port's
-    layers are plain functions over their modules, so without this such a
-    hook (utils.validation.enable_nan_debugging) would see only the
-    top-level call. Nothing runs while no global hook is registered."""
+    (torch.nn.modules.module.register_module_forward_hook), then the
+    module's own (module.register_forward_hook), on a layer's output, as
+    nn.Module.__call__ does for a module's forward. The port's layers are
+    plain functions over their modules, so without this such a hook
+    (utils.validation.enable_nan_debugging; FSDP's release of a block's
+    gathered parameters) would see only the top-level call. Nothing runs
+    while no hook is registered."""
     hooks = _nn_module._global_forward_hooks
-    if not hooks:
+    if not hooks and not p._forward_hooks:
         return out
     with_kwargs = _nn_module._global_forward_hooks_with_kwargs
     for hook_id, hook in tuple(hooks.items()):
         res = hook(p, args, {}, out) if with_kwargs.get(hook_id) else hook(p, args, out)
+        if res is not None:
+            out = res
+    for hook in tuple(p._forward_hooks.values()):
+        res = hook(p, args, out)
         if res is not None:
             out = res
     return out
@@ -431,6 +447,7 @@ def block(
     is stochastic depth, active only when `drop_path_keep` (2, x.shape[0]
     keep masks, drop_path_masks) is given and drop_path_rate > 0."""
     use_dp = drop_path_rate > 0.0 and drop_path_keep is not None
+    run_forward_pre_hooks(p, (x,))
     x_in = x
     h = attention(
         p.attn, layer_norm(p.norm1, x, ln_eps), rope_cos, rope_sin,

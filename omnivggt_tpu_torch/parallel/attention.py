@@ -16,7 +16,9 @@ inside `shard_map` is done here on slices, rank by rank:
   - "rows": the leading axis split over ranks, no communication.
 
 A mesh's data axis replicates the sequence strategies' work in the JAX
-package; logical ranks compute it once.
+package; logical ranks compute it once. Rows split over the ranks this
+process runs (`mesh.local_shape`): with the data axis over processes each
+process holds its own scenes and runs only its seq ranks.
 """
 
 from __future__ import annotations
@@ -201,7 +203,7 @@ def rows_sharded_attention(q, k, v, mesh, rows_spec, impl: str = "auto", kv_vali
     axes = (rows_spec,) if isinstance(rows_spec, str) else tuple(rows_spec or ())
     n = 1
     for axis in axes:
-        n *= mesh.shape[axis]
+        n *= mesh.local_shape[axis]
     rows = q.shape[0]
     if rows % n:
         raise ValueError(f"{rows} rows do not divide over {n} ranks")

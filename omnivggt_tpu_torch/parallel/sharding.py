@@ -32,7 +32,7 @@ class AttnShard:
         axes = (self.axis,) if isinstance(self.axis, str) else tuple(self.axis or ())
         n = 1
         for a in axes:
-            n *= self.mesh.shape.get(a, 1)
+            n *= self.mesh.local_shape.get(a, 1)
         return n
 
     def resolve_impl(self, q, impl: str = "auto") -> str:

@@ -2,27 +2,34 @@
 
 Scene roots (example-layout folders, ScanNet scenes, CO3D sequences;
 data/dataset.py, one scene a step) or pre-built streaming tar shards
-(data/streaming.py, --batch scenes a step) feed the one-device train step
+(data/streaming.py, --batch scenes a step) feed the train step
 (train/step.py) with the layer-decay fine-tune optimizer (train/optim.py),
 metric logging to {ckpt_dir}/metrics.jsonl, and checkpoint save/resume
 (train/checkpointing.py). It runs on --device (default cuda, which must
 exist); --device cpu runs the kernels' plain versions on the CPU.
 
+--mesh data,seq runs the step on a (data, seq) mesh (parallel/mesh.py) and
+--state_sharding zero2 / fsdp lays the training state out over it
+(parallel/fsdp.py). Started by torchrun, the data axis lies over the
+processes (the process group comes from torchrun's environment; data must
+equal the number of processes): --batch is the global batch, each process
+streams its own partition of the shards and takes batch / data scenes of
+it, and only the process of rank 0 logs and writes checkpoints. Without
+torchrun every rank is a logical rank of this one process.
+
     # fine-tune on a folder of scenes, one GPU
     python -m omnivggt_tpu_torch.tools.train --data_root scenes/ --steps 1000 \\
         --checkpoint OmniVGGT.safetensors --ckpt_dir runs/ft
 
-    # stream shards (written by omnivggt_tpu_torch.tools.make_shards), two
-    # scenes a step
-    python -m omnivggt_tpu_torch.tools.train --shards 'shards/shard-*.tar' \\
-        --batch 2 --steps 10000 --ckpt_dir runs/ft
+    # stream shards (written by omnivggt_tpu_torch.tools.make_shards), four
+    # scenes a step over four GPUs, moments and gradients sharded
+    torchrun --standalone --nproc_per_node 4 -m omnivggt_tpu_torch.tools.train \\
+        --shards 'shards/shard-*.tar' --batch 4 --mesh 4,1 --state_sharding zero2 \\
+        --steps 10000 --ckpt_dir runs/ft
 
-    # smoke run on the CPU with the tiny config
+    # smoke run on the CPU with the tiny config on a 2-way sequence mesh
     python -m omnivggt_tpu_torch.tools.train --data_root scenes/ --tiny \\
-        --device cpu --steps 2 --views 2 --target_size 28
-
-Not ported yet, and refused: --mesh and --state_sharding other than none
-(multi-device training).
+        --device cpu --steps 2 --views 2 --target_size 28 --mesh 1,2
 """
 
 from __future__ import annotations
@@ -51,9 +58,10 @@ def parse_args(argv=None):
     ap.add_argument("--layer_decay", type=float, default=0.9)
     ap.add_argument("--warmup", type=int, default=500)
     ap.add_argument("--drop_path", type=float, default=0.0)
-    ap.add_argument("--mesh", help="data,seq device mesh (not ported yet)")
+    ap.add_argument("--mesh", help="data,seq mesh (e.g. 1,4; under torchrun data = processes)")
     ap.add_argument("--state_sharding", default="none", choices=("none", "zero2", "fsdp"),
-                    help="ZeRO-style state sharding (not ported yet)")
+                    help="ZeRO-style state sharding over the mesh: zero2 shards the gradients "
+                         "and AdamW moments, fsdp also the parameters")
     ap.add_argument("--no_remat", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
@@ -63,23 +71,48 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    for flag, given in (("--mesh", args.mesh),
-                        ("--state_sharding", args.state_sharding != "none")):
-        if given:
-            raise SystemExit(
-                f"{flag} is not ported yet: omnivggt_tpu_torch trains on one device; "
-                "use the JAX CLI (tools/train.py)"
-            )
+    if args.state_sharding != "none" and not args.mesh:
+        raise SystemExit("--state_sharding requires --mesh")
+
+    from omnivggt_tpu_torch.parallel.mesh import process_group
+
+    # under torchrun one process per data rank; TF32 off: the fp32 heads keep full fp32
+    with process_group(args.device) as device:
+        return _train(args, device)
+
+
+def _train(args, device):
+    import torch.distributed as dist
 
     from omnivggt_tpu_torch.config import OmniVGGTConfig, tiny_test_config
     from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
+    from omnivggt_tpu_torch.parallel import fsdp
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh
+    from omnivggt_tpu_torch.parallel.sharding import ModelSharding
     from omnivggt_tpu_torch.train.checkpointing import resume_or_init, save_train_state
     from omnivggt_tpu_torch.train.optim import make_finetune_optimizer
     from omnivggt_tpu_torch.train.step import batch_to_device, init_state, make_train_step
     from omnivggt_tpu_torch.utils.logging import MetricLogger
-    from omnivggt_tpu_torch.utils.platform import ensure_platform
 
-    device = ensure_platform(args.device)  # TF32 off: the fp32 heads keep full fp32
+    sharding, local_batch, rank0 = None, args.batch, True
+    if args.mesh:
+        data_ax, seq_ax = (int(x) for x in args.mesh.split(","))
+        batch_dim = 1 if args.data_root else args.batch
+        if batch_dim % data_ax:
+            raise SystemExit(
+                f"mesh data axis {data_ax} must divide the batch size {batch_dim} "
+                "(--data_root mode always yields batch 1: use --mesh 1,N)"
+            )
+        if args.views % seq_ax:
+            raise SystemExit(f"mesh seq axis {seq_ax} must divide --views {args.views}")
+        mesh = make_mesh(data=data_ax, seq=seq_ax, device=device)
+        sharding = ModelSharding(mesh)
+        if mesh.group is not None:
+            local_batch, rank0 = args.batch // data_ax, mesh.rank == 0
+    elif dist.is_initialized():
+        raise SystemExit("started by torchrun: pass --mesh N,seq with N the number of "
+                         "processes (each would otherwise train alone on its own batch)")
+
     cfg = tiny_test_config() if args.tiny else OmniVGGTConfig()
     if args.drop_path > 0:
         cfg = dataclasses.replace(
@@ -100,12 +133,16 @@ def main(argv=None):
         warmup_steps=args.warmup, total_steps=args.steps,
     )
     train_step = make_train_step(
-        cfg, optimizer, use_aux_inputs=True, remat=not args.no_remat, seed=args.seed,
+        cfg, optimizer, sharding, use_aux_inputs=True, remat=not args.no_remat, seed=args.seed,
+        state_sharding=args.state_sharding,
     )
     state = resume_or_init(args.ckpt_dir, init_state(model, optimizer))
     start = state.step
-    if start:
+    if start and rank0:
         print(f"resumed from {args.ckpt_dir} at step {start}")
+    if sharding is not None:
+        # a restored state is whole; lay it out over the mesh
+        fsdp.shard_state(state, sharding.mesh, args.state_sharding)
 
     if args.data_root:
         from omnivggt_tpu_torch.data.dataset import SceneDataset, prefetch
@@ -114,21 +151,25 @@ def main(argv=None):
             args.data_root, views_per_sample=args.views, target_size=args.target_size,
             seed=args.seed,
         )
-        print(f"{len(ds)} scene(s) under {args.data_root}")
+        if rank0:
+            print(f"{len(ds)} scene(s) under {args.data_root}")
         batches = prefetch(ds.batches())
     else:
         from omnivggt_tpu_torch.data.streaming import ShardedSampleStream, batch_stream
 
+        # under torchrun each process streams its own partition of the shards
         stream = ShardedSampleStream(args.shards, shuffle_buffer=64, seed=args.seed)
-        batches = batch_stream(stream, args.batch)
+        batches = batch_stream(stream, local_batch)
 
-    os.makedirs(args.ckpt_dir, exist_ok=True)
-    logger = MetricLogger(jsonl_path=os.path.join(args.ckpt_dir, "metrics.jsonl"))
+    logger = None
+    if rank0:
+        os.makedirs(args.ckpt_dir, exist_ok=True)
+        logger = MetricLogger(jsonl_path=os.path.join(args.ckpt_dir, "metrics.jsonl"))
     t0 = time.perf_counter()
     last_logged = start
     for step, batch in zip(range(start, args.steps), batches):
         state, metrics = train_step(state, batch_to_device(batch, device))
-        if (step + 1) % args.log_every == 0 or step + 1 == args.steps:
+        if logger is not None and ((step + 1) % args.log_every == 0 or step + 1 == args.steps):
             metrics = {k: float(v) for k, v in metrics.items()}
             dt = (time.perf_counter() - t0) / (step + 1 - last_logged)
             t0, last_logged = time.perf_counter(), step + 1
@@ -137,7 +178,9 @@ def main(argv=None):
                 f"{k}={v:.4f}" for k, v in sorted(metrics.items())
             ))
         if (step + 1) % args.save_every == 0 or step + 1 == args.steps:
-            print(f"saved {save_train_state(args.ckpt_dir, state)}")
+            path = save_train_state(args.ckpt_dir, state)  # every process gathers, rank 0 writes
+            if rank0:
+                print(f"saved {path}")
     return state
 
 

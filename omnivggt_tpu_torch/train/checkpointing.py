@@ -6,6 +6,16 @@ schedule's count, and the step) goes into one `torch.save` file,
 `{ckpt_dir}/step_{N:08d}.pt`, written under a temporary name and renamed
 into place; the newest `keep_last` files are kept. The JAX package's orbax
 directories are a different format and are not read here.
+
+A state laid out over a mesh (zero2 / fsdp, parallel/fsdp.py) is gathered
+into the unsharded layout one tensor at a time, on every process (the
+gathers are collectives): the process of data rank 0 copies each whole
+tensor to the host as soon as it is gathered and alone writes the file,
+the others drop it, so a save holds one gathered tensor at a time on the
+device. A replicated state whose data axis lies over processes is written
+by data rank 0 too. Restore reads the file on the host and copies it into
+the layout of the state it loads into, so a checkpoint written sharded
+restores unsharded, and the other way round.
 """
 
 from __future__ import annotations
@@ -26,18 +36,30 @@ def _checkpoints(ckpt_dir: str):
     return sorted(d for d in os.listdir(ckpt_dir) if d.startswith(_PREFIX) and d.endswith(_SUFFIX))
 
 
+def _writes() -> bool:
+    """Whether this process writes: the only one, or data rank 0."""
+    import torch.distributed as dist
+
+    return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
+
+
 def save_train_state(ckpt_dir: str, state: TrainState, step: Optional[int] = None,
                      keep_last: int = 3) -> str:
-    """Write {ckpt_dir}/step_{N}.pt and prune all but the newest keep_last."""
+    """Write {ckpt_dir}/step_{N}.pt and prune all but the newest keep_last.
+    Under processes every process calls it (the gathers are collectives)
+    and data rank 0 writes; every process returns the path."""
     step = state.step if step is None else step
-    os.makedirs(ckpt_dir, exist_ok=True)
     path = os.path.join(os.path.abspath(ckpt_dir), f"{_PREFIX}{step:08d}{_SUFFIX}")
+    writes = _writes()
+    place = (lambda t: t.cpu()) if writes else (lambda t: None)
+    model = (state.layout.full_state_dict(place) if state.layout is not None
+             else state.model.state_dict())
+    optimizer = state.optimizer.state_dict(place)
+    if not writes:
+        return path
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = path + ".tmp"
-    torch.save(
-        {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-         "step": step},
-        tmp,
-    )
+    torch.save({"model": model, "optimizer": optimizer, "step": step}, tmp)
     os.replace(tmp, path)
     for stale in _checkpoints(ckpt_dir)[:-keep_last]:
         os.remove(os.path.join(ckpt_dir, stale))
@@ -51,10 +73,13 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 
 def restore_train_state(path: str, like: TrainState) -> TrainState:
     """Load the checkpoint at `path` into `like`'s model and optimizer (on
-    the model's device); returns `like` at the saved step."""
-    device = next(like.model.parameters()).device
-    saved = torch.load(path, map_location=device, weights_only=True)
-    like.model.load_state_dict(saved["model"], strict=True)
+    the model's device, in `like`'s layout); returns `like` at the saved
+    step. The file is mapped on the host and copied in tensor by tensor."""
+    saved = torch.load(path, map_location="cpu", mmap=True, weights_only=True)
+    if like.layout is not None:
+        like.layout.load_full_state_dict(saved["model"])
+    else:
+        like.model.load_state_dict(saved["model"], strict=True)
     like.optimizer.load_state_dict(saved["optimizer"])
     like.step = int(saved["step"])
     return like

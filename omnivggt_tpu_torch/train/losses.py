@@ -9,7 +9,11 @@
         conf * |pred - gt| - alpha * log(conf)
     averaged over valid pixels.
 
-All reductions are mask-aware and safe for empty masks.
+All reductions are mask-aware and safe for empty masks. Each loss divides
+by a count over the whole batch (frames with camera GT, valid pixels):
+with the batch split over processes (parallel/mesh.py), `global_count`
+sums a process's count over the data ranks, so each process's loss is its
+share of the global loss and the shares add up to it.
 """
 
 from __future__ import annotations
@@ -20,8 +24,13 @@ from omnivggt_tpu_torch.models.aggregator import masked_normalize_extrinsics
 from omnivggt_tpu_torch.utils import geometry as G
 
 
+def _count(x: torch.Tensor, global_count) -> torch.Tensor:
+    x = x.float()
+    return (x if global_count is None else global_count(x)).clamp_min(1.0)
+
+
 def camera_loss(pose_enc_list, gt_extrinsics, gt_intrinsics, image_size_hw,
-                gamma: float = 0.8, valid=None) -> torch.Tensor:
+                gamma: float = 0.8, valid=None, global_count=None) -> torch.Tensor:
     """pose_enc_list: (T, B, S, 9) iterates; gt: (B, S, 3, 4) / (B, S, 3, 3);
     valid: optional (S,) or (B, S) frame mask."""
     B, S = gt_extrinsics.shape[:2]
@@ -45,37 +54,41 @@ def camera_loss(pose_enc_list, gt_extrinsics, gt_intrinsics, image_size_hw,
     T = pose_enc_list.shape[0]
     weights = gamma ** torch.arange(T - 1, -1, -1, device=dev, dtype=torch.float32)
     err = (pose_enc_list - gt_enc[None]).abs().mean(dim=-1)  # (T, B, S)
-    denom = w_frame.sum().clamp_min(1.0)
+    denom = _count(w_frame.sum(), global_count)
     per_iter = (err * w_frame[None]).sum(dim=(1, 2)) / denom
     return (weights * per_iter).sum()
 
 
-def conf_weighted_l1(pred, conf, gt, valid, alpha: float = 0.2) -> torch.Tensor:
+def conf_weighted_l1(pred, conf, gt, valid, alpha: float = 0.2,
+                     global_count=None) -> torch.Tensor:
     """conf * |pred - gt| - alpha * log(conf) over valid pixels.
     pred: (..., C); conf: (...); gt: (..., C); valid: (...)."""
     err = (pred - gt).abs().sum(dim=-1)
     loss = conf * err - alpha * torch.log(conf)
-    return (loss * valid).sum() / valid.sum().clamp_min(1.0)
+    return (loss * valid).sum() / _count(valid.sum(), global_count)
 
 
 def total_loss(predictions, batch, image_size_hw, *, w_camera: float = 1.0,
-               w_depth: float = 1.0, w_point: float = 1.0) -> dict:
+               w_depth: float = 1.0, w_point: float = 1.0, global_count=None) -> dict:
     """Camera, depth and point losses and their weighted sum ("total") from
     a prediction dict and a batch with keys extrinsics (B,S,3,4),
     intrinsics (B,S,3,3), depth (B,S,H,W,1), depth_valid (B,S,H,W),
     world_points (B,S,H,W,3); optionally camera_valid (S,) and point_valid
-    (B,S,H,W), which defaults to depth_valid."""
+    (B,S,H,W), which defaults to depth_valid. global_count: sums a count
+    over the data ranks (None: this batch is the whole batch)."""
     losses = {
         "camera": camera_loss(
             predictions["pose_enc_list"], batch["extrinsics"], batch["intrinsics"],
-            image_size_hw, valid=batch.get("camera_valid"),
+            image_size_hw, valid=batch.get("camera_valid"), global_count=global_count,
         ),
         "depth": conf_weighted_l1(
             predictions["depth"], predictions["depth_conf"], batch["depth"], batch["depth_valid"],
+            global_count=global_count,
         ),
         "point": conf_weighted_l1(
             predictions["world_points"], predictions["world_points_conf"],
             batch["world_points"], batch.get("point_valid", batch["depth_valid"]),
+            global_count=global_count,
         ),
     }
     losses["total"] = (

@@ -30,10 +30,12 @@ such a component.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
+
+from omnivggt_tpu_torch.parallel.collectives import all_reduce_sum
 
 NO_DECAY_KEYS = (
     "cls_token", "pos_embed", "register_tokens", "camera_token", "register_token",
@@ -113,7 +115,16 @@ def global_norm(tensors) -> torch.Tensor:
 
 class Optimizer:
     """clip_by_global_norm -> AdamW with masked weight decay and a
-    schedule -> per-parameter update scales, over `model`'s parameters."""
+    schedule -> per-parameter update scales, over `model`'s parameters.
+
+    Under a state layout (parallel/fsdp.py, `use_layout`) each sharded
+    parameter's AdamW state lives per shard: the optimizer steps this
+    process's shards, each with moments of its own, under the parameter's
+    weight-decay mask and layer-decay scale. The global norm stays one norm
+    over the whole gradient: the squares of the sharded gradients summed
+    over every rank, each replicated gradient counted once. `state_dict`
+    gathers the moments into the unsharded layout, `load_state_dict`
+    re-shards such a dict, so a checkpoint restores under any layout."""
 
     def __init__(
         self,
@@ -125,33 +136,81 @@ class Optimizer:
     ):
         self.schedule = schedule
         self.grad_clip = grad_clip
+        self.weight_decay = weight_decay
         self.count = 0
+        self.layout = None
         mask = weight_decay_mask(model)
-        groups: Dict[tuple, list] = {}
-        for name, p in model.named_parameters():
+        # {(update scale, decayed): parameter names}, in the model's order
+        self.groups: Dict[tuple, List[str]] = {}
+        for name, _ in model.named_parameters():
             key = (1.0 if scales is None else scales[name], mask[name])
-            groups.setdefault(key, []).append(p)
-        self.params = [p for ps in groups.values() for p in ps]
+            self.groups.setdefault(key, []).append(name)
+        self._build({name: [p] for name, p in model.named_parameters()})
+
+    def _build(self, slots: Dict[str, List[torch.Tensor]]) -> None:
+        """AdamW over `slots` ({parameter name: the tensors it steps})."""
+        self.slots = slots
+        self.params = [t for names in self.groups.values() for n in names for t in slots[n]]
         self.adamw = torch.optim.AdamW(
             [
-                {"params": ps, "lr_scale": scale, "weight_decay": weight_decay if decay else 0.0}
-                for (scale, decay), ps in groups.items()
+                {"params": [t for n in names for t in slots[n]], "lr_scale": scale,
+                 "weight_decay": self.weight_decay if decay else 0.0}
+                for (scale, decay), names in self.groups.items()
             ],
             lr=0.0, betas=(0.9, 0.999), eps=1e-8,
         )
 
+    def use_layout(self, layout) -> None:
+        """Step `layout`'s shards (parallel/fsdp.StateLayout) from now on;
+        moments taken so far are split onto them."""
+        if self.layout is not None:
+            raise ValueError("the optimizer already steps a state layout")
+        taken = {n: self.adamw.state[ts[0]] for n, ts in self.slots.items()
+                 if ts[0] in self.adamw.state}
+        self._build({n: layout.shards[n] if n in layout.shards else [layout.params[n]]
+                     for n in self.slots})
+        self.layout = layout
+        for name, entry in taken.items():
+            self._set_state(name, entry)
+
+    def _set_state(self, name: str, entry: dict) -> None:
+        """One parameter's AdamW state from its whole moments."""
+        slots = self.slots[name]
+        moments = {}
+        for key in ("exp_avg", "exp_avg_sq"):
+            whole = entry[key].to(device=slots[0].device, dtype=slots[0].dtype)
+            moments[key] = (self.layout.local_pieces(name, whole)
+                            if self.layout is not None and name in self.layout.specs else [whole])
+        for i, t in enumerate(slots):
+            self.adamw.state[t] = {"step": entry["step"].clone(),
+                                   **{k: v[i].clone() for k, v in moments.items()}}
+
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
 
+    def _global_norm(self, grads) -> torch.Tensor:
+        if self.layout is None:
+            return global_norm(grads)
+        sharded, replicated = [], []
+        for name, ts in self.slots.items():
+            (sharded if name in self.layout.specs else replicated).extend(t.grad for t in ts)
+
+        def squares(gs):
+            if not gs:
+                return torch.zeros((), device=grads[0].device)
+            return torch.stack([torch.linalg.vector_norm(g.float()) for g in gs]).square().sum()
+
+        return (all_reduce_sum(squares(sharded), self.layout.mesh) + squares(replicated)).sqrt()
+
     @torch.no_grad()
     def step(self) -> torch.Tensor:
-        """One update from the parameters' .grad; returns the gradients'
-        global norm before clipping."""
+        """One update from the parameters' .grad (the shards' under a
+        layout); returns the gradients' global norm before clipping."""
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        norm = self._global_norm(grads)
         if self.grad_clip is not None:
             # optax: t if norm < max_norm else t / norm * max_norm
             clip = norm >= self.grad_clip
@@ -166,11 +225,40 @@ class Optimizer:
         self.count += 1
         return norm
 
-    def state_dict(self) -> dict:
-        return {"adamw": self.adamw.state_dict(), "count": self.count}
+    def state_dict(self, place: Optional[Callable] = None) -> dict:
+        """{"adamw": torch.optim.AdamW's state dict over the whole
+        parameters in the model's order, "count"}; under a layout the
+        moments are gathered (every process must call it), each passed
+        through `place` as soon as it is whole (StateLayout.full_state_dict)."""
+        sd = self.adamw.state_dict()
+        if self.layout is None:
+            return {"adamw": sd, "count": self.count}
+        place = place or (lambda t: t)
+        state, groups, idx = {}, [], 0
+        for group, names in zip(sd["param_groups"], self.groups.values()):
+            ids = []
+            for name in names:
+                entries = [self.adamw.state.get(t) for t in self.slots[name]]
+                if entries[0]:
+                    whole = {"step": entries[0]["step"].clone()}
+                    for key in ("exp_avg", "exp_avg_sq"):
+                        pieces = [e[key] for e in entries]
+                        whole[key] = place(self.layout.full_tensor(name, pieces)
+                                           if name in self.layout.specs else pieces[0].clone())
+                    state[idx] = whole
+                ids.append(idx)
+                idx += 1
+            groups.append({**{k: v for k, v in group.items() if k != "params"}, "params": ids})
+        return {"adamw": {"state": state, "param_groups": groups}, "count": self.count}
 
     def load_state_dict(self, state: dict) -> None:
-        self.adamw.load_state_dict(state["adamw"])
+        """Load a state_dict (in the unsharded layout, whoever wrote it)."""
+        if self.layout is None:
+            self.adamw.load_state_dict(state["adamw"])
+        else:
+            names = [n for ns in self.groups.values() for n in ns]
+            for idx, entry in state["adamw"]["state"].items():
+                self._set_state(names[int(idx)], entry)
         self.count = int(state["count"])
 
 

@@ -53,7 +53,7 @@ def _both(arrays):
     return [jnp.asarray(x) for x in arrays], [torch.from_numpy(x) for x in arrays]
 
 
-def test_make_mesh_and_placement():
+def test_make_mesh_and_placement(monkeypatch):
     mesh = PM.make_mesh(data=2, seq=4, device="cpu")
     assert mesh.shape == {"data": 2, "seq": 4} and mesh.device == torch.device("cpu")
     assert (PM.DATA_AXIS, PM.SEQ_AXIS) == ("data", "seq")
@@ -65,8 +65,17 @@ def test_make_mesh_and_placement():
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="no CUDA device"):
             PM.make_mesh(seq=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PM.multihost_initialize()
+    # ranks as processes: no rendezvous in the environment raises, as does
+    # the default CUDA device without one; nothing is left initialised
+    for var in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            PM.multihost_initialize()
+    with pytest.raises(ValueError, match="RANK"):
+        PM.multihost_initialize(device="cpu", timeout=5)
+    assert not torch.distributed.is_initialized()
+    assert mesh.group is None and mesh.local_shape == mesh.shape and mesh.local_size == 8
     tree = PM.shard_batch(mesh, {"images": np.zeros((1, 8, 2, 2, 3), np.float32), "n": 3})
     assert isinstance(tree["images"], torch.Tensor) and tree["n"] == 3
     assert PM.frames_sharding(mesh) == (("data", 2), ("seq", 4)) and PM.replicated(mesh) == ()
@@ -293,8 +302,10 @@ def test_packaging_ships_the_kernel_headers():
 
 
 def test_dryrun_runs_without_jax():
-    """The dry run of the sharded forward, in a process where importing jax
-    or the JAX package raises."""
+    """The dry run, in a process where importing jax or the JAX package
+    raises: (a) the sharded train step under allgather and under fsdp, (b)
+    the four sharded forwards, (c) the flagship's 128-view forward on the
+    meta device."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -306,4 +317,5 @@ def test_dryrun_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.count("PASS") == 4 and "FAIL" not in proc.stdout
+    assert proc.stdout.count("PASS") == 7 and "FAIL" not in proc.stdout
+    assert "state_sharding=fsdp" in proc.stdout and "pose_enc (1, 128, 9)" in proc.stdout

@@ -229,12 +229,32 @@ def test_train_step_descends():
 
 
 def test_train_step_refuses_what_is_not_ported():
+    """The serving-only modes, an unknown remat, state sharding without a
+    mesh, the fused ring (no backward) and a state not laid out for the
+    step are refused; a step on a (1, 2) mesh under zero2 runs on the CPU."""
+    from omnivggt_tpu_torch.parallel import fsdp
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh
+    from omnivggt_tpu_torch.parallel.sharding import ModelSharding
+
     _, tcfg, _, model = tiny_pair(seed=0)
     opt = TS.make_optimizer(model)
     with pytest.raises(ValueError, match="serving-only"):
         TS.make_train_step(dataclasses.replace(tcfg, attn_quant="int8"), opt)
     with pytest.raises(ValueError, match="remat='foo'"):
         TS.make_train_step(tcfg, opt, remat="foo")
+    with pytest.raises(ValueError, match="state_sharding needs a ModelSharding"):
+        TS.make_train_step(tcfg, opt, state_sharding="zero2")
+    mesh = make_mesh(data=1, seq=2, device="cpu")
+    with pytest.raises(ValueError, match="ring kernels have no backward"):
+        TS.make_train_step(tcfg, opt, ModelSharding(mesh, "ring_fused"))
+    step = TS.make_train_step(tcfg, opt, ModelSharding(mesh), use_aux_inputs=True,
+                              state_sharding="zero2")
+    state = TS.init_state(model, opt)
+    with pytest.raises(ValueError, match="laid out for state_sharding='none'"):
+        step(state, tbatch(train_batch()))
+    state, metrics = step(fsdp.shard_state(state, mesh, "zero2", min_elems=0),
+                          tbatch(train_batch()))
+    assert state.layout.mode == "zero2" and np.isfinite(metrics["total"].item())
 
 
 # ---------------------------------------------------------------------------
@@ -367,9 +387,10 @@ def test_metric_logger(tmp_path):
 
 def test_train_cli_tiny(scenes, tmp_path):
     """--tiny --device cpu trains, logs and saves; a second run resumes;
-    shards made by make_shards train at --batch 2, log, save and resume;
-    the multi-device options stop with "not ported yet"; without --device
-    the default cuda raises here."""
+    --mesh 1,2 trains on logical ranks, with --state_sharding zero2 too;
+    --state_sharding without --mesh and a data axis that does not divide
+    the batch are refused; shards made by make_shards train at --batch 2,
+    log, save and resume; without --device the default cuda raises here."""
     from omnivggt_tpu_torch.tools import train
 
     ck = tmp_path / "run"
@@ -381,9 +402,16 @@ def test_train_cli_tiny(scenes, tmp_path):
     assert len((ck / "metrics.jsonl").read_text().splitlines()) == 2
     state = train.main(base + ["--steps", "3"])
     assert state.step == 3 and state.optimizer.count == 3
-    for extra in (["--mesh", "1,2"], ["--state_sharding", "zero2"]):
-        with pytest.raises(SystemExit, match="not ported yet"):
-            train.main(base + ["--steps", "1", *extra])
+    for i, extra in enumerate((["--mesh", "1,2"], ["--state_sharding", "zero2", "--mesh", "1,2"])):
+        ck_mesh = tmp_path / f"run_mesh{i}"
+        state = train.main([str(ck_mesh) if a == str(ck) else a for a in base]
+                           + ["--steps", "2", *extra])
+        assert state.step == 2 and TCK.latest_checkpoint(str(ck_mesh)).endswith("step_00000002.pt")
+        assert (state.layout is None) == (i == 0)
+    with pytest.raises(SystemExit, match="--state_sharding requires --mesh"):
+        train.main(base + ["--steps", "1", "--state_sharding", "zero2"])
+    with pytest.raises(SystemExit, match="must divide the batch size 1"):
+        train.main(base + ["--steps", "1", "--mesh", "2,1"])
     from omnivggt_tpu_torch.tools import make_shards
 
     make_shards.main(["--data_root", str(scenes), "--out", str(tmp_path / "shards"),
@@ -403,6 +431,22 @@ def test_train_cli_tiny(scenes, tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train.main(["--data_root", str(scenes), "--tiny", "--steps", "1"])
+
+
+def test_train_toy_example(tmp_path):
+    """The toy loop on a logical (2, 2) mesh under fsdp: trains, logs,
+    saves, and resumes to a later step; the loss descends."""
+    from omnivggt_tpu_torch.examples import train_toy
+
+    argv = ["--ranks", "4", "--state_sharding", "fsdp", "--device", "cpu",
+            "--ckpt_dir", str(tmp_path)]
+    state = train_toy.main(argv + ["--steps", "4"])
+    assert state.step == 4 and state.layout.mode == "fsdp"
+    assert (state.layout.mesh.data, state.layout.mesh.seq) == (2, 2)
+    losses = [json.loads(x)["total"] for x in (tmp_path / "metrics.jsonl").read_text().splitlines()]
+    assert len(losses) == 4 and losses[-1] < losses[0]
+    assert train_toy.main(argv + ["--steps", "5"]).step == 5
+    assert TCK.latest_checkpoint(str(tmp_path)).endswith("step_00000005.pt")
 
 
 def test_train_cli_checkpoint_load_certifies_no_fast_mode(scenes, tmp_path):
