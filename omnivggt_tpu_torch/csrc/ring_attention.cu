@@ -37,8 +37,17 @@
 //     issues no copy.
 // Every rank's q, o, state and buffer are reached through per-rank base
 // pointers and per-rank tensor maps encoded on the host at every call, so a
-// buffer mapped from another card can stand in for a neighbour's slot
-// without a change here.
+// buffer mapped from another process can stand in for a neighbour's slot
+// without a change here. That is the process form (the seq axis over
+// processes, one rank each, on one card or several): a launch covers only
+// the ranks [rank0, rank0 + n_local) of this process (grid z), its pointer
+// tables hold its own q, k, v, o, state and slots and, for the rotation,
+// the right neighbour's slots mapped into this process through CUDA IPC
+// (parallel/peer.py). omnivggt_ring_attention_step launches the staging
+// copy or one step alone, so that the host puts the step boundary between
+// launches: a stream sync and a barrier of the processes, the TPU kernel's
+// ready_sem handshake done on the host. No block waits on another process
+// inside a launch, so processes that time-slice one card cannot deadlock.
 //
 // Every step runs ring_step_tma, whose compute blocks are the forward
 // kernel's tile (attend_sm90.cuh, also run by flash_attention.cu), in two
@@ -90,6 +99,8 @@
 // makes p independent of the tiling, so the bf16 bounded ring differs from
 // the head-major kernel only by the order of its fp32 sums.
 
+#include <cstring>
+
 #include "attend_sm90.cuh"
 
 namespace {
@@ -137,6 +148,7 @@ __device__ __forceinline__ void rotate_stripe(void* const* slots, int r, int n_r
 }
 
 struct StageParams {
+  int rank0;                 // the first rank of this launch (grid z adds to it)
   const void* k[kMaxRanks];  // rank's own k shard, strided (B, nl, H, D)
   const void* v[kMaxRanks];
   void* slots[kMaxRanks];    // rank's ring buffer (2, 2, B*H, nl, D), k/v dtype
@@ -151,7 +163,7 @@ struct StageParams {
 template <int D>
 __global__ void __launch_bounds__(kStageThreads) ring_stage(const __grid_constant__ StageParams p,
                                                             int esize) {
-  const int r = blockIdx.z, bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
+  const int r = p.rank0 + blockIdx.z, bh = blockIdx.y, b = bh / p.H, h = bh % p.H;
   const int row0 = blockIdx.x * kStageRows;
   const int vecs = D * esize / 16;  // 16-byte vectors per row
   const long long head_bytes = (long long)p.nl * D * esize;
@@ -184,6 +196,7 @@ struct RingTmaParams {
   int B, H, nl;
   int q0, q_rows, q_tiles;  // this pass: rows [q0, q0 + q_rows), q_tiles 128-row tiles
   int n_ranks, step;
+  int rank0;          // the first rank of this launch (grid z adds to it)
   int n_copy;         // rotation blocks per (head, rank); 0: no rotation
   int kv_tiles;       // key tiles a shard: ceil(nl / 128) (one fewer: a planted fault)
   int kv_head_shift;  // 0; a test hook that plants a fault (K and V of head (h + shift) % H)
@@ -291,13 +304,13 @@ __device__ __forceinline__ void ring_attend(const RingTmaParams& p, int r, int b
   }
 }
 
-// One ring step for every rank: grid (n_copy + q_tiles, B*H, ranks), 384
-// threads. Counterpart of one iteration of the step loop of _ring_kernel
+// One ring step for the ranks of this launch: grid (n_copy + q_tiles, B*H,
+// n_local), 384 threads. Counterpart of one iteration of the step loop of _ring_kernel
 // and of _ring_hbm_kernel.
 template <int D, bool kBounded, int kForm>
 __global__ void __launch_bounds__(attend::kThreads, 1)
     ring_step_tma(const __grid_constant__ RingTmaParams p) {
-  const int r = blockIdx.z, bh = blockIdx.y;
+  const int r = p.rank0 + blockIdx.z, bh = blockIdx.y;
   if (static_cast<int>(blockIdx.x) < p.n_copy) {
     const int esize = kForm == kScoresInt8V8 ? 1 : 2;
     rotate_stripe(p.slots, r, p.n_ranks, p.step & 1, p.B * p.H, bh, (long long)p.nl * D * esize,
@@ -311,35 +324,103 @@ __global__ void __launch_bounds__(attend::kThreads, 1)
 // takes a small share of the step's blocks and ends before they do
 int copy_blocks(int q_tiles) { return q_tiles / 8 > 0 ? q_tiles / 8 : 1; }
 
+// step -1: the staging copy; 0 .. n_ranks - 1: that step, over the ranks
+// [rank0, rank0 + n_local)
 template <int D, bool kBounded, int kForm>
-cudaError_t run_pass(const StageParams& stage, RingTmaParams& p, int skip_rotation_at,
-                     cudaStream_t stream) {
+cudaError_t launch(const StageParams& stage, RingTmaParams& p, int n_local, int step,
+                   int skip_rotation_at, cudaStream_t stream) {
   const int bh = p.B * p.H;
-  const int bytes = attend::Smem<D, kForm>::kAlloc;
-  ring_stage<D><<<dim3((p.nl + kStageRows - 1) / kStageRows, bh, p.n_ranks), kStageThreads, 0,
-                  stream>>>(stage, kForm == kScoresInt8V8 ? 1 : 2);
-  cudaError_t err = cudaGetLastError();
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(ring_step_tma<D, kBounded, kForm>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  for (int step = 0; step < p.n_ranks && err == cudaSuccess; ++step) {
-    p.step = step;
-    p.n_copy = (step + 1 < p.n_ranks && step != skip_rotation_at) ? copy_blocks(p.q_tiles) : 0;
-    ring_step_tma<D, kBounded, kForm>
-        <<<dim3(p.n_copy + p.q_tiles, bh, p.n_ranks), attend::kThreads, bytes, stream>>>(p);
-    err = cudaGetLastError();
+  if (step < 0) {
+    ring_stage<D><<<dim3((p.nl + kStageRows - 1) / kStageRows, bh, n_local), kStageThreads, 0,
+                    stream>>>(stage, kForm == kScoresInt8V8 ? 1 : 2);
+    return cudaGetLastError();
   }
-  return err;
+  const int bytes = attend::Smem<D, kForm>::kAlloc;
+  cudaError_t err = cudaFuncSetAttribute(ring_step_tma<D, kBounded, kForm>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  p.step = step;
+  p.n_copy = (step + 1 < p.n_ranks && step != skip_rotation_at) ? copy_blocks(p.q_tiles) : 0;
+  ring_step_tma<D, kBounded, kForm>
+      <<<dim3(p.n_copy + p.q_tiles, bh, n_local), attend::kThreads, bytes, stream>>>(p);
+  return cudaGetLastError();
 }
 
 template <int kForm>
-cudaError_t run_form(int head_dim, int bounded, const StageParams& stage, RingTmaParams& p,
-                     int skip_rotation_at, cudaStream_t stream) {
+cudaError_t launch_form(int head_dim, int bounded, const StageParams& stage, RingTmaParams& p,
+                        int n_local, int step, int skip_rotation_at, cudaStream_t stream) {
   if (head_dim == 64)
-    return bounded ? run_pass<64, true, kForm>(stage, p, skip_rotation_at, stream)
-                   : run_pass<64, false, kForm>(stage, p, skip_rotation_at, stream);
-  return bounded ? run_pass<128, true, kForm>(stage, p, skip_rotation_at, stream)
-                 : run_pass<128, false, kForm>(stage, p, skip_rotation_at, stream);
+    return bounded ? launch<64, true, kForm>(stage, p, n_local, step, skip_rotation_at, stream)
+                   : launch<64, false, kForm>(stage, p, n_local, step, skip_rotation_at, stream);
+  return bounded ? launch<128, true, kForm>(stage, p, n_local, step, skip_rotation_at, stream)
+                 : launch<128, false, kForm>(stage, p, n_local, step, skip_rotation_at, stream);
+}
+
+// The parameters of a pass over query rows [q0, q0 + q_rows) for the ranks
+// [rank0, rank0 + n_local) (their maps encoded here); slots[r] of every
+// other rank may be null, except the right neighbour's, which the
+// rotation stores into. Returns cudaErrorInvalidValue on a bad argument.
+cudaError_t prepare(StageParams& sp, RingTmaParams& t, int head_dim, int int8,
+                    const void* const* q, const void* const* k, const void* const* v,
+                    void* const* o, void* const* slots, void* const* acc, void* const* ml,
+                    const void* const* c, const long long* strides, int B, int H, int nl, int q0,
+                    int q_rows, int n_ranks, int rank0, int n_local, float scale,
+                    int kv_head_shift, int drop_last_key_tile) {
+  if (n_ranks < 1 || n_ranks > kMaxRanks || nl < 1 || q_rows < 1 || q0 < 0 ||
+      q0 + q_rows > nl || (int8 && c == nullptr) || B * H > 65535 ||
+      (head_dim != 64 && head_dim != 128) || rank0 < 0 || n_local < 1 ||
+      rank0 + n_local > n_ranks)
+    return cudaErrorInvalidValue;
+  std::memset(&sp, 0, sizeof(sp));
+  std::memset(&t, 0, sizeof(t));
+  const long long row = head_dim;  // a buffer row: one key of one head
+  for (int r = 0; r < n_ranks; ++r) {
+    sp.slots[r] = slots[r];
+    t.slots[r] = slots[r];
+  }
+  for (int r = rank0; r < rank0 + n_local; ++r) {
+    if (slots[r] == nullptr || slots[(r + 1) % n_ranks] == nullptr) return cudaErrorInvalidValue;
+    // the maps: int8 boxes of all D columns under a D-byte swizzle, or bf16
+    // boxes of 64 columns under the 128-byte swizzle
+    const bool maps =
+        int8 ? sm90::encode_bnhd_map_s8(&t.q_map[r], q[r], B, nl, H, head_dim, strides[0],
+                                        strides[1], strides[2], attend::kRows) &&
+                   sm90::encode_bnhd_map_s8(&t.slot_map[r], slots[r], 4 * B * H, nl, 1,
+                                            head_dim, (long long)nl * row, row, row,
+                                            attend::kRows)
+             : sm90::encode_bnhd_map(&t.q_map[r], q[r], B, nl, H, head_dim, strides[0],
+                                     strides[1], strides[2], attend::kRows) &&
+                   sm90::encode_bnhd_map(&t.slot_map[r], slots[r], 4 * B * H, nl, 1, head_dim,
+                                         (long long)nl * row, row, row, attend::kRows);
+    if (!maps) return cudaErrorInvalidValue;
+    sp.k[r] = k[r];
+    sp.v[r] = v[r];
+    t.o[r] = static_cast<__nv_bfloat16*>(o[r]);
+    t.acc[r] = static_cast<float*>(acc[r]);
+    t.ml[r] = static_cast<float*>(ml[r]);
+    t.c[r] = int8 ? static_cast<const float*>(c[r]) : nullptr;
+  }
+  sp.rank0 = rank0;
+  sp.k_sb = strides[3]; sp.k_sn = strides[4]; sp.k_sh = strides[5];
+  sp.v_sb = strides[6]; sp.v_sn = strides[7]; sp.v_sh = strides[8];
+  sp.B = B; sp.H = H; sp.nl = nl;
+  t.o_sb = strides[9]; t.o_sn = strides[10]; t.o_sh = strides[11];
+  t.B = B; t.H = H; t.nl = nl;
+  t.q0 = q0; t.q_rows = q_rows; t.q_tiles = (q_rows + attend::kRows - 1) / attend::kRows;
+  t.n_ranks = n_ranks; t.rank0 = rank0; t.step = 0; t.n_copy = 0;
+  t.kv_tiles = (nl + attend::kRows - 1) / attend::kRows - (drop_last_key_tile ? 1 : 0);
+  t.kv_head_shift = ((kv_head_shift % H) + H) % H;
+  t.scale_log2 = scale * kLog2e;
+  return cudaSuccess;
+}
+
+cudaError_t launch_any(int int8, int head_dim, int bounded, const StageParams& sp,
+                       RingTmaParams& t, int n_local, int step, int skip_rotation_at,
+                       cudaStream_t s) {
+  return int8 ? launch_form<kScoresInt8V8>(head_dim, bounded, sp, t, n_local, step,
+                                           skip_rotation_at, s)
+              : launch_form<kScoresBf16>(head_dim, bounded, sp, t, n_local, step,
+                                         skip_rotation_at, s);
 }
 
 }  // namespace
@@ -380,49 +461,40 @@ extern "C" int omnivggt_ring_attention(
     void* const* ml, const void* const* c, const long long* strides, int B, int H, int nl,
     int q0, int q_rows, int n_ranks, int skip_rotation_at, float scale, void* stream,
     int kv_head_shift, int drop_last_key_tile) {
-  if (n_ranks < 1 || n_ranks > kMaxRanks || nl < 1 || q_rows < 1 || q0 < 0 ||
-      q0 + q_rows > nl || (int8 && c == nullptr) || B * H > 65535 ||
-      (head_dim != 64 && head_dim != 128))
-    return static_cast<int>(cudaErrorInvalidValue);
   StageParams sp;
   RingTmaParams t;
-  const long long row = head_dim;  // a buffer row: one key of one head
-  for (int r = 0; r < n_ranks; ++r) {
-    // the maps: int8 boxes of all D columns under a D-byte swizzle, or bf16
-    // boxes of 64 columns under the 128-byte swizzle
-    const bool maps =
-        int8 ? sm90::encode_bnhd_map_s8(&t.q_map[r], q[r], B, nl, H, head_dim, strides[0],
-                                        strides[1], strides[2], attend::kRows) &&
-                   sm90::encode_bnhd_map_s8(&t.slot_map[r], slots[r], 4 * B * H, nl, 1,
-                                            head_dim, (long long)nl * row, row, row,
-                                            attend::kRows)
-             : sm90::encode_bnhd_map(&t.q_map[r], q[r], B, nl, H, head_dim, strides[0],
-                                     strides[1], strides[2], attend::kRows) &&
-                   sm90::encode_bnhd_map(&t.slot_map[r], slots[r], 4 * B * H, nl, 1, head_dim,
-                                         (long long)nl * row, row, row, attend::kRows);
-    if (!maps) return static_cast<int>(cudaErrorInvalidValue);
-    sp.k[r] = k[r];
-    sp.v[r] = v[r];
-    sp.slots[r] = slots[r];
-    t.o[r] = static_cast<__nv_bfloat16*>(o[r]);
-    t.slots[r] = slots[r];
-    t.acc[r] = static_cast<float*>(acc[r]);
-    t.ml[r] = static_cast<float*>(ml[r]);
-    t.c[r] = int8 ? static_cast<const float*>(c[r]) : nullptr;
-  }
-  sp.k_sb = strides[3]; sp.k_sn = strides[4]; sp.k_sh = strides[5];
-  sp.v_sb = strides[6]; sp.v_sn = strides[7]; sp.v_sh = strides[8];
-  sp.B = B; sp.H = H; sp.nl = nl;
-  t.o_sb = strides[9]; t.o_sn = strides[10]; t.o_sh = strides[11];
-  t.B = B; t.H = H; t.nl = nl;
-  t.q0 = q0; t.q_rows = q_rows; t.q_tiles = (q_rows + attend::kRows - 1) / attend::kRows;
-  t.n_ranks = n_ranks; t.step = 0; t.n_copy = 0;
-  t.kv_tiles = (nl + attend::kRows - 1) / attend::kRows - (drop_last_key_tile ? 1 : 0);
-  t.kv_head_shift = ((kv_head_shift % H) + H) % H;
-  t.scale_log2 = scale * kLog2e;
+  cudaError_t err = prepare(sp, t, head_dim, int8, q, k, v, o, slots, acc, ml, c, strides, B, H,
+                            nl, q0, q_rows, n_ranks, 0, n_ranks, scale, kv_head_shift,
+                            drop_last_key_tile);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      int8 ? run_form<kScoresInt8V8>(head_dim, bounded, sp, t, skip_rotation_at, s)
-           : run_form<kScoresBf16>(head_dim, bounded, sp, t, skip_rotation_at, s);
+  for (int step = -1; step < n_ranks && err == cudaSuccess; ++step)
+    err = launch_any(int8, head_dim, bounded, sp, t, n_ranks, step, skip_rotation_at, s);
+  return static_cast<int>(err);
+}
+
+// The process form: one launch over this process's ranks [rank0, rank0 +
+// n_local) of n_ranks, on `stream`: step -1 the staging copy into slot 0
+// of their own buffers, else ring step `step` (the rotation of step s <
+// n_ranks - 1 stores into slots[(r + 1) % n_ranks], the right neighbour's
+// buffer mapped into this process). The arguments are
+// omnivggt_ring_attention's, read only at this process's ranks (and the
+// right neighbour's slot); the caller runs steps -1, 0, .., n_ranks - 1 in
+// order, with every process of the ring past its previous launch before the
+// next (a stream sync and a barrier between them).
+extern "C" int omnivggt_ring_attention_step(
+    int bounded, int head_dim, int int8, const void* const* q, const void* const* k,
+    const void* const* v, void* const* o, void* const* slots, void* const* acc,
+    void* const* ml, const void* const* c, const long long* strides, int B, int H, int nl,
+    int q0, int q_rows, int n_ranks, int rank0, int n_local, int step, int skip_rotation_at,
+    float scale, void* stream, int kv_head_shift, int drop_last_key_tile) {
+  if (step < -1 || step >= n_ranks) return static_cast<int>(cudaErrorInvalidValue);
+  StageParams sp;
+  RingTmaParams t;
+  cudaError_t err = prepare(sp, t, head_dim, int8, q, k, v, o, slots, acc, ml, c, strides, B, H,
+                            nl, q0, q_rows, n_ranks, rank0, n_local, scale, kv_head_shift,
+                            drop_last_key_tile);
+  if (err == cudaSuccess)
+    err = launch_any(int8, head_dim, bounded, sp, t, n_local, step, skip_rotation_at,
+                     static_cast<cudaStream_t>(stream));
   return static_cast<int>(err);
 }

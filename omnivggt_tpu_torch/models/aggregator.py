@@ -18,7 +18,13 @@ injection (counterpart of omnivggt_tpu/models/aggregator.py).
     policy does), and `train_generator` enables stochastic
     depth at the model config's drop_path_rate. Its keep masks for every block are drawn
     before the loop (as the JAX package splits its keys outside the scan),
-    so the recomputed pair drops the same samples as the first pass.
+    so the recomputed pair drops the same samples as the first pass;
+  - with the seq axis over processes (parallel/mesh.py) the images and GT
+    are this process's frames, [s S_l, (s + 1) S_l) of the scene's S =
+    seq S_l; slot 0 of the special tokens goes to the scene's frame 0
+    (seq rank 0's first), the camera rebase runs on the whole frame axis
+    (the per-frame extrinsics and masks gathered) and the depth mean over
+    every process's sums (collectives.seq_sum).
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from omnivggt_tpu_torch.config import AggregatorConfig
 from omnivggt_tpu_torch.models import dinov2
 from omnivggt_tpu_torch.ops import layers as L
 from omnivggt_tpu_torch.ops import rope as R
+from omnivggt_tpu_torch.parallel import collectives as PC
 from omnivggt_tpu_torch.utils import geometry as G
 
 _RESNET_MEAN = (0.485, 0.456, 0.406)
@@ -88,11 +95,15 @@ class Aggregator(nn.Module):
         self.depth_patch_embed = L.PatchEmbed(cfg.patch_size, 2, C)
 
 
-def _expand_special_token(tok: torch.Tensor, B: int, S: int, dtype) -> torch.Tensor:
+def _expand_special_token(tok: torch.Tensor, B: int, S: int, dtype,
+                          has_first: bool = True) -> torch.Tensor:
     """(1, 2, X, C) -> (B, S, X, C): slot 0 for the first frame, slot 1 for
-    the rest."""
+    the rest. has_first False: these S frames do not hold the scene's first
+    (a seq process other than rank 0's), so slot 1 for all."""
     X, C = tok.shape[2], tok.shape[3]
     tok = tok.to(dtype)
+    if not has_first:
+        return tok[:, 1:2].expand(B, S, X, C)
     first = tok[:, 0:1].expand(B, 1, X, C)
     others = tok[:, 1:2].expand(B, S - 1, X, C)
     return torch.cat([first, others], dim=1)
@@ -123,14 +134,24 @@ def masked_normalize_extrinsics(extrinsics: torch.Tensor, mask: torch.Tensor) ->
 
 
 def masked_normalize_depth(
-    depth: torch.Tensor, valid: torch.Tensor, frame_mask: torch.Tensor, eps: float = 1e-8
+    depth: torch.Tensor, valid: torch.Tensor, frame_mask: torch.Tensor, eps: float = 1e-8,
+    mesh=None,
 ) -> torch.Tensor:
     """depth / (mean over the selected frames' valid pixels + eps) * valid.
-    depth: (B, S, H, W, 1); valid: (B, S, H, W); frame_mask: (B, S) bool."""
+    depth: (B, S, H, W, 1); valid: (B, S, H, W); frame_mask: (B, S) bool.
+    mesh: a sum and a count are taken per seq rank's frames and added in
+    rank order (collectives.sum_in_rank_order), across the processes
+    (collectives.seq_sum) when the seq axis lies over them and these are
+    this process's frames, so both layouts give the same bits."""
     d = depth[..., 0]
     sel = valid * frame_mask[:, :, None, None]
-    cnt = sel.sum(dim=(1, 2, 3))
-    mean = (d * sel).sum(dim=(1, 2, 3)) / cnt.clamp_min(1.0)
+    n = 1 if mesh is None else mesh.local_shape["seq"]
+    sums = PC.sum_in_rank_order([torch.stack([a.sum(dim=(1, 2, 3)), b.sum(dim=(1, 2, 3))])
+                                 for a, b in zip((d * sel).chunk(n, 1), sel.chunk(n, 1))])
+    if mesh is not None and mesh.seq_processes:
+        sums = PC.seq_sum(sums, mesh)
+    total, cnt = sums[0], sums[1]
+    mean = total / cnt.clamp_min(1.0)
     norm = torch.where(
         cnt[:, None, None, None] > 0, d / (mean[:, None, None, None] + eps), 0.0
     )
@@ -148,10 +169,14 @@ def _frame_mask(mask, B: int, S: int, device):
 
 
 def compute_pose_encoding(
-    aux: AuxInputs, image_size_hw: Tuple[int, int], camera_mask: torch.Tensor
+    aux: AuxInputs, image_size_hw: Tuple[int, int], camera_mask: torch.Tensor, mesh=None
 ) -> torch.Tensor:
     """(B, S, 9) pose encoding of the mask-normalised GT extrinsics; frames
-    without GT are encoded from identity cameras (masked out later)."""
+    without GT are encoded from identity cameras (masked out later).
+    mesh: with the seq axis over processes these are this process's
+    frames: the extrinsics and the mask of every frame are gathered
+    (12 + 1 values a frame), the rebase runs on the whole frame axis and
+    this process's frames are kept."""
     B, S = camera_mask.shape
     dev = camera_mask.device
     eye34 = torch.eye(3, 4, device=dev).expand(B, S, 3, 4)
@@ -159,7 +184,14 @@ def compute_pose_encoding(
     m4 = camera_mask[:, :, None, None]
     ex = torch.where(m4, aux.extrinsics.float(), eye34)
     K = torch.where(m4, aux.intrinsics.float(), eyeK)
-    ex_n = masked_normalize_extrinsics(ex, camera_mask)
+    if mesh is None or not mesh.seq_processes:
+        ex_n = masked_normalize_extrinsics(ex, camera_mask)
+    else:
+        packed = torch.cat([ex.reshape(B, S, 12), camera_mask[:, :, None].float()], dim=-1)
+        whole = PC.seq_all_gather(packed, mesh, 1)
+        ex_all = whole[..., :12].reshape(B, -1, 3, 4)
+        first = mesh.seq_rank * S
+        ex_n = masked_normalize_extrinsics(ex_all, whole[..., 12] > 0.5)[:, first:first + S]
     return G.extri_intri_to_pose_encoding(ex_n, K, image_size_hw)
 
 
@@ -239,6 +271,8 @@ def apply(
     aux = aux or AuxInputs()
     frame_shard = sharding.frame_attn_shard if sharding is not None else None
     global_shard = sharding.global_attn_shard if sharding is not None else None
+    mesh = sharding.mesh if sharding is not None else None
+    has_first = mesh is None or not mesh.seq_processes or mesh.seq_rank == 0
 
     mean = torch.tensor(_RESNET_MEAN, dtype=dtype, device=dev)
     std = torch.tensor(_RESNET_STD, dtype=dtype, device=dev)
@@ -252,13 +286,13 @@ def apply(
             int8_dense=int8_dense, int8_qk=int8_qk, pad_tokens=pad_tokens,
         )
 
-    camera_token = _expand_special_token(p.camera_token, B, S, dtype)
-    register_token = _expand_special_token(p.register_token, B, S, dtype)
+    camera_token = _expand_special_token(p.camera_token, B, S, dtype, has_first)
+    register_token = _expand_special_token(p.register_token, B, S, dtype, has_first)
 
     # GT cameras: the input injection group (index 0)
     camera_mask = _frame_mask(aux.camera_mask, B, S, dev)
     if camera_mask is not None:
-        pose_enc = compute_pose_encoding(aux, (H, W), camera_mask).to(dtype)
+        pose_enc = compute_pose_encoding(aux, (H, W), camera_mask, mesh).to(dtype)
         pe_tok = L.linear(p.pose_embeddings[0], pose_enc)
         gt_camera = torch.where(camera_mask[:, :, None], pe_tok, 0.0)
         cam_mask_f = camera_mask[:, :, None].to(dtype)
@@ -273,7 +307,7 @@ def apply(
     depth_mask = _frame_mask(aux.depth_mask, B, S, dev)
     if depth_mask is not None:
         valid = aux.depth_valid.float()
-        dn = masked_normalize_depth(aux.depth.float(), valid, depth_mask)
+        dn = masked_normalize_depth(aux.depth.float(), valid, depth_mask, mesh=mesh)
         dm = torch.cat([dn, valid[..., None]], dim=-1).reshape(B * S, H, W, 2)
         d_tok = L.patch_embed(p.depth_patch_embed, dm.to(dtype)).reshape(B, S, n_patch, C)
         gt_depth = torch.where(depth_mask[:, :, None, None], d_tok, placeholder)
@@ -304,7 +338,6 @@ def apply(
         # data axis over processes each draws the whole batch's and keeps
         # its own scenes' rows, so the masks are the logical ranks' ones
         first_n, second_n = (B * S, B) if cfg.aa_order[0] == "frame" else (B, B * S)
-        mesh = sharding.mesh if sharding is not None else None
         data, rank = (mesh.data, mesh.rank) if mesh is not None and mesh.group is not None else (1, 0)
 
         def masks(n):

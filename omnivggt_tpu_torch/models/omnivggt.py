@@ -45,6 +45,7 @@ from omnivggt_tpu_torch.models import camera_head as chead
 from omnivggt_tpu_torch.models import dpt_head as dhead
 from omnivggt_tpu_torch.models.aggregator import AuxInputs
 from omnivggt_tpu_torch.ops import layers as L
+from omnivggt_tpu_torch.parallel import collectives as PC
 from omnivggt_tpu_torch.utils.device import resolve_device
 from omnivggt_tpu_torch.utils.platform import exact_fp32
 
@@ -325,7 +326,14 @@ def apply(
 
     sharding: a parallel.sharding.ModelSharding: the aggregator's attention
     runs under its strategies over the mesh's ranks (the "ring_fused"
-    kernels have no backward: train under "allgather" or "ring").
+    kernels have no backward: train under "allgather" or "ring"). With
+    the mesh's seq axis over processes every process is given the whole
+    request, as the JAX package's shard_batch places a host array, and
+    runs the frames of its seq rank s, [s S / seq, (s + 1) S / seq) (S must
+    divide): the aggregator and the DPT heads on those, the camera head on
+    every frame's camera token (gathered: its trunk attends over frames),
+    and the dense outputs are gathered at the end, so every process
+    returns the whole prediction dict, as the single-device forward does.
 
     num_valid_frames: an int or an integer scalar tensor on the images'
     device; frames at or past it are shape padding (bucketed serving) and
@@ -341,6 +349,12 @@ def apply(
     if images.ndim == 4:
         images = images[None]
     B, S, H, W, _ = images.shape
+    whole_images = images
+    mesh = sharding.mesh if sharding is not None else None
+    if mesh is not None and not mesh.seq_processes:
+        mesh = None  # logical seq ranks: every frame is here
+    if mesh is not None:
+        images, aux = _own_frames(images, aux, mesh)
     # full fp32 wherever the forward runs fp32, whatever the caller's TF32
     # switches (utils/platform.exact_fp32); bf16 work is unaffected
     with exact_fp32():
@@ -360,9 +374,12 @@ def apply(
             int8_dense=cfg.trunk_quant,
             int8_qk=cfg.attn_quant == "int8",
         )
+        last = layers[cfg.aggregator.depth - 1]
+        if mesh is not None:
+            # the head reads only the camera tokens, of every frame
+            last = PC.seq_all_gather(last[:, :, :1].contiguous(), mesh, 1)
         pose_enc_list = chead.apply(
-            model.camera_head, layers[cfg.aggregator.depth - 1].to(cfg.heads_dtype),
-            num_valid_frames=num_valid_frames,
+            model.camera_head, last.to(cfg.heads_dtype), num_valid_frames=num_valid_frames,
         )
         predictions = {"pose_enc": pose_enc_list[-1], "pose_enc_list": pose_enc_list}
         for name, head, key in (
@@ -374,10 +391,26 @@ def apply(
                 head, [layers[i] for i in hcfg.intermediate_layer_idx], (H, W),
                 patch_start_idx, dtype=cfg.heads_dtype, quant=cfg.head_quant,
             )
+            if mesh is not None:
+                preds, conf = (PC.seq_all_gather(x, mesh, 1) for x in (preds, conf))
             predictions[key] = preds
             predictions[f"{key}_conf"] = conf
-        predictions["images"] = images
+        predictions["images"] = whole_images
         return predictions
+
+
+def _own_frames(images, aux: Optional[AuxInputs], mesh):
+    """This seq process's frames of a (B, S, ...) request and its GT (the
+    frame masks are (S,) or (B, S))."""
+    S, n = images.shape[1], mesh.seq
+    if S % n:
+        raise ValueError(f"{S} frames do not divide over the {n} seq processes of the mesh")
+    lo, hi = mesh.seq_rank * (S // n), (mesh.seq_rank + 1) * (S // n)
+    if aux is not None:
+        aux = AuxInputs(*(
+            None if x is None else (x[lo:hi] if x.ndim == 1 else x[:, lo:hi]) for x in aux
+        ))
+    return images[:, lo:hi], aux
 
 
 def make_aux(

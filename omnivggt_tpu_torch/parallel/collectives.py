@@ -17,8 +17,23 @@ ranks. So a process holds a contiguous slab of 1 / data of the dim.
     `dist.all_gather_into_tensor` of the slabs (the sharded dim moved to
     the front for both, since they concatenate along dim 0).
 
+The seq axis's collectives (`seq_all_gather`, `seq_max`, `seq_sum`) join
+or reduce what each seq rank holds of a scene's frames or tokens:
+
+  - logical seq ranks: one process holds every rank's part already, so
+    each returns its input (the caller passes the whole tensor);
+  - seq processes on the CPU (gloo): `dist.all_gather` over the seq group;
+  - seq processes on CUDA: through the seq group's peer-mapped buffers
+    (parallel/peer.py): each process writes its part into its own
+    symmetric buffer, a barrier, each copies every rank's part in rank
+    order, a barrier (so no part is overwritten before every peer has
+    read it).
+The max and the sum reduce the gathered parts in rank order, so every
+process gets the same bits.
+
 Every call counts one in `calls()` and its whole tensor's elements in
-`elements()` (the input of a reduce-scatter, the output of a gather), in
+`elements()` (the input of a reduce-scatter, the output of a gather, the
+reduced tensor of seq_max / seq_sum), in
 the style of the kernels' `launches()`, so tests and chip_smoke.py can
 assert which collective ran. `gather_shards` is the gather that FSDP
 differentiates through: its backward is a reduce-scatter.
@@ -33,7 +48,7 @@ import torch
 
 from omnivggt_tpu_torch.parallel.mesh import Mesh
 
-NAMES = ("all_reduce", "reduce_scatter", "all_gather")
+NAMES = ("all_reduce", "reduce_scatter", "all_gather", "seq_all_gather", "seq_max", "seq_sum")
 _calls: Counter = Counter()
 _elements: Counter = Counter()
 
@@ -115,3 +130,54 @@ def gather_shards(shards: Sequence[torch.Tensor], mesh: Mesh, dim: int) -> torch
     """all_gather that autograd differentiates: the backward reduce-scatters
     the gradient onto the shards."""
     return _GatherShards.apply(mesh, dim, *shards)
+
+
+def _seq_combine(x: torch.Tensor, mesh: Mesh, combine) -> torch.Tensor:
+    """combine(every seq rank's x, in rank order) on seq processes."""
+    x = x.contiguous()
+    if mesh.peer is None:
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(x) for _ in range(mesh.seq)]
+        dist.all_gather(parts, x, group=mesh.seq_group)
+        return combine(parts)
+    buf = mesh.peer.buffer("seq_gather", x.shape, x.dtype)
+    buf.own.copy_(x)
+    mesh.peer.barrier()
+    out = combine([x if r == mesh.seq_rank else buf.view(r) for r in range(mesh.seq)])
+    mesh.peer.barrier()
+    return out
+
+
+def sum_in_rank_order(parts):
+    """The sum of a list of tensors, added left to right."""
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    return total
+
+
+def seq_all_gather(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """Every seq rank's x joined along `dim` in rank order: this process's
+    part of a scene's frames or tokens -> the whole. Logical seq ranks: x
+    is the whole already and is returned."""
+    if mesh.seq_processes:
+        x = _seq_combine(x, mesh, lambda parts: torch.cat(parts, dim))
+    _count("seq_all_gather", x.numel())
+    return x
+
+
+def seq_max(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The elementwise max of x over the seq ranks."""
+    if mesh.seq_processes:
+        x = _seq_combine(x, mesh, lambda parts: torch.stack(parts).amax(dim=0))
+    _count("seq_max", x.numel())
+    return x
+
+
+def seq_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The elementwise sum of x over the seq ranks, added in rank order."""
+    if mesh.seq_processes:
+        x = _seq_combine(x, mesh, sum_in_rank_order)
+    _count("seq_sum", x.numel())
+    return x

@@ -1,8 +1,8 @@
-"""The (data, seq) mesh: logical ranks on one device, or the data axis over
+"""The (data, seq) mesh: logical ranks on one device, or axes over
 processes (counterpart of omnivggt_tpu/parallel/mesh.py).
 
 The JAX package lays its (data, seq) mesh over devices. Here a mesh is
-`data x seq` ranks in one of two layouts:
+`data x seq` ranks in one of three layouts:
 
   - logical ranks (no process group): all `data x seq` ranks live on one
     explicit device in one process, the counterpart of the virtual CPU
@@ -10,15 +10,31 @@ The JAX package lays its (data, seq) mesh over devices. Here a mesh is
     tensor's batch or token axis (its q shard, its output shard, its own
     K/V ring buffer), and what crosses ranks (the gather, the rotation,
     the max over ranks) really moves or reduces data;
-  - the data axis over processes (a `torch.distributed` group is up,
-    `multihost_initialize`): one process per data rank, each with a full
-    model on its own device (NCCL across cards, gloo on the CPU), each
-    holding `B / data` scenes of the batch. The seq axis stays logical
-    ranks inside each process. Every cross-frame operation (the camera
-    rebase to the first frame, the camera head's attention over frames,
-    the loss's first-valid-camera rebase) stays inside one scene and so
-    inside one process; what crosses processes are the training state's
-    collectives (parallel/collectives.py) and the loss's denominators.
+  - the data axis over processes (a `torch.distributed` group of `data`
+    processes is up, `multihost_initialize`): one process per data rank,
+    each with a full model on its own device (NCCL across cards, gloo on
+    the CPU), each holding `B / data` scenes of the batch. The seq axis
+    stays logical ranks inside each process. Every cross-frame operation
+    stays inside one scene and so inside one process; what crosses
+    processes are the training state's collectives
+    (parallel/collectives.py) and the loss's denominators;
+  - both axes over processes (a group of `data x seq` processes, seq > 1):
+    every process is one (data, seq) rank, rank-major as the JAX mesh
+    reshapes its devices to (data, seq): process p is data rank
+    p // seq and seq rank p % seq. A process holds the frames of its seq
+    rank, [s S / seq, (s + 1) S / seq), and `local_shape` is 1 on both
+    axes. What crosses frames crosses processes: the global attention's
+    K/V (gathered, or rotated by the ring kernels into the right
+    neighbour's peer-mapped slot), the camera rebase, the depth mean, the
+    camera head's attention over frames and the outputs
+    (parallel/collectives.py's seq_* collectives). Each seq group is a
+    gloo group of its own, which carries the host side of those
+    (barriers, the exchange of IPC handles; on the CPU the data itself);
+    on CUDA the data moves through peer-mapped device memory
+    (parallel/peer.py, `mesh.peer`), so the processes may share one card
+    and the default group may be gloo when data is 1. The data axis's
+    gradient collectives still need NCCL on CUDA, and training over seq
+    processes is not ported (train/step.make_train_step raises).
 
   - "data": scene/batch parallelism;
   - "seq":  sequence parallelism over frames / tokens, the axis the
@@ -30,7 +46,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import torch
@@ -43,15 +59,20 @@ SEQ_AXIS = "seq"
 
 @dataclass(frozen=True)
 class Mesh:
-    """`data x seq` ranks on `device`. With a process `group` the data axis
-    lies over its processes (this one is data rank `rank`); without one
-    every rank is a logical rank of this process."""
+    """`data x seq` ranks on `device`. With a data `group` the data axis lies
+    over its processes (this one is data rank `rank`); with a `seq_group`
+    the seq axis does too (this one is seq rank `seq_rank`, and on CUDA
+    `peer` holds the seq group's symmetric buffers); an axis without a
+    group is logical ranks of this process."""
 
     data: int
     seq: int
     device: torch.device
-    group: Optional[object] = None  # torch.distributed.ProcessGroup
+    group: Optional[object] = None  # torch.distributed.ProcessGroup of the data axis
     rank: int = 0
+    seq_group: Optional[object] = None  # gloo ProcessGroup of this process's seq axis
+    seq_rank: int = 0
+    peer: Optional[object] = field(default=None, compare=False, repr=False)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -60,9 +81,10 @@ class Mesh:
 
     @property
     def local_shape(self) -> Dict[str, int]:
-        """The logical ranks of each axis that this process runs: the data
-        axis is one rank a process when it lies over processes."""
-        return {DATA_AXIS: 1 if self.group is not None else self.data, SEQ_AXIS: self.seq}
+        """The logical ranks of each axis that this process runs: one rank
+        a process on an axis that lies over processes."""
+        return {DATA_AXIS: 1 if self.group is not None or self.seq_group is not None else self.data,
+                SEQ_AXIS: 1 if self.seq_group is not None else self.seq}
 
     @property
     def size(self) -> int:
@@ -70,7 +92,18 @@ class Mesh:
 
     @property
     def local_size(self) -> int:
-        return self.local_shape[DATA_AXIS] * self.seq
+        return self.local_shape[DATA_AXIS] * self.local_shape[SEQ_AXIS]
+
+    @property
+    def seq_processes(self) -> bool:
+        """Whether the seq axis lies over processes (one seq rank each)."""
+        return self.seq_group is not None
+
+    def close(self) -> None:
+        """Tear down the seq group's peer-mapped buffers (a collective over
+        the seq group: every process of it calls this)."""
+        if self.peer is not None:
+            self.peer.close()
 
 
 def _process_group():
@@ -90,11 +123,19 @@ def make_mesh(data: int = 1, seq: Optional[int] = None, device=None) -> Mesh:
     of their own, so the JAX function's "needs more devices" error has no
     counterpart.
 
-    With a process group up (multihost_initialize), the data axis lies
-    over its processes: `data` must equal the world size, one data rank a
-    process, and seq (default 1) stays logical ranks in each process. The
-    device must suit the group's backend: CUDA under NCCL, the CPU under
-    gloo."""
+    With a process group up (multihost_initialize) of W processes:
+      - data == W: the data axis lies over the processes, one data rank a
+        process, and seq (default 1) stays logical ranks in each;
+      - seq > 1 and data x seq == W: both axes lie over the processes,
+        rank-major (process p is data rank p // seq, seq rank p % seq).
+        Every process makes every subgroup, in the same order: the data
+        groups (default backend) when data > 1, then the seq groups
+        (gloo). On CUDA the seq axis's data moves through peer-mapped
+        device memory (`mesh.peer`), so with data == 1 a gloo default
+        group is accepted there and the processes may share one card.
+    The two overlap only at seq 1, where they are the same layout. The
+    device must otherwise suit the group's backend: CUDA under NCCL, the
+    CPU under gloo."""
     if not isinstance(data, int) or data < 1:
         raise ValueError(f"data must be a positive int, got {data!r}")
     if seq is not None and (not isinstance(seq, int) or seq < 1):
@@ -102,19 +143,25 @@ def make_mesh(data: int = 1, seq: Optional[int] = None, device=None) -> Mesh:
     dist = _process_group()
     if dist is not None:
         world = dist.get_world_size()
-        if data != world:
+        seq = 1 if seq is None else seq
+        over_seq = seq > 1 and data * seq == world
+        if data != world and not over_seq:
             raise ValueError(
-                f"a process group of {world} processes is up, and the data axis lies over "
-                f"the processes, one data rank each: data must be {world}, got {data} (the "
-                "seq axis stays logical ranks in each process; without a group every rank "
-                "is logical)"
+                f"a process group of {world} processes is up: either the data axis lies over "
+                f"the processes (data must be {world}; seq stays logical ranks in each) or both "
+                f"axes do (data x seq must be {world}), got data={data}, seq={seq} (without a "
+                "group every rank is logical)"
             )
         device = resolve_device(device)
         backend = dist.get_backend()
-        if (backend == "nccl") != (device.type == "cuda"):
+        gloo_on_card = over_seq and data == 1 and backend == "gloo" and device.type == "cuda"
+        if (backend == "nccl") != (device.type == "cuda") and not gloo_on_card:
             raise ValueError(f"a {backend} process group cannot run a mesh on {device}: "
-                             "NCCL needs CUDA tensors, gloo CPU tensors")
-        return Mesh(data, 1 if seq is None else seq, device, dist.group.WORLD, dist.get_rank())
+                             "NCCL needs CUDA tensors, gloo CPU tensors (a gloo group runs "
+                             "CUDA meshes only with data 1 and the seq axis over the processes)")
+        if not over_seq:
+            return Mesh(data, seq, device, dist.group.WORLD, dist.get_rank())
+        return _seq_process_mesh(dist, data, seq, device)
     device = resolve_device(device)
     if seq is None:
         n = torch.cuda.device_count() if device.type == "cuda" else 1
@@ -122,6 +169,28 @@ def make_mesh(data: int = 1, seq: Optional[int] = None, device=None) -> Mesh:
             raise ValueError(f"{n} devices not divisible by data={data}")
         seq = n // data
     return Mesh(data, seq, device)
+
+
+def _seq_process_mesh(dist, data: int, seq: int, device) -> Mesh:
+    """Both axes over the processes: this process's data and seq groups,
+    made by every process in the same order."""
+    me = dist.get_rank()
+    d, s = divmod(me, seq)
+    data_group = None
+    if data > 1:
+        for col in range(seq):
+            g = dist.new_group([row * seq + col for row in range(data)])
+            data_group = g if col == s else data_group
+    seq_group = None
+    for row in range(data):
+        g = dist.new_group([row * seq + col for col in range(seq)], backend="gloo")
+        seq_group = g if row == d else seq_group
+    peer = None
+    if device.type == "cuda":
+        from omnivggt_tpu_torch.parallel.peer import PeerMemory
+
+        peer = PeerMemory(seq_group, s, seq, device)
+    return Mesh(data, seq, device, data_group, d, seq_group, s, peer)
 
 
 def multihost_initialize(*, device=None, backend: Optional[str] = None,
@@ -203,7 +272,9 @@ def shard_batch(mesh: Mesh, tree):
     the mesh's device. With the data axis over processes this process
     keeps its B / data scenes of each such leaf (B is the global batch);
     logical ranks keep the whole batch, whose ranks' shards are slices
-    taken where a strategy needs them. Other leaves pass through."""
+    taken where a strategy needs them. The frames stay whole when the seq
+    axis lies over processes too: the forward takes this process's own
+    (models/omnivggt.apply). Other leaves pass through."""
     if isinstance(tree, dict):
         return {k: shard_batch(mesh, v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

@@ -142,7 +142,11 @@ class InferenceSession:
         weights from `seed`. compress_trunk stores the trunk's weights in
         bf16 (checkpoint.cast_trunk_params). sharding: a
         parallel.sharding.ModelSharding whose mesh lies on the model's
-        device; every forward then runs under it."""
+        device; every forward then runs under it. With the mesh's seq axis
+        over processes (every process calls `infer` with the same request)
+        the frames split over them: a bucket is rounded up to a multiple
+        of the seq processes, and in exact mode the frame count must be
+        one."""
         from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
 
         if pad_mode not in ("exact", "bucket"):
@@ -169,17 +173,22 @@ class InferenceSession:
         self.buckets = tuple(sorted(buckets))
         self.sharding = sharding
         self.pad_mode = pad_mode
+        mesh = getattr(sharding, "mesh", None)
+        self._frames_multiple = mesh.seq if mesh is not None and mesh.seq_processes else 1
         self._lock = threading.Lock()  # guards _served
         self._forward_lock = threading.Lock()  # one forward at a time on the device
         self._served: Dict[tuple, int] = {}  # exec key + batch size -> forwards run
 
     def _bucket(self, S: int) -> int:
+        n = self._frames_multiple
         if self.pad_mode == "exact":
+            if S % n:
+                raise ValueError(f"{S} frames do not divide over the {n} seq processes of the "
+                                 "mesh, and exact mode does not pad: send a multiple of "
+                                 f"{n} frames, or use bucket mode under allgather")
             return S
-        for b in self.buckets:
-            if S <= b:
-                return b
-        return S
+        b = next((b for b in self.buckets if S <= b), S)
+        return -(-b // n) * n
 
     def _prepare(
         self,

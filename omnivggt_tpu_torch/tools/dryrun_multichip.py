@@ -1,8 +1,10 @@
-"""Dry run of the parallel stack on a mesh of logical ranks.
+"""Dry run of the parallel stack on a mesh of logical ranks, and of the seq
+axis over processes.
 
     python -m omnivggt_tpu_torch.tools.dryrun_multichip [--ranks 8] [--device cpu]
 
-Counterpart of `__graft_entry__.dryrun_multichip`, in its three parts:
+Counterpart of `__graft_entry__.dryrun_multichip`, in its three parts, and
+a fourth of the port's own:
 
   (a) one sharded train step of the tiny config under "allgather" on a
       (2, ranks / 2) mesh with use_aux_inputs (B = 2 synthetic scenes of 2
@@ -22,7 +24,13 @@ Counterpart of `__graft_entry__.dryrun_multichip`, in its three parts:
       flagship OmniVGGTConfig() forward of 128 views at 518 px,
       sequence-sharded on a (1, ranks) mesh under "ring", on the meta
       device (shapes only: no memory, no launch); pose_enc must come out
-      (1, 128, 9). A data-dependent host read in the forward would stop it.
+      (1, 128, 9). A data-dependent host read in the forward would stop it;
+  (d) SEQ_PROCESSES = 2 gloo processes on the CPU whatever --device, one
+      seq rank each of make_mesh(data=1, seq=2) over their group: the
+      tiny config's forward of 4 frames at 28 px with GT cameras and
+      depth under "allgather", "ring" and "ring_fused" in every process,
+      each process's whole prediction against the same forward on 2
+      logical ranks here within 1e-6.
 
 On the card the tiny config is widened to head dim 64 with a bf16 trunk
 (what the kernels take) and the frames are 224 px, so that the gathered key
@@ -36,7 +44,11 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import math
+import multiprocessing
+import os
 import sys
+import tempfile
+import time
 
 import torch
 
@@ -50,6 +62,7 @@ from omnivggt_tpu_torch.parallel.sharding import ModelSharding
 from omnivggt_tpu_torch.utils.device import resolve_device
 
 EXACT_TOL, INT8_TOL = 5e-4, 5e-2
+SEQ_PROCESSES, PROCESS_TOL, PROCESS_JOIN_S = 2, 1e-6, 300
 FLAGSHIP_VIEWS, FLAGSHIP_IMG = 128, 518
 
 
@@ -163,6 +176,82 @@ def run(ranks: int = 8, device=None, img: int = None, seed: int = 0, out=print) 
     return ok
 
 
+def _seq_request(n: int, seed: int):
+    """2 n frames at 28 px with GT cameras on the second half and depth on
+    every other frame, so the rebase and the depth mean cross processes."""
+    import numpy as np
+
+    S = 2 * n
+    rng = np.random.default_rng(seed)
+    extr = np.tile(np.eye(3, 4, dtype=np.float32), (1, S, 1, 1))
+    extr[..., :3, 3] = rng.normal(size=(1, S, 3))
+    intr = np.tile(np.diag([30.0, 30.0, 1.0]).astype(np.float32), (1, S, 1, 1))
+    intr[..., 0, 2] = intr[..., 1, 2] = 14.0
+    return dict(
+        images=rng.uniform(size=(S, 28, 28, 3)).astype(np.float32), extrinsics=extr,
+        intrinsics=intr, depth=rng.uniform(0.5, 5.0, size=(1, S, 28, 28, 1)).astype(np.float32),
+        mask=(rng.uniform(size=(1, S, 28, 28)) < 0.6).astype(np.float32),
+        camera_gt_index=list(range(n, S)), depth_gt_index=list(range(0, S, 2)),
+    )
+
+
+def _seq_forwards(mesh, n: int, seed: int) -> dict:
+    model = OmniVGGT(tiny_test_config(), device="cpu", seed=seed).eval()
+    req = _seq_request(n, seed)
+    with torch.inference_mode():
+        return {strategy: {k: v for k, v in model(**req, sharding=ModelSharding(mesh, strategy))
+                           .items() if k != "images"}
+                for strategy in ("allgather", "ring", "ring_fused")}
+
+
+def _seq_worker(rank: int, n: int, rdzv: str, out_dir: str, seed: int) -> None:
+    import torch.distributed as dist
+
+    from omnivggt_tpu_torch.parallel.mesh import multihost_initialize
+
+    torch.set_num_threads(1)
+    multihost_initialize(device="cpu", init_method=rdzv, world_size=n, rank=rank, timeout=120)
+    mesh = make_mesh(data=1, seq=n, device="cpu")
+    torch.save(_seq_forwards(mesh, n, seed), os.path.join(out_dir, f"rank_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def seq_processes(n: int = SEQ_PROCESSES, seed: int = 0, out=print) -> bool:
+    """(d) the forward over n gloo processes against n logical ranks;
+    returns whether every process's answer is within PROCESS_TOL."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_seq_worker, args=(r, n, f"file://{tmp}/rdzv", tmp, seed))
+                 for r in range(n)]
+        for p in procs:
+            p.start()
+        ref = _seq_forwards(make_mesh(data=1, seq=n, device="cpu"), n, seed)
+        deadline = time.monotonic() + PROCESS_JOIN_S
+        for p in procs:
+            p.join(timeout=max(deadline - time.monotonic(), 1))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * n:
+            out(f"FAIL seq axis over {n} gloo processes: exit codes {codes}")
+            return False
+        got = [torch.load(os.path.join(tmp, f"rank_{r}.pt")) for r in range(n)]
+    ok = True
+    for strategy, want in ref.items():
+        worst = max(float((g[strategy][k] - w).abs().max()) for g in got for k, w in want.items())
+        passed = worst <= PROCESS_TOL
+        ok &= passed
+        out(f"{'PASS' if passed else 'FAIL'} {strategy} forward over {n} gloo processes (one seq "
+            f"rank each, {2 * n} frames at 28 px): worst |diff| against {n} logical ranks "
+            f"{worst:.2e} (limit {PROCESS_TOL:g}) over every output of every process")
+    out(f"seq processes: {time.perf_counter() - t0:.2f} s")
+    return ok
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ranks", type=int, default=8)
@@ -172,6 +261,7 @@ def main(argv=None) -> int:
     ok = train_steps(args.ranks, args.device, args.img)
     ok &= run(args.ranks, args.device, args.img)
     ok &= flagship_on_meta(args.ranks)
+    ok &= seq_processes()
     return 0 if ok else 1
 
 

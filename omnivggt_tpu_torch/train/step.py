@@ -166,6 +166,14 @@ def make_train_step(
             "use 'allgather' or 'ring' (torch ops, differentiable)"
         )
     mesh = sharding.mesh if sharding is not None else None
+    if mesh is not None and mesh.seq_processes:
+        raise NotImplementedError(
+            "training with the seq axis over processes is not ported yet: it is the next "
+            "slice (the loss's first-valid-camera rebase across processes, and the backward "
+            "kernels through a seq-process mesh). Train on a mesh whose seq axis is logical "
+            "ranks (make_mesh(data=<world size>, seq=...)); the forward and InferenceSession "
+            "run over seq processes"
+        )
 
     def global_count(x):
         return all_reduce_sum(x, mesh)

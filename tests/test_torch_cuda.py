@@ -919,3 +919,98 @@ def test_sharded_tiny_model_on_the_card(cuda):
             a, b = ({k: o[k].float().cpu().numpy() for k in TM.PROBE_KEYS} for o in (ref, out))
             assert not TM._probe_failures(a, b, 2e-2, 2e-2), strategy
     assert PA.fused_ring_attention.unfused_fallbacks == 0
+
+
+# the seq axis over processes: two processes on the card, a gloo group and
+# CUDA IPC (parallel/peer.py), one seq rank each
+
+_PROCESS_RING_CASES = (  # (wrapper, nl, bounded, int8)
+    ("ring_flash_attention_hbm", 300, True, False),
+    ("ring_flash_attention_hbm", 300, False, True),
+    ("ring_flash_attention", 256, True, False),
+    ("ring_flash_attention", 256, True, True),
+)
+
+
+def _process_ring_inputs(nl, device):
+    return _qkv((1, 2 * nl, 2, 64), 2 * nl, 21, device, scale=2.0)
+
+
+def _process_worker(rank, rdzv, out):
+    import os
+
+    import torch.distributed as dist
+
+    from omnivggt_tpu_torch.ops.kernels import ring_attention as RK
+    from omnivggt_tpu_torch.parallel import collectives as C
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh, multihost_initialize
+
+    dev = multihost_initialize(device="cuda", backend="gloo", local_rank=0, init_method=rdzv,
+                               world_size=2, rank=rank, timeout=120)
+    mesh = make_mesh(data=1, seq=2, device=dev)
+    probe = mesh.peer.buffer("probe", (4096,), torch.int64)
+    probe.own.copy_(torch.arange(4096, device=dev) * (rank + 3))
+    mesh.peer.barrier()
+    peer = (rank + 1) % 2
+    res = {"seq_rank": mesh.seq_rank, "opens": mesh.peer.opens,
+           "read": torch.equal(probe.view(peer), torch.arange(4096, device=dev) * (peer + 3))}
+    mesh.peer.barrier()
+    res["ring"] = []
+    for name, nl, bounded, int8 in _PROCESS_RING_CASES:
+        q, k, v = (x[:, rank * nl:(rank + 1) * nl] for x in _process_ring_inputs(nl, dev))
+        o = getattr(RK, name)(q, k, v, mesh, bounded_logits=bounded, qk_int8=int8)
+        res["ring"].append(C.seq_all_gather(o, mesh, 1).cpu())
+    mesh.close()
+    torch.save(res, os.path.join(out, f"rank_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def process_runs(tmp_path_factory):
+    import multiprocessing
+    import os
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from omnivggt_tpu_torch.ops.kernels import ring_attention as RK
+
+    RK.load_kernels()  # built here, before the processes start
+    from omnivggt_tpu_torch.parallel import peer
+
+    peer.load_library()
+    out = str(tmp_path_factory.mktemp("peer"))
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_process_worker, args=(r, f"file://{out}/rdzv", out))
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=300)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+    assert [p.exitcode for p in procs] == [0, 0]
+    return [torch.load(os.path.join(out, f"rank_{r}.pt")) for r in range(2)]
+
+
+def test_peer_memory_maps_the_other_process(cuda, process_runs):
+    """Each process reads the pattern the other wrote into its symmetric
+    buffer, through the handle it opened."""
+    for rank, res in enumerate(process_runs):
+        assert res["seq_rank"] == rank and res["opens"] >= 1 and res["read"]
+
+
+def test_ring_process_form_is_the_logical_form_bitwise(cuda, process_runs):
+    """Both ring kernels over two processes (the rotation into the peer's
+    mapped slot, a barrier between the steps) give the logical form's
+    output bit for bit, and every process gathers the same."""
+    from omnivggt_tpu_torch.ops.kernels import ring_attention as RK
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=1, seq=2, device=cuda)
+    for i, (name, nl, bounded, int8) in enumerate(_PROCESS_RING_CASES):
+        q, k, v = _process_ring_inputs(nl, cuda)
+        want = getattr(RK, name)(q, k, v, mesh, bounded_logits=bounded, qk_int8=int8).cpu()
+        for res in process_runs:
+            assert torch.equal(res["ring"][i], want), (name, nl, bounded, int8)
