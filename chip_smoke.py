@@ -218,6 +218,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
      request (3 frames in bucket 4, allgather) against the logical-rank
      session's. Time-sliced processes on one card measure correctness,
      not scaling.
+ 17. (j) training with the seq axis over processes, after (i): the
+     reference here, the flagship (fp32 masters, camera token as in 5) at
+     B=1, S=4, 518 px, use_aux_inputs, "allgather", remat, layer-decay
+     AdamW (learning rate 1e-4 after one warm-up step), 3 steps on
+     make_mesh(data=1, seq=2) logical ranks under two GT layouts (cameras
+     on frames 1-3, the first valid one in rank 0's frames; on frames 2-3,
+     in rank 1's; depth on frames 0 and 3): metrics, the trunk's gradients
+     at the init and the parameters after the first update and the last
+     step, written to files; the card freed. Then 2 processes spawned on
+     the card (gloo + CUDA IPC, one seq rank of make_mesh(data=1, seq=2)
+     each) take the same steps: every process's metrics bitwise equal to
+     the other's and its parameters too after every step (a checksum of
+     their bits taken on the card); the first step's loss within 1e-2 and
+     the trunk gradients' cosine >= 1 - 1e-5 of the reference's (the
+     train gate); the parameters against the reference under phase (h)'s
+     fixed gates (after the first update <= 1% outside, gap <= 0.1; after
+     the last <= 20%, gap <= 0.1); kernels 1-4's launches a step equal to
+     the one-device step's (train_step_launches) and the collectives a
+     step as derived (seq_step_collectives); two planted faults (the
+     gather's backward keeping this process's own gradient, the gradients
+     left unsummed over the seq group) must fail the gradient gate. Step
+     ms, peak memory and the gradient sum's ms a process; read beside the
+     gate, the camera loss's L1 residuals at the init (the processes'
+     against the reference's) and the trunk leaves that hold most of the
+     gradients' difference. Time-sliced processes on one card measure
+     correctness, not scaling.
 Bounds (bound_ms) are the larger of the bytes each kernel must move over
 3.35 TB/s and its matrix-product operations over the H100 SXM's published
 peak for their type: 989 TFLOP/s bf16 dense, 1,979 TOP/s int8, 67 TFLOP/s
@@ -853,23 +879,38 @@ def new_model_for_training(cfg, dev):
     return model
 
 
+def gradient_readings(g_k, g_p) -> dict:
+    """Gradients g_k against the reference g_p ({name: tensor}; each of g_p
+    moved to its g_k's device in turn, so g_p may be a file's mapped
+    tensors): 1 - cosine, both norms, and per leaf of g_p (name, ||diff||^2,
+    ||ref||^2), all in float64."""
+    dot = n_k = n_p = 0.0
+    leaves = []
+    for n, b in g_p.items():
+        a, b = g_k[n].double(), b.to(g_k[n].device).double()
+        dot += (a * b).sum().item()
+        b_sq = (b * b).sum().item()
+        n_p += b_sq
+        leaves.append((n, ((a - b) ** 2).sum().item(), b_sq))
+    n_k = sum((a.double() ** 2).sum().item() for a in g_k.values())
+    return {"one_minus_cos": 1 - dot / (n_k * n_p) ** 0.5, "norm": n_k ** 0.5,
+            "ref_norm": n_p ** 0.5, "leaves": leaves}
+
+
 def trunk_gradient_gate(label, loss_k, g_k, loss_p, g_p):
     """The train gate: loss relative difference <= LOSS_REL_TOL and the
     cosine of the trunk's gradients >= GRAD_COS_MIN, (loss_k, g_k) against
     the reference (loss_p, g_p); prints the readings and returns whether
     both hold."""
-    n_p = sum((b.double() ** 2).sum() for b in g_p.values()).item() ** 0.5
-    dot = sum((g_k[n].double() * b.double()).sum() for n, b in g_p.items()).item()
-    n_k = sum((a.double() ** 2).sum() for a in g_k.values()).item() ** 0.5
-    leaves = sorted((((g_k[n] - b).double().norm() / b.double().norm()).item(), n)
-                    for n, b in g_p.items() if b.abs().max() > 0)
-    loss_rel, cos = abs(loss_k - loss_p) / abs(loss_p), dot / (n_k * n_p)
+    g = gradient_readings(g_k, g_p)
+    leaves = sorted(((d / b_sq) ** 0.5, n) for n, d, b_sq in g["leaves"] if b_sq > 0)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     print(f"train gate [{label}]: loss rel {loss_rel:.3e} (limit "
-          f"{LOSS_REL_TOL:g}), trunk gradient 1 - cosine {1 - cos:.3e} (limit "
-          f"{1 - GRAD_COS_MIN:.0e}), trunk grad norms {n_k:.4f} / {n_p:.4f} over "
+          f"{LOSS_REL_TOL:g}), trunk gradient 1 - cosine {g['one_minus_cos']:.3e} (limit "
+          f"{1 - GRAD_COS_MIN:.0e}), trunk grad norms {g['norm']:.4f} / {g['ref_norm']:.4f} over "
           f"{len(g_p)} leaves; leaf relative errors: median "
           f"{leaves[len(leaves) // 2][0]:.3e}, worst {leaves[-1][1]} {leaves[-1][0]:.3e}")
-    return loss_rel <= LOSS_REL_TOL and cos >= GRAD_COS_MIN
+    return loss_rel <= LOSS_REL_TOL and g["one_minus_cos"] <= 1 - GRAD_COS_MIN
 
 
 class _CheckpointedBlocks:
@@ -1034,18 +1075,19 @@ def per_rank_state_bytes(state) -> int:
     return total
 
 
-def params_against(label, got, ref, init, dev, outside_max=OUTSIDE_MAX):
-    """Parameters of two runs from the same `init` ({name: tensor}, any
-    device; compared on `dev` one tensor at a time): whether they are
-    bitwise equal, how many elements leave PARAM_RTOL / PARAM_ATOL, the
-    worst difference, and the update gap ||got - ref|| / ||ref - init||.
-    Prints them; returns whether they pass the gate (bitwise, or within
-    outside_max (a share of the elements) and UPDATE_GAP_TOL)."""
-    bitwise, outside, worst, n, diff_sq, update_sq = True, 0, 0.0, 0, 0.0, 0.0
+def param_readings(got, ref, dev, init=None, update_sq=None) -> dict:
+    """Parameters of two runs from the same init ({name: tensor}, any
+    device, a file's mapped tensors too; compared on `dev` one tensor at a
+    time): whether they are bitwise equal, how many elements leave
+    PARAM_RTOL / PARAM_ATOL, the worst difference, and the update gap
+    ||got - ref|| / ||ref - init||, with ||ref - init||^2 taken from `init`
+    or given as `update_sq`."""
+    bitwise, outside, worst, n, diff_sq, ref_sq = True, 0, 0.0, 0, 0.0, 0.0
     for k, r in ref.items():
-        r, g, i = r.to(dev), got[k].to(dev), init[k].to(dev)
+        r, g = r.to(dev), got[k].to(dev)
         n += r.numel()
-        update_sq += torch.linalg.vector_norm(r - i).item() ** 2
+        if init is not None:
+            ref_sq += torch.linalg.vector_norm(r - init[k].to(dev)).item() ** 2
         if torch.equal(g, r):
             continue
         bitwise = False
@@ -1054,12 +1096,26 @@ def params_against(label, got, ref, init, dev, outside_max=OUTSIDE_MAX):
         d = d.abs()
         worst = max(worst, d.max().item())
         outside += int((d > PARAM_ATOL + PARAM_RTOL * r.abs()).sum())
-    gap = (diff_sq / update_sq) ** 0.5 if update_sq else float("inf")
-    print(f"  parameters, {label}: bitwise {bitwise}; {outside} of {n} elements "
-          f"({outside / n:.3e}; limit {outside_max:g}) outside "
-          f"rtol {PARAM_RTOL:g} atol {PARAM_ATOL:g}, max |diff| {worst:.3e}; update gap "
-          f"{gap:.3e} (limit {UPDATE_GAP_TOL:g})")
-    return bitwise or (outside <= outside_max * n and gap <= UPDATE_GAP_TOL)
+    update_sq = ref_sq if update_sq is None else update_sq
+    return {"bitwise": bitwise, "outside": outside, "n": n, "worst": worst,
+            "gap": (diff_sq / update_sq) ** 0.5 if update_sq else float("inf")}
+
+
+def params_pass(label, x, outside_max=OUTSIDE_MAX) -> bool:
+    """Prints param_readings `x`; returns whether they pass the gate
+    (bitwise, or within outside_max (a share of the elements) and
+    UPDATE_GAP_TOL)."""
+    print(f"  parameters, {label}: bitwise {x['bitwise']}; {x['outside']} of {x['n']} elements "
+          f"({x['outside'] / x['n']:.3e}; limit {outside_max:g}) outside "
+          f"rtol {PARAM_RTOL:g} atol {PARAM_ATOL:g}, max |diff| {x['worst']:.3e}; update gap "
+          f"{x['gap']:.3e} (limit {UPDATE_GAP_TOL:g})")
+    return x["bitwise"] or (x["outside"] <= outside_max * x["n"] and x["gap"] <= UPDATE_GAP_TOL)
+
+
+def params_against(label, got, ref, init, dev, outside_max=OUTSIDE_MAX):
+    """param_readings of two runs from the same `init`, printed and gated
+    (params_pass)."""
+    return params_pass(label, param_readings(got, ref, dev, init=init), outside_max)
 
 
 def moments_of_the_next_shard(state):
@@ -1258,7 +1314,7 @@ def save_fsdp_checkpoint(state, largest, card):
 
 def dryrun_phase():
     """tools/dryrun_multichip --ranks 4 on the card: parts (a), (b), (c), and
-    (d) on the CPU."""
+    (d) and (e) on the CPU."""
     from omnivggt_tpu_torch.tools import dryrun_multichip
 
     t0 = time.perf_counter()
@@ -3256,13 +3312,14 @@ def seq_session_request():
     return req
 
 
-def seq_worker(rank, port, tmp):
-    """One process of phase (i); exits non-zero on any failure."""
+def seq_worker(rank, port, tmp, body=None):
+    """One process of phase (i), or of phase (j) with its `body`; exits
+    non-zero on any failure."""
     import traceback
 
     status = 1
     try:
-        seq_worker_body(rank, port, tmp)
+        (body or seq_worker_body)(rank, port, tmp)
         status = 0
     except Exception:
         traceback.print_exc()
@@ -3414,6 +3471,34 @@ def seq_worker_body(rank, port, tmp):
     dist.destroy_process_group()
 
 
+def run_processes(phase, n, tmp, body=None, join_s=SEQ_JOIN_S) -> float:
+    """n processes spawned on a free local port, each seq_worker(rank,
+    port, tmp, body), joined within join_s (the rest killed); raises unless
+    all exit 0. Returns the seconds they took."""
+    import torch.multiprocessing as mp
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=seq_worker, args=(r, port, tmp, body)) for r in range(n)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + join_s
+    for p in procs:
+        p.join(timeout=max(deadline - time.monotonic(), 1))
+    alive = [i for i, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(timeout=30)
+    codes = [p.exitcode for p in procs]
+    if alive or codes != [0] * n:
+        raise AssertionError(f"{phase} seq processes: exit codes {codes}, still running {alive}")
+    return time.perf_counter() - t0
+
+
 def seq_process_phase(cfg, dev, card):
     """(i) The seq axis over processes: references on logical ranks here,
     then SEQ_PROCS spawned processes on this card (seq_worker), each
@@ -3422,8 +3507,6 @@ def seq_process_phase(cfg, dev, card):
     bucketed session; every process's readings are held here."""
     import shutil
     import tempfile
-
-    import torch.multiprocessing as mp
 
     from omnivggt_tpu_torch import serving as TS
     from omnivggt_tpu_torch.models import omnivggt as TM
@@ -3476,26 +3559,7 @@ def seq_process_phase(cfg, dev, card):
         torch.cuda.empty_cache()
         ref_s = time.perf_counter() - t_phase
 
-        with socket.socket() as sock:
-            sock.bind(("127.0.0.1", 0))
-            port = sock.getsockname()[1]
-        ctx = mp.get_context("spawn")
-        procs = [ctx.Process(target=seq_worker, args=(r, port, tmp)) for r in range(n)]
-        t0 = time.perf_counter()
-        for p in procs:
-            p.start()
-        deadline = time.monotonic() + SEQ_JOIN_S
-        for p in procs:
-            p.join(timeout=max(deadline - time.monotonic(), 1))
-        alive = [i for i, p in enumerate(procs) if p.is_alive()]
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=30)
-        codes = [p.exitcode for p in procs]
-        procs_s = time.perf_counter() - t0
-        if alive or codes != [0] * n:
-            raise AssertionError(f"(i) seq processes: exit codes {codes}, still running {alive}")
+        procs_s = run_processes("(i)", n, tmp)
         got = []
         for r in range(n):
             with open(os.path.join(tmp, f"seq_{r}.json")) as f:
@@ -3561,6 +3625,384 @@ def seq_process_phase(cfg, dev, card):
                            if k != "pose_enc_maxabs")):
             raise AssertionError(f"(i) bucketed session over processes: {x}")
     print(f"(i) passed in {time.perf_counter() - t_phase:.2f} s (references on logical ranks "
+          f"{ref_s:.2f} s, {n} processes {procs_s:.2f} s); card {card}")
+
+
+# (j) training with the seq axis over processes: 2 processes on the one
+# card, one seq rank each, against the same steps on logical ranks here
+SEQ_TRAIN_PROCS, J_STEPS = 2, 3
+# (label, frames with camera GT): the first valid camera in rank 0's
+# frames (0, 1), or in rank 1's (2, 3); depth GT on frames 0 and 3, so the
+# depth mean adds over both processes
+SEQ_TRAIN_LAYOUTS = (("first camera in rank 0", (1, 2, 3)), ("first camera in rank 1", (2, 3)))
+SEQ_TRAIN_DEPTH_GT = (0, 3)
+SEQ_TRAIN_FAULTS = ("the gather's backward keeps this process's own gradient",
+                    "the gradients left unsummed over the seq group")
+
+
+def seq_train_batch(cam, dev):
+    """The train phase's batch (seed 3) with a layout's camera GT."""
+    from omnivggt_tpu_torch.train.step import synthetic_batch
+
+    batch = synthetic_batch(S_TRAIN, IMG, dev, seed=3)
+    frames = torch.arange(S_TRAIN, device=dev)
+    cam_mask = torch.isin(frames, torch.tensor(cam, device=dev))
+    batch.update(camera_mask=cam_mask, camera_valid=cam_mask,
+                 depth_mask=torch.isin(frames, torch.tensor(SEQ_TRAIN_DEPTH_GT, device=dev)))
+    return batch
+
+
+def seq_train_step(cfg, model, mesh):
+    """A fresh layer-decay optimizer on `model` and the allgather train step
+    on `mesh` (the phase's settings)."""
+    from omnivggt_tpu_torch.parallel.sharding import ModelSharding
+    from omnivggt_tpu_torch.train.optim import make_finetune_optimizer
+    from omnivggt_tpu_torch.train.step import init_state, make_train_step
+
+    model.zero_grad(set_to_none=True)
+    opt = make_finetune_optimizer(model, learning_rate=1e-4, warmup_steps=1, total_steps=100)
+    step_fn = make_train_step(cfg, opt, ModelSharding(mesh, "allgather"), use_aux_inputs=True,
+                              remat=True)
+    return init_state(model, opt), step_fn
+
+
+def seq_step_collectives(cfg, n_params) -> dict:
+    """The seq collectives of one step a process, allgather, remat, GT
+    cameras and depth: the K and V gathers of every global layer twice
+    (the pass and its recomputation) and the camera tokens' once, all
+    differentiable; a reduce-scatter for each gather the graph keeps; the
+    cameras' gathers (the pose encoding's, the loss's rebase); the depth
+    mean's sum, the three counts' and the metrics'; the gradients in
+    buckets of collectives.SEQ_BUCKET_ELEMS."""
+    from omnivggt_tpu_torch.parallel import collectives as C
+
+    depth = cfg.aggregator.depth
+    return {"seq_all_gather": 2, "seq_max": 0, "seq_sum": 5, "seq_gather": 4 * depth + 1,
+            "seq_reduce_scatter": 2 * depth + 1,
+            "seq_all_reduce": -(-n_params // C.SEQ_BUCKET_ELEMS)}
+
+
+def param_checksum(model) -> str:
+    """A digest of the parameters' bits, taken on the card: per tensor the
+    sum of its int32 words and the sum of each word times its position
+    mod 65521 plus 1 (int64, wrapping), hashed on the host."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        w = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
+        pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        h.update(name.encode())
+        h.update(torch.stack([w.sum(), (w * pos).sum()]).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def trunk_grads(model) -> dict:
+    """The trunk's gradients (phase (h)'s: aggregator and DINOv2)."""
+    return {n: p.grad.detach() for n, p in model.named_parameters()
+            if n.startswith("aggregator.") and p.grad is not None}
+
+
+def load_mapped(tmp, name) -> dict:
+    """A reference file of seq_train_reference, mapped (read as used)."""
+    return torch.load(os.path.join(tmp, name), map_location="cpu", mmap=True, weights_only=True)
+
+
+def reference_gradient_readings(model, tmp, layout) -> dict:
+    """gradient_readings of this process's trunk gradients against the
+    reference's of `layout`, with the three leaves that hold most of the
+    squared difference (name, relative error, share of the difference,
+    share of the reference's squared norm) in place of every leaf."""
+    ref = load_mapped(tmp, f"grads_{layout}.pt")
+    got = trunk_grads(model)
+    if set(got) != set(ref):
+        raise AssertionError("the trunk's gradients name other tensors than the reference's")
+    g = gradient_readings(got, ref)
+    diff_sq = sum(d for _, d, _ in g["leaves"]) or 1.0
+    g["leaves"] = [[n, (d / b_sq) ** 0.5 if b_sq else float("inf"), d / diff_sq,
+                    b_sq / g["ref_norm"] ** 2]
+                   for n, d, b_sq in sorted(g["leaves"], key=lambda x: -x[1])[:3]]
+    return g
+
+
+@torch.no_grad()
+def camera_residuals(cfg, model, batch, mesh) -> list:
+    """The camera loss's L1 residuals at these weights, predicted minus GT
+    encoding on the frames with camera GT, (T, frames, 9) as lists: the
+    no-grad forward on `mesh` under the step's settings. A residual near 0
+    is a term whose sign the two runs of a comparison can read apart."""
+    from omnivggt_tpu_torch.models import omnivggt as M
+    from omnivggt_tpu_torch.models.aggregator import AuxInputs, masked_normalize_extrinsics
+    from omnivggt_tpu_torch.parallel.sharding import ModelSharding
+    from omnivggt_tpu_torch.utils import geometry as G
+
+    aux = AuxInputs(**{k: batch[k] for k in ("extrinsics", "intrinsics", "depth", "depth_valid",
+                                             "camera_mask", "depth_mask")})
+    preds = M.apply(model, batch["images"], cfg, aux, pad_tokens=False,
+                    sharding=ModelSharding(mesh, "allgather"))
+    valid = batch["camera_valid"]
+    gt = G.extri_intri_to_pose_encoding(
+        masked_normalize_extrinsics(batch["extrinsics"].float(), valid[None]),
+        batch["intrinsics"].float(), (IMG, IMG))
+    return (preds["pose_enc_list"][:, 0] - gt[0][None])[:, valid].cpu().tolist()
+
+
+def seq_train_reference(cfg, dev, tmp, card):
+    """The phase's steps on make_mesh(data=1, seq=2) logical ranks here:
+    {layout: metrics, step ms, launches, ||ref - init||^2 after the first
+    update and the last}; the trunk's gradients at the init and the
+    parameters after the first update and the last step go to files in
+    `tmp`."""
+    from omnivggt_tpu_torch.ops.kernels import flash_attention as FK
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=1, seq=SEQ_TRAIN_PROCS, device=dev)
+    model = new_model_for_training(cfg, dev)
+    init = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    refs = {}
+    for li, (label, cam) in enumerate(SEQ_TRAIN_LAYOUTS):
+        if li:
+            model.load_state_dict(init)
+        state, step_fn = seq_train_step(cfg, model, mesh)
+        batch = seq_train_batch(cam, dev)
+        ref = {"history": [], "ms": [], "update_sq": {},
+               "residuals": camera_residuals(cfg, model, batch, mesh)}
+        for i in range(J_STEPS):
+            if i == 1:
+                FK.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            ref["ms"].append((time.perf_counter() - t0) * 1e3)
+            if i == 1:
+                ref["launches"] = FK.launches()
+            ref["history"].append({k: v.item() for k, v in metrics.items()})
+            if i == 0:
+                torch.save({n: g.cpu() for n, g in trunk_grads(model).items()},
+                           os.path.join(tmp, f"grads_{li}.pt"))
+            if i in (FIRST_UPDATE, J_STEPS - 1):
+                params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+                ref["update_sq"][i] = sum(
+                    torch.linalg.vector_norm(p.double() - init[n].double()).item() ** 2
+                    for n, p in params.items())
+                torch.save(params, os.path.join(tmp, f"params_{li}_{i}.pt"))
+                del params
+        refs[label] = ref
+        print(f"(j) reference [{label}], 2 logical ranks in one process: steps "
+              + "; ".join(", ".join(f"{k} {v:.6f}" for k, v in sorted(m.items()))
+                          for m in ref["history"])
+              + f"; step ms {[round(t, 2) for t in ref['ms']]}; launches {ref['launches']}; "
+              f"card {card}")
+        del state, step_fn, batch
+        gc.collect()
+    del model, init
+    gc.collect()
+    torch.cuda.empty_cache()
+    return refs
+
+
+def seq_train_worker_body(rank, port, tmp):
+    import torch.distributed as dist
+
+    from omnivggt_tpu_torch.config import OmniVGGTConfig
+    from omnivggt_tpu_torch.ops.kernels import flash_attention as FK
+    from omnivggt_tpu_torch.parallel import collectives as C
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh, multihost_initialize
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    dev = multihost_initialize(device="cuda", backend="gloo", local_rank=0,
+                               init_method=f"tcp://127.0.0.1:{port}",
+                               world_size=SEQ_TRAIN_PROCS, rank=rank, timeout=300)
+    mesh = make_mesh(data=1, seq=SEQ_TRAIN_PROCS, device=dev)
+    if not (mesh.seq_processes and mesh.seq_rank == rank
+            and (mesh.peer is not None) == (dev.type == "cuda")):
+        raise AssertionError(f"rank {rank}: the mesh is not a seq-process mesh: {mesh}")
+    with open(os.path.join(tmp, "reference.json")) as f:
+        update_sq = json.load(f)
+    cfg = OmniVGGTConfig()
+    model = new_model_for_training(cfg, dev)
+    init = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    res = {"rank": rank, "ready_s": time.perf_counter() - t0, "layouts": [], "faults": []}
+
+    sum_ms = []
+    sound_sum = C.seq_all_reduce_sum
+
+    def timed_sum(tensors, mesh, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sound_sum(tensors, mesh, **kw)
+        torch.cuda.synchronize()
+        sum_ms.append((time.perf_counter() - t) * 1e3)
+
+    C.seq_all_reduce_sum = timed_sum
+    for li, (label, cam) in enumerate(SEQ_TRAIN_LAYOUTS):
+        if li:
+            model.load_state_dict(init)
+        state, step_fn = seq_train_step(cfg, model, mesh)
+        batch = seq_train_batch(cam, dev)
+        out = {"history": [], "ms": [], "checksums": [], "params": {},
+               "residuals": camera_residuals(cfg, model, batch, mesh)}
+        del sum_ms[:]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(J_STEPS):
+            if i == 1:
+                FK.reset_launches()
+                C.reset_calls()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, metrics = step_fn(state, batch)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t) * 1e3)
+            if i == 1:
+                out["launches"], out["calls"] = FK.launches(), C.calls()
+            out["history"].append({k: v.item() for k, v in metrics.items()})
+            out["checksums"].append(param_checksum(model))
+            if i == 0:
+                out["grads"] = reference_gradient_readings(model, tmp, li)
+            if i in (FIRST_UPDATE, J_STEPS - 1):
+                out["params"][i] = param_readings(
+                    {n: p.detach() for n, p in model.named_parameters()},
+                    load_mapped(tmp, f"params_{li}_{i}.pt"), dev,
+                    update_sq=update_sq[str(li)][str(i)])
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["sum_ms"] = list(sum_ms)
+        res["layouts"].append(out)
+        del state, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+    C.seq_all_reduce_sum = sound_sum
+    res["n_params"] = sum(p.numel() for p in model.parameters())
+
+    # the planted faults, each one step from the init on the first layout
+    batch = seq_train_batch(SEQ_TRAIN_LAYOUTS[0][1], dev)
+    sound_backward = C._SeqGather.backward
+
+    def own_only(ctx, grad):
+        part = grad.shape[ctx.dim] // ctx.mesh.seq
+        return grad.narrow(ctx.dim, ctx.mesh.seq_rank * part, part).contiguous(), None, None
+
+    for fault in SEQ_TRAIN_FAULTS:
+        model.load_state_dict(init)
+        state, step_fn = seq_train_step(cfg, model, mesh)
+        if fault == SEQ_TRAIN_FAULTS[0]:
+            C._SeqGather.backward = staticmethod(own_only)
+        else:
+            C.seq_all_reduce_sum = lambda tensors, mesh, **kw: None
+        try:
+            state, metrics = step_fn(state, batch)
+        finally:
+            C._SeqGather.backward = staticmethod(sound_backward)
+            C.seq_all_reduce_sum = sound_sum
+        res["faults"].append({"fault": fault, "total": metrics["total"].item(),
+                              "grads": reference_gradient_readings(model, tmp, 0)})
+        del state, step_fn
+    del model
+    mesh.close()
+    with open(os.path.join(tmp, f"seq_train_{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def seq_training_phase(cfg, dev, card):
+    """(j) Training with the seq axis over processes: the reference on
+    logical ranks here (seq_train_reference), then SEQ_TRAIN_PROCS spawned
+    processes on this card (seq_train_worker_body), each one seq rank of
+    make_mesh(data=1, seq=2) over a gloo group, taking the same steps;
+    every process's readings are held here."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    n = SEQ_TRAIN_PROCS
+    print(f"(j) training with the seq axis over {n} processes on one card (gloo group + CUDA "
+          f"IPC), flagship B=1 S={S_TRAIN} {IMG}px, allgather, remat, {J_STEPS} steps a layout: "
+          f"time-sliced processes on one card measure correctness, not scaling; card {card}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_seq_train_")
+    try:
+        refs = seq_train_reference(cfg, dev, tmp, card)
+        with open(os.path.join(tmp, "reference.json"), "w") as f:
+            json.dump({str(li): {str(i): sq for i, sq in refs[label]["update_sq"].items()}
+                       for li, (label, _) in enumerate(SEQ_TRAIN_LAYOUTS)}, f)
+        ref_s = time.perf_counter() - t_phase
+        free, total = torch.cuda.mem_get_info()
+        print(f"(j) the card before the spawn: {free / 1e9:.3f} of {total / 1e9:.3f} GB free "
+              f"(this process holds {torch.cuda.memory_allocated() / 1e9:.3f} GB); reference "
+              f"{ref_s:.2f} s; card {card}")
+        procs_s = run_processes("(j)", n, tmp, body=seq_train_worker_body)
+        got = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"seq_train_{r}.json")) as f:
+                got.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    want_launches = train_step_launches(cfg)
+    want_calls = seq_step_collectives(cfg, got[0]["n_params"])
+    for r, res in enumerate(got):
+        print(f"  seq rank {r}: ready (group, mesh, model) in {res['ready_s']:.2f} s")
+    for li, (label, _) in enumerate(SEQ_TRAIN_LAYOUTS):
+        ref = refs[label]
+        rows = [res["layouts"][li] for res in got]
+        for r, x in enumerate(rows):
+            print(f"(j) [{label}] seq rank {r}: steps "
+                  + "; ".join(", ".join(f"{k} {v:.6f}" for k, v in sorted(m.items()))
+                              for m in x["history"])
+                  + f"; launches a step {x['launches']} (want {want_launches}); collectives a "
+                  f"step {x['calls']}")
+        x = rows[0]
+        r_ref, r_got = np.asarray(ref["residuals"]), np.asarray(x["residuals"])
+        print(f"(j) [{label}] the camera loss's {r_ref.size} L1 terms at the init: smallest "
+              f"|residual| {np.abs(r_ref).min():.3e}; seq rank 0's iterates differ from the "
+              f"logical ranks' by up to {np.abs(r_got - r_ref).max():.3e}; terms whose sign "
+              f"differs {int((np.sign(r_got) != np.sign(r_ref)).sum())}")
+        loss_rel = abs(x["history"][0]["total"] - ref["history"][0]["total"]) / abs(
+            ref["history"][0]["total"])
+        cos = ", ".join(f"{y['grads']['one_minus_cos']:.3e}" for y in rows)
+        print(f"(j) [{label}] train gate against the logical ranks: step-1 loss rel "
+              f"{loss_rel:.3e} (limit {LOSS_REL_TOL:g}), trunk gradient 1 - cosine a process "
+              f"{cos} (limit {1 - GRAD_COS_MIN:.0e}), norms {x['grads']['norm']:.4f} / "
+              f"{x['grads']['ref_norm']:.4f}; the leaves holding most of the difference "
+              "(relative error, share of the squared difference, share of the squared norm): "
+              + "; ".join(f"{n} {e:.3e} {d:.3f} {b:.3e}" for n, e, d, b in x["grads"]["leaves"]))
+        for i, limit in ((FIRST_UPDATE, OUTSIDE_MAX), (J_STEPS - 1, FINAL_OUTSIDE_MAX)):
+            if not params_pass(f"after step {i}, seq rank 0 vs the logical ranks",
+                               x["params"][str(i)], limit):
+                raise AssertionError(f"(j) [{label}]: parameters after step {i} differ from "
+                                     "the logical ranks'")
+        print(f"(j) [{label}] step ms a process {[[round(t, 2) for t in y['ms']] for y in rows]} "
+              f"beside {[round(t, 2) for t in ref['ms']]} on 2 logical ranks in one process; "
+              f"peak memory a process {[round(y['peak_gb'], 3) for y in rows]} GB; gradient sum "
+              f"(seq_all_reduce_sum, {want_calls['seq_all_reduce']} buckets) ms a process "
+              f"{[[round(t, 2) for t in y['sum_ms']] for y in rows]}; card {card}")
+        if loss_rel > LOSS_REL_TOL or any(y["grads"]["one_minus_cos"] > 1 - GRAD_COS_MIN
+                                          for y in rows):
+            raise AssertionError(f"(j) [{label}]: the processes' step leaves the train gate")
+        for y in rows[1:]:
+            if y["history"] != x["history"] or y["checksums"] != x["checksums"]:
+                raise AssertionError(f"(j) [{label}]: the processes' metrics or parameters "
+                                     "differ from each other")
+        for y in rows:
+            calls = {k: v for k, v in y["calls"].items() if k.startswith("seq")}
+            if y["launches"] != want_launches or calls != want_calls:
+                raise AssertionError(f"(j) [{label}]: launches {y['launches']} (want "
+                                     f"{want_launches}), collectives {calls} (want {want_calls})")
+            if not all(np.isfinite(v) for m in y["history"] for v in m.values()):
+                raise AssertionError(f"(j) [{label}]: a loss or grad_norm is not finite")
+        print(f"  metrics bitwise equal across the processes, parameter checksums equal after "
+              f"every step: {x['checksums'][-1][:16]}...")
+    for i, fault in enumerate(SEQ_TRAIN_FAULTS):
+        rows = [res["faults"][i] for res in got]
+        readings = [y["grads"]["one_minus_cos"] for y in rows]
+        print(f"(j) planted fault, {fault}: trunk gradient 1 - cosine a process "
+              + ", ".join(f"{v:.3e}" for v in readings) + f" (must exceed {1 - GRAD_COS_MIN:.0e})")
+        if not all(v > 1 - GRAD_COS_MIN for v in readings):
+            raise AssertionError(f"(j) the train gate passes a planted fault: {fault}")
+    print(f"(j) passed in {time.perf_counter() - t_phase:.2f} s (reference on logical ranks "
           f"{ref_s:.2f} s, {n} processes {procs_s:.2f} s); card {card}")
 
 
@@ -3755,6 +4197,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     seq_process_phase(cfg, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq_training_phase(cfg, dev, card)
     # a kernel's launches on the main path that runs it: one train step, or
     # one served S=8 request for the serving kernels; the probes' in their phase
     # the ring wrappers' in the sharded flagship forwards

@@ -174,9 +174,7 @@ def compute_pose_encoding(
     """(B, S, 9) pose encoding of the mask-normalised GT extrinsics; frames
     without GT are encoded from identity cameras (masked out later).
     mesh: with the seq axis over processes these are this process's
-    frames: the extrinsics and the mask of every frame are gathered
-    (12 + 1 values a frame), the rebase runs on the whole frame axis and
-    this process's frames are kept."""
+    frames, rebased on the whole scene (rebased_extrinsics)."""
     B, S = camera_mask.shape
     dev = camera_mask.device
     eye34 = torch.eye(3, 4, device=dev).expand(B, S, 3, 4)
@@ -184,15 +182,31 @@ def compute_pose_encoding(
     m4 = camera_mask[:, :, None, None]
     ex = torch.where(m4, aux.extrinsics.float(), eye34)
     K = torch.where(m4, aux.intrinsics.float(), eyeK)
+    return G.extri_intri_to_pose_encoding(rebased_extrinsics(ex, camera_mask, mesh), K,
+                                          image_size_hw)
+
+
+def rebased_extrinsics(ex: torch.Tensor, mask: Optional[torch.Tensor], mesh=None) -> torch.Tensor:
+    """(B, S, 3, 4) extrinsics rebased to the scene's first camera, or to
+    its first selected one under a (B, S) mask (masked_normalize_extrinsics).
+    mesh: with the seq axis over processes these are this process's
+    frames: every frame's extrinsics and mask are gathered (12 + 1 values
+    a frame), the rebase runs on the whole scene and this process's frames
+    are kept."""
+    def rebase(ex, mask):
+        return G.normalize_extrinsics(ex) if mask is None else \
+            masked_normalize_extrinsics(ex, mask)
+
     if mesh is None or not mesh.seq_processes:
-        ex_n = masked_normalize_extrinsics(ex, camera_mask)
-    else:
-        packed = torch.cat([ex.reshape(B, S, 12), camera_mask[:, :, None].float()], dim=-1)
-        whole = PC.seq_all_gather(packed, mesh, 1)
-        ex_all = whole[..., :12].reshape(B, -1, 3, 4)
-        first = mesh.seq_rank * S
-        ex_n = masked_normalize_extrinsics(ex_all, whole[..., 12] > 0.5)[:, first:first + S]
-    return G.extri_intri_to_pose_encoding(ex_n, K, image_size_hw)
+        return rebase(ex, mask)
+    B, S = ex.shape[:2]
+    packed = ex.reshape(B, S, 12)
+    if mask is not None:
+        packed = torch.cat([packed, mask[:, :, None].float()], dim=-1)
+    whole = PC.seq_all_gather(packed, mesh, 1)
+    ex_all = whole[..., :12].reshape(B, -1, 3, 4)
+    first = mesh.seq_rank * S
+    return rebase(ex_all, None if mask is None else whole[..., 12] > 0.5)[:, first:first + S]
 
 
 def _dots_saveable(ctx, op, *args, **kwargs):
@@ -334,17 +348,30 @@ def apply(
     dp_rate = drop_path_rate if train_generator is not None else 0.0
     if dp_rate > 0.0:
         # (first block's, second block's) keep masks per layer pair, two
-        # residual branches each, drawn up front in a fixed order; with the
-        # data axis over processes each draws the whole batch's and keeps
-        # its own scenes' rows, so the masks are the logical ranks' ones
-        first_n, second_n = (B * S, B) if cfg.aa_order[0] == "frame" else (B, B * S)
-        data, rank = (mesh.data, mesh.rank) if mesh is not None and mesh.group is not None else (1, 0)
+        # residual branches each, drawn up front in a fixed order. Each
+        # process draws the whole batch's, B x S_global scene-major rows for
+        # a frame block and B_global for a global block, and keeps its own:
+        # its data rank's scenes and, with the seq axis over processes, its
+        # seq rank's frames of each; so the masks are the logical ranks' ones
+        over_data = mesh is not None and mesh.group is not None
+        data, rank = (mesh.data, mesh.rank) if over_data else (1, 0)
+        over_seq = mesh is not None and mesh.seq_processes
+        seq, seq_rank = (mesh.seq, mesh.seq_rank) if over_seq else (1, 0)
 
-        def masks(n):
-            drawn = L.drop_path_masks(n * data, 2, dp_rate, train_generator, dev)
-            return drawn[:, rank * n:(rank + 1) * n]
+        def frame_masks():
+            drawn = L.drop_path_masks(B * data * S * seq, 2, dp_rate, train_generator, dev)
+            drawn = drawn.reshape(2, B * data, S * seq)
+            return drawn[:, rank * B:(rank + 1) * B,
+                         seq_rank * S:(seq_rank + 1) * S].reshape(2, B * S)
 
-        keeps = [(masks(first_n), masks(second_n)) for _ in range(cfg.depth)]
+        def scene_masks():
+            drawn = L.drop_path_masks(B * data, 2, dp_rate, train_generator, dev)
+            return drawn[:, rank * B:(rank + 1) * B]
+
+        if cfg.aa_order[0] == "frame":
+            keeps = [(frame_masks(), scene_masks()) for _ in range(cfg.depth)]
+        else:
+            keeps = [(scene_masks(), frame_masks()) for _ in range(cfg.depth)]
     else:
         keeps = [(None, None)] * cfg.depth
 

@@ -320,6 +320,7 @@ def apply(
     remat=False,
     train_generator: Optional[torch.Generator] = None,
     num_valid_frames=None,
+    gather_outputs: bool = True,
 ):
     """Full forward pass on (B, S, H, W, 3) (or (S, H, W, 3)) channels-last
     images in [0, 1]. Returns the prediction dict (fp32 but `images`).
@@ -334,6 +335,12 @@ def apply(
     every frame's camera token (gathered: its trunk attends over frames),
     and the dense outputs are gathered at the end, so every process
     returns the whole prediction dict, as the single-device forward does.
+    gather_outputs=False keeps this process's frames of the dense outputs
+    (the train step: each process's losses are its share over its own
+    frames); pose_enc and pose_enc_list cover every frame either way.
+    Under autograd the gathers are differentiable
+    (collectives.seq_gather): each process's gradient of a gathered
+    tensor is summed over the processes onto the frames that made it.
 
     num_valid_frames: an int or an integer scalar tensor on the images'
     device; frames at or past it are shape padding (bucketed serving) and
@@ -377,7 +384,7 @@ def apply(
         last = layers[cfg.aggregator.depth - 1]
         if mesh is not None:
             # the head reads only the camera tokens, of every frame
-            last = PC.seq_all_gather(last[:, :, :1].contiguous(), mesh, 1)
+            last = PC.seq_gather(last[:, :, :1].contiguous(), mesh, 1)
         pose_enc_list = chead.apply(
             model.camera_head, last.to(cfg.heads_dtype), num_valid_frames=num_valid_frames,
         )
@@ -391,26 +398,34 @@ def apply(
                 head, [layers[i] for i in hcfg.intermediate_layer_idx], (H, W),
                 patch_start_idx, dtype=cfg.heads_dtype, quant=cfg.head_quant,
             )
-            if mesh is not None:
-                preds, conf = (PC.seq_all_gather(x, mesh, 1) for x in (preds, conf))
+            if mesh is not None and gather_outputs:
+                preds, conf = (PC.seq_gather(x, mesh, 1) for x in (preds, conf))
             predictions[key] = preds
             predictions[f"{key}_conf"] = conf
         predictions["images"] = whole_images
         return predictions
 
 
+def own_frames(S: int, mesh) -> slice:
+    """Seq rank s's frames of a scene's S, [s S / seq, (s + 1) S / seq)."""
+    n = mesh.seq
+    if S % n:
+        raise ValueError(f"{S} frames do not divide over the {n} seq processes of the mesh")
+    return slice(mesh.seq_rank * (S // n), (mesh.seq_rank + 1) * (S // n))
+
+
+def frames_of(x, frames: slice):
+    """`frames` of a (B, S, ...) array, or of an (S,) frame mask."""
+    return x[frames] if x.ndim == 1 else x[:, frames]
+
+
 def _own_frames(images, aux: Optional[AuxInputs], mesh):
     """This seq process's frames of a (B, S, ...) request and its GT (the
     frame masks are (S,) or (B, S))."""
-    S, n = images.shape[1], mesh.seq
-    if S % n:
-        raise ValueError(f"{S} frames do not divide over the {n} seq processes of the mesh")
-    lo, hi = mesh.seq_rank * (S // n), (mesh.seq_rank + 1) * (S // n)
+    frames = own_frames(images.shape[1], mesh)
     if aux is not None:
-        aux = AuxInputs(*(
-            None if x is None else (x[lo:hi] if x.ndim == 1 else x[:, lo:hi]) for x in aux
-        ))
-    return images[:, lo:hi], aux
+        aux = AuxInputs(*(None if x is None else frames_of(x, frames) for x in aux))
+    return images[:, frames], aux
 
 
 def make_aux(

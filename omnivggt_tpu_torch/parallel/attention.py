@@ -25,7 +25,8 @@ this process's rows only, the shard of seq rank `mesh.seq_rank`. Each
 strategy is written once, for the seq ranks this process runs (all of
 them on logical ranks, one over processes); only the gather of K and V
 and the max over the ranks differ (`_all_gather`, `_max_over_ranks`: a
-join here, or collectives.seq_all_gather / seq_max across the processes).
+join here, or collectives.seq_gather / seq_max across the processes; the
+gather is differentiable, so "allgather" and "ring" train over processes).
 "ring_fused" runs the ring kernels' process form, and "rows" has nothing
 to cross.
 """
@@ -66,10 +67,12 @@ def _own_shards(x, mesh, seq_axis: str):
 def _all_gather(shards, mesh):
     """Every seq rank's shard joined in rank order along the token axis,
     from this process's shards: joined here on logical ranks, gathered
-    over the seq processes (collectives.seq_all_gather) otherwise."""
+    over the seq processes (collectives.seq_gather) otherwise. Under
+    autograd the gather's backward sums every process's gradient of the
+    gathered K/V and hands each its own shard's part."""
     if mesh.seq_processes:
         (own,) = shards
-        return C.seq_all_gather(own, mesh, 1)
+        return C.seq_gather(own, mesh, 1)
     return torch.cat(shards, dim=1)
 
 

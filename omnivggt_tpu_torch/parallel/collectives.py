@@ -31,9 +31,23 @@ or reduce what each seq rank holds of a scene's frames or tokens:
 The max and the sum reduce the gathered parts in rank order, so every
 process gets the same bits.
 
+Training over the seq processes adds the collectives that carry
+gradients:
+
+  - `seq_gather`, the gather that autograd differentiates: its backward
+    is `seq_reduce_scatter`, every seq rank's gradient of the whole
+    summed in rank order and cut to this process's part, as the JAX
+    package's `all_gather(tiled=True)` transposes to a `psum_scatter`.
+    Without a gradient to carry it is `seq_all_gather`, which serving and
+    the int8 pre-gathered K keep calling;
+  - `seq_all_reduce_sum`, the parameter gradients summed in place over
+    the seq processes in buckets of one fixed shape (so the peer memory
+    holds one staging buffer, not a second copy of the gradients).
+
 Every call counts one in `calls()` and its whole tensor's elements in
 `elements()` (the input of a reduce-scatter, the output of a gather, the
-reduced tensor of seq_max / seq_sum), in
+reduced tensor of seq_max / seq_sum; seq_all_reduce_sum counts one a
+bucket), in
 the style of the kernels' `launches()`, so tests and chip_smoke.py can
 assert which collective ran. `gather_shards` is the gather that FSDP
 differentiates through: its backward is a reduce-scatter.
@@ -48,7 +62,15 @@ import torch
 
 from omnivggt_tpu_torch.parallel.mesh import Mesh
 
-NAMES = ("all_reduce", "reduce_scatter", "all_gather", "seq_all_gather", "seq_max", "seq_sum")
+NAMES = ("all_reduce", "reduce_scatter", "all_gather", "seq_all_gather", "seq_max", "seq_sum",
+         "seq_gather", "seq_reduce_scatter", "seq_all_reduce")
+# elements of one bucket of seq_all_reduce_sum: 256 MiB of fp32 a process,
+# staged in its symmetric buffer, and as much again for the sum. A bucket
+# costs two barriers (~2.5 ms each with processes time-sliced on one card)
+# and three passes over its bytes (~0.25 ms at 3.35 TB/s), so the barriers
+# set its time: the flagship's 1.217B gradients take 19 buckets, 38
+# barriers, for 0.5 GB a process beside its ~27 GB
+SEQ_BUCKET_ELEMS = 1 << 26
 _calls: Counter = Counter()
 _elements: Counter = Counter()
 
@@ -133,7 +155,9 @@ def gather_shards(shards: Sequence[torch.Tensor], mesh: Mesh, dim: int) -> torch
 
 
 def _seq_combine(x: torch.Tensor, mesh: Mesh, combine) -> torch.Tensor:
-    """combine(every seq rank's x, in rank order) on seq processes."""
+    """combine(every seq rank's x, in rank order) on seq processes. The
+    result must be a tensor of its own (a cat, a sum): on CUDA the peers'
+    parts are views of buffers that the next call overwrites."""
     x = x.contiguous()
     if mesh.peer is None:
         import torch.distributed as dist
@@ -181,3 +205,108 @@ def seq_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         x = _seq_combine(x, mesh, sum_in_rank_order)
     _count("seq_sum", x.numel())
     return x
+
+
+def seq_reduce_scatter(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """Every seq rank's x (the whole along `dim`) summed in rank order, and
+    this process's part of the sum: the seq ranks' equal parts along
+    `dim`, in rank order. Logical seq ranks: x is every rank's already and
+    is returned."""
+    _count("seq_reduce_scatter", x.numel())
+    if not mesh.seq_processes:
+        return x
+    if x.shape[dim] % mesh.seq:
+        raise ValueError(f"dim {dim} of {tuple(x.shape)} does not divide over {mesh.seq} seq ranks")
+    part = x.shape[dim] // mesh.seq
+    lo = mesh.seq_rank * part
+    return _seq_combine(x, mesh, lambda parts: sum_in_rank_order(
+        [p.narrow(dim, lo, part) for p in parts]))
+
+
+class _SeqGather(torch.autograd.Function):
+    """seq_all_gather forward, seq_reduce_scatter backward."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, dim):
+        ctx.mesh, ctx.dim = mesh, dim
+        out = _seq_combine(x, mesh, lambda parts: torch.cat(parts, dim))
+        _count("seq_gather", out.numel())
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return seq_reduce_scatter(grad, ctx.mesh, ctx.dim), None, None
+
+
+def seq_gather(x: torch.Tensor, mesh: Mesh, dim: int) -> torch.Tensor:
+    """seq_all_gather that autograd differentiates: with the seq axis over
+    processes and a gradient to carry (grad enabled, x requiring one), the
+    backward sums every process's gradient of the whole and hands each its
+    own part (seq_reduce_scatter), so the gradient of a shard is what every
+    seq rank's use of it contributed. Otherwise seq_all_gather."""
+    if mesh.seq_processes and torch.is_grad_enabled() and x.requires_grad:
+        return _SeqGather.apply(x, mesh, dim)
+    return seq_all_gather(x, mesh, dim)
+
+
+def seq_all_reduce_sum(tensors: Sequence[torch.Tensor], mesh: Mesh,
+                       bucket_elems: int = SEQ_BUCKET_ELEMS) -> None:
+    """Contiguous tensors of one dtype, each summed in place over the seq
+    ranks, added in rank order, so every process ends with the same bits.
+
+    The tensors are laid end to end and cut into buckets of
+    min(bucket_elems, their total) elements, one fixed shape for the call:
+    on CUDA each bucket is staged in this process's symmetric buffer
+    (parallel/peer.py), a barrier, every rank's staged bucket summed in
+    rank order, a barrier, the sum copied back; on the CPU each bucket is
+    gathered over gloo and summed alike. Every process must pass tensors
+    of the same shapes in the same order. Logical seq ranks: unchanged."""
+    tensors = list(tensors)
+    if not tensors:
+        return
+    if len({t.dtype for t in tensors}) > 1:
+        dtypes = sorted({str(t.dtype) for t in tensors})
+        raise ValueError(f"seq_all_reduce_sum takes one dtype, got {dtypes}")
+    flats = [t.view(-1) for t in tensors]
+    total = sum(f.numel() for f in flats)
+    size = min(bucket_elems, total)
+    pending, filled = [], 0
+    for flat in flats:
+        start = 0
+        while start < flat.numel():
+            take = min(flat.numel() - start, size - filled)
+            pending.append((flat, start, take, filled))
+            start, filled = start + take, filled + take
+            if filled == size:
+                _reduce_bucket(pending, filled, size, mesh)
+                pending, filled = [], 0
+    if pending:
+        _reduce_bucket(pending, filled, size, mesh)
+
+
+def _reduce_bucket(segments, filled: int, size: int, mesh: Mesh) -> None:
+    """One bucket of seq_all_reduce_sum: segments (flat, start, length,
+    offset in the bucket) summed over the seq ranks in place."""
+    _count("seq_all_reduce", filled)
+    if not mesh.seq_processes:
+        return
+    flat0 = segments[0][0]
+    if mesh.peer is None:
+        bucket = flat0.new_empty(filled)
+    else:
+        buf = mesh.peer.buffer("seq_all_reduce", (size,), flat0.dtype)
+        bucket = buf.own[:filled]
+    for flat, start, take, off in segments:
+        bucket[off:off + take].copy_(flat[start:start + take])
+    if mesh.peer is None:
+        import torch.distributed as dist
+
+        parts = [torch.empty_like(bucket) for _ in range(mesh.seq)]
+        dist.all_gather(parts, bucket, group=mesh.seq_group)
+        summed = sum_in_rank_order(parts)
+    else:
+        mesh.peer.barrier()
+        summed = sum_in_rank_order([buf.view(r)[:filled] for r in range(mesh.seq)])
+        mesh.peer.barrier()
+    for flat, start, take, off in segments:
+        flat[start:start + take].copy_(summed[off:off + take])

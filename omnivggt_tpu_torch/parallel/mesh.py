@@ -32,9 +32,12 @@ The JAX package lays its (data, seq) mesh over devices. Here a mesh is
     (barriers, the exchange of IPC handles; on the CPU the data itself);
     on CUDA the data moves through peer-mapped device memory
     (parallel/peer.py, `mesh.peer`), so the processes may share one card
-    and the default group may be gloo when data is 1. The data axis's
-    gradient collectives still need NCCL on CUDA, and training over seq
-    processes is not ported (train/step.make_train_step raises).
+    and the default group may be gloo when data is 1. Training runs over
+    them with a replicated state (state_sharding "none"): the gathers are
+    differentiable, and the parameter gradients are summed over the seq
+    group through its peer memory (parallel/collectives.py), then over the
+    data group, whose collectives still need NCCL on CUDA. zero2 / fsdp
+    over seq processes are not ported (train/step.make_train_step raises).
 
   - "data": scene/batch parallelism;
   - "seq":  sequence parallelism over frames / tokens, the axis the
@@ -201,7 +204,11 @@ def multihost_initialize(*, device=None, backend: Optional[str] = None,
     per data rank, and return this process's device.
 
     device: "cuda" (the default: NCCL, the process's card is
-    cuda:LOCAL_RANK) or "cpu" (gloo). backend overrides the choice. The
+    cuda:LOCAL_RANK) or "cpu" (gloo). backend overrides the choice; a
+    gloo group on CUDA (a seq-process mesh with data 1, whose seq data
+    moves through peer memory) lets processes share a card: on a machine
+    with fewer cards than processes, process LOCAL_RANK takes card
+    LOCAL_RANK % device_count. The
     rendezvous comes from the arguments, else from the environment that
     torchrun sets (MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE, LOCAL_RANK:
     init_method "env://"). timeout (seconds) bounds the rendezvous and
@@ -213,15 +220,18 @@ def multihost_initialize(*, device=None, backend: Optional[str] = None,
     import torch.distributed as dist
 
     device = torch.device("cuda" if device is None else device)
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     if device.type == "cuda":
         if local_rank is None:
             local_rank = int(os.environ.get("LOCAL_RANK", "0"))
-        device = resolve_device(torch.device("cuda", local_rank))
+        resolve_device(device)
+        if backend == "gloo":  # processes may share a card (NCCL refuses two ranks on one)
+            local_rank %= torch.cuda.device_count()
+        device = torch.device("cuda", local_rank)
     if dist.is_initialized():
         return device
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     kwargs = {}
     if world_size is not None:
         kwargs["world_size"] = world_size
@@ -235,18 +245,21 @@ def multihost_initialize(*, device=None, backend: Optional[str] = None,
 
 
 @contextlib.contextmanager
-def process_group(device):
+def process_group(device, backend: Optional[str] = None):
     """An entry point's device. Started by torchrun (RANK and WORLD_SIZE in
     the environment), the process group comes up from its environment
-    (multihost_initialize on `device`) and this process's device is
-    yielded; it is destroyed on the way out. Otherwise `device` itself is
-    yielded. Either way resolved, with TF32 off (utils/platform)."""
+    (multihost_initialize on `device`, `backend` its default unless given:
+    "gloo" on CUDA for a seq-process mesh with data 1, whose processes may
+    share a card) and this process's device is yielded; it is destroyed on
+    the way out. Otherwise `device` itself is yielded. Either way resolved,
+    with TF32 off (utils/platform)."""
     import torch.distributed as dist
 
     from omnivggt_tpu_torch.utils.platform import ensure_platform
 
     launched = "RANK" in os.environ and "WORLD_SIZE" in os.environ
-    dev = ensure_platform(multihost_initialize(device=device) if launched else device)
+    dev = ensure_platform(multihost_initialize(device=device, backend=backend)
+                          if launched else device)
     try:
         yield dev
     finally:

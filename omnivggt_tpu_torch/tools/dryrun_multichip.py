@@ -4,7 +4,7 @@ axis over processes.
     python -m omnivggt_tpu_torch.tools.dryrun_multichip [--ranks 8] [--device cpu]
 
 Counterpart of `__graft_entry__.dryrun_multichip`, in its three parts, and
-a fourth of the port's own:
+two of the port's own over processes:
 
   (a) one sharded train step of the tiny config under "allgather" on a
       (2, ranks / 2) mesh with use_aux_inputs (B = 2 synthetic scenes of 2
@@ -30,7 +30,17 @@ a fourth of the port's own:
       tiny config's forward of 4 frames at 28 px with GT cameras and
       depth under "allgather", "ring" and "ring_fused" in every process,
       each process's whole prediction against the same forward on 2
-      logical ranks here within 1e-6.
+      logical ranks here within 1e-6;
+  (e) the counterpart of part (a) over processes: SEQ_PROCESSES gloo
+      processes on the CPU train the tiny config for 2 steps under
+      "allgather" on make_mesh(data=1, seq=2), 4 frames at 28 px with the
+      GT cameras on the second half (the first one in seq rank 1) and
+      depth on every other frame; every process's losses, grad_norm and
+      final parameters against the same steps on 2 logical ranks here
+      (1e-6 relative and absolute, the parameters with Adam's 5e-6 floor:
+      an element whose gradient is near zero moves by a step that the
+      sums' order can change), and the processes' parameters bitwise
+      equal.
 
 On the card the tiny config is widened to head dim 64 with a bf16 trunk
 (what the kernels take) and the frames are 224 px, so that the gathered key
@@ -63,6 +73,7 @@ from omnivggt_tpu_torch.utils.device import resolve_device
 
 EXACT_TOL, INT8_TOL = 5e-4, 5e-2
 SEQ_PROCESSES, PROCESS_TOL, PROCESS_JOIN_S = 2, 1e-6, 300
+ADAM_FLOOR = 5e-6
 FLAGSHIP_VIEWS, FLAGSHIP_IMG = 128, 518
 
 
@@ -217,17 +228,17 @@ def _seq_worker(rank: int, n: int, rdzv: str, out_dir: str, seed: int) -> None:
     dist.destroy_process_group()
 
 
-def seq_processes(n: int = SEQ_PROCESSES, seed: int = 0, out=print) -> bool:
-    """(d) the forward over n gloo processes against n logical ranks;
-    returns whether every process's answer is within PROCESS_TOL."""
-    t0 = time.perf_counter()
+def _over_processes(worker, n: int, seed: int, reference):
+    """worker(rank, n, rendezvous, out_dir, seed) spawned in n gloo
+    processes while reference() runs here; (their exit codes, each
+    process's saved result (None unless all exited 0), the reference)."""
     with tempfile.TemporaryDirectory() as tmp:
         ctx = multiprocessing.get_context("spawn")
-        procs = [ctx.Process(target=_seq_worker, args=(r, n, f"file://{tmp}/rdzv", tmp, seed))
+        procs = [ctx.Process(target=worker, args=(r, n, f"file://{tmp}/rdzv", tmp, seed))
                  for r in range(n)]
         for p in procs:
             p.start()
-        ref = _seq_forwards(make_mesh(data=1, seq=n, device="cpu"), n, seed)
+        ref = reference()
         deadline = time.monotonic() + PROCESS_JOIN_S
         for p in procs:
             p.join(timeout=max(deadline - time.monotonic(), 1))
@@ -236,10 +247,21 @@ def seq_processes(n: int = SEQ_PROCESSES, seed: int = 0, out=print) -> bool:
                 p.kill()
                 p.join(timeout=10)
         codes = [p.exitcode for p in procs]
-        if codes != [0] * n:
-            out(f"FAIL seq axis over {n} gloo processes: exit codes {codes}")
-            return False
-        got = [torch.load(os.path.join(tmp, f"rank_{r}.pt")) for r in range(n)]
+        got = ([torch.load(os.path.join(tmp, f"rank_{r}.pt")) for r in range(n)]
+               if codes == [0] * n else None)
+    return codes, got, ref
+
+
+def seq_processes(n: int = SEQ_PROCESSES, seed: int = 0, out=print) -> bool:
+    """(d) the forward over n gloo processes against n logical ranks;
+    returns whether every process's answer is within PROCESS_TOL."""
+    t0 = time.perf_counter()
+    logical = make_mesh(data=1, seq=n, device="cpu")
+    codes, got, ref = _over_processes(_seq_worker, n, seed,
+                                      lambda: _seq_forwards(logical, n, seed))
+    if got is None:
+        out(f"FAIL seq axis over {n} gloo processes: exit codes {codes}")
+        return False
     ok = True
     for strategy, want in ref.items():
         worst = max(float((g[strategy][k] - w).abs().max()) for g in got for k, w in want.items())
@@ -252,6 +274,67 @@ def seq_processes(n: int = SEQ_PROCESSES, seed: int = 0, out=print) -> bool:
     return ok
 
 
+def _seq_train(mesh, n: int, seed: int):
+    """(e) 2 steps of the tiny config on `mesh`: (metrics a step, params)."""
+    from omnivggt_tpu_torch.parallel.mesh import shard_batch
+    from omnivggt_tpu_torch.train.step import (
+        init_state, make_optimizer, make_train_step, synthetic_batch,
+    )
+
+    cfg = tiny_test_config()
+    model = OmniVGGT(cfg, device="cpu", seed=seed).train()
+    opt = make_optimizer(model, learning_rate=1e-3, warmup_steps=1, total_steps=100)
+    step = make_train_step(cfg, opt, ModelSharding(mesh, "allgather"), use_aux_inputs=True)
+    batch = synthetic_batch(2 * n, 28, "cpu", seed + 1)
+    frames = torch.arange(2 * n)
+    batch.update(camera_mask=frames >= n, camera_valid=frames >= n, depth_mask=frames % 2 == 0)
+    batch = shard_batch(mesh, batch)
+    state, history = init_state(model, opt), []
+    for _ in range(2):
+        state, metrics = step(state, batch)
+        history.append({k: v.item() for k, v in metrics.items()})
+    return history, {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _seq_train_worker(rank: int, n: int, rdzv: str, out_dir: str, seed: int) -> None:
+    import torch.distributed as dist
+
+    from omnivggt_tpu_torch.parallel.mesh import multihost_initialize
+
+    torch.set_num_threads(1)
+    multihost_initialize(device="cpu", init_method=rdzv, world_size=n, rank=rank, timeout=120)
+    mesh = make_mesh(data=1, seq=n, device="cpu")
+    torch.save(_seq_train(mesh, n, seed), os.path.join(out_dir, f"rank_{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def seq_training(n: int = SEQ_PROCESSES, seed: int = 0, out=print) -> bool:
+    """(e) 2 train steps over n gloo processes against n logical ranks;
+    returns whether every process is within PROCESS_TOL (+ ADAM_FLOOR for
+    the parameters) and all hold the same parameters."""
+    t0 = time.perf_counter()
+    logical = make_mesh(data=1, seq=n, device="cpu")
+    codes, got, (want_hist, want_params) = _over_processes(
+        _seq_train_worker, n, seed, lambda: _seq_train(logical, n, seed))
+    if got is None:
+        out(f"FAIL train steps over {n} gloo processes: exit codes {codes}")
+        return False
+    metric_ratio = max(abs(g[k] - w[k]) / (PROCESS_TOL * (1 + abs(w[k])))
+                       for hist, _ in got for g, w in zip(hist, want_hist) for k in w)
+    param_ratio = max(
+        float(((p[k] - w).abs() / (PROCESS_TOL * (1 + w.abs()) + ADAM_FLOOR)).max())
+        for _, p in got for k, w in want_params.items())
+    same = all(torch.equal(p[k], got[0][1][k]) for _, p in got[1:] for k in want_params)
+    passed = metric_ratio <= 1 and param_ratio <= 1 and same
+    out(f"{'PASS' if passed else 'FAIL'} train steps (allgather) over {n} gloo processes (one "
+        f"seq rank each, {2 * n} frames at 28 px, 2 steps): worst difference against {n} "
+        f"logical ranks over the tolerance, metrics {metric_ratio:.2e}, parameters "
+        f"{param_ratio:.2e} (limit 1); parameters bitwise equal across the processes: {same}; "
+        f"final total {got[0][0][-1]['total']:.6f}; {time.perf_counter() - t0:.2f} s")
+    return passed
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--ranks", type=int, default=8)
@@ -262,6 +345,7 @@ def main(argv=None) -> int:
     ok &= run(args.ranks, args.device, args.img)
     ok &= flagship_on_meta(args.ranks)
     ok &= seq_processes()
+    ok &= seq_training()
     return 0 if ok else 1
 
 

@@ -10,12 +10,17 @@ exist); --device cpu runs the kernels' plain versions on the CPU.
 
 --mesh data,seq runs the step on a (data, seq) mesh (parallel/mesh.py) and
 --state_sharding zero2 / fsdp lays the training state out over it
-(parallel/fsdp.py). Started by torchrun, the data axis lies over the
-processes (the process group comes from torchrun's environment; data must
-equal the number of processes): --batch is the global batch, each process
-streams its own partition of the shards and takes batch / data scenes of
-it, and only the process of rank 0 logs and writes checkpoints. Without
-torchrun every rank is a logical rank of this one process.
+(parallel/fsdp.py). Started by torchrun (the process group comes from its
+environment), either the data axis lies over the processes (data = the
+number of processes, seq logical ranks in each) or both axes do (data x
+seq = the number of processes, one seq rank each, state_sharding none;
+with data 1 the group is gloo and the processes may share a card, their
+seq data moving through peer memory). --batch is the global batch: each
+data rank streams its own partition of the shards and takes batch / data
+scenes of it, the seq processes of one data rank read the same samples
+and each runs its own frames, and only the process of global rank 0 logs
+and writes checkpoints. Without torchrun every rank is a logical rank of
+this one process.
 
     # fine-tune on a folder of scenes, one GPU
     python -m omnivggt_tpu_torch.tools.train --data_root scenes/ --steps 1000 \\
@@ -30,6 +35,12 @@ torchrun every rank is a logical rank of this one process.
     # smoke run on the CPU with the tiny config on a 2-way sequence mesh
     python -m omnivggt_tpu_torch.tools.train --data_root scenes/ --tiny \\
         --device cpu --steps 2 --views 2 --target_size 28 --mesh 1,2
+
+    # the same 2-way sequence mesh as two processes (gloo on the CPU), each
+    # running 2 of the 4 frames of every scene
+    torchrun --standalone --nproc_per_node 2 -m omnivggt_tpu_torch.tools.train \\
+        --shards 'shards/shard-*.tar' --batch 1 --views 4 --tiny --device cpu \\
+        --mesh 1,2 --steps 2
 """
 
 from __future__ import annotations
@@ -76,9 +87,25 @@ def main(argv=None):
 
     from omnivggt_tpu_torch.parallel.mesh import process_group
 
-    # under torchrun one process per data rank; TF32 off: the fp32 heads keep full fp32
-    with process_group(args.device) as device:
+    # under torchrun one process per data rank, or per (data, seq) rank;
+    # TF32 off: the fp32 heads keep full fp32
+    backend = launch_backend(args.mesh, int(os.environ.get("WORLD_SIZE", "1")))
+    with process_group(args.device, backend=backend) as device:
         return _train(args, device)
+
+
+def _mesh_axes(mesh):
+    """(data, seq) of --mesh, (1, 1) without one."""
+    return tuple(int(x) for x in mesh.split(",")) if mesh else (1, 1)
+
+
+def launch_backend(mesh, world: int):
+    """The process group's backend for --mesh over `world` processes:
+    "gloo" when the seq axis lies over them with data 1 (no NCCL collective
+    runs, and gloo lets the processes share a card), else the default
+    (NCCL on CUDA, gloo on the CPU)."""
+    data_ax, seq_ax = _mesh_axes(mesh)
+    return "gloo" if data_ax == 1 and seq_ax > 1 and seq_ax == world else None
 
 
 def _train(args, device):
@@ -94,9 +121,9 @@ def _train(args, device):
     from omnivggt_tpu_torch.train.step import batch_to_device, init_state, make_train_step
     from omnivggt_tpu_torch.utils.logging import MetricLogger
 
-    sharding, local_batch, rank0 = None, args.batch, True
+    sharding, local_batch, rank0, partition = None, args.batch, True, {}
     if args.mesh:
-        data_ax, seq_ax = (int(x) for x in args.mesh.split(","))
+        data_ax, seq_ax = _mesh_axes(args.mesh)
         batch_dim = 1 if args.data_root else args.batch
         if batch_dim % data_ax:
             raise SystemExit(
@@ -107,11 +134,15 @@ def _train(args, device):
             raise SystemExit(f"mesh seq axis {seq_ax} must divide --views {args.views}")
         mesh = make_mesh(data=data_ax, seq=seq_ax, device=device)
         sharding = ModelSharding(mesh)
-        if mesh.group is not None:
-            local_batch, rank0 = args.batch // data_ax, mesh.rank == 0
+        if dist.is_initialized():
+            # each data rank its scenes and its partition of the shards; the
+            # seq processes of a data rank read the same ones
+            local_batch, rank0 = args.batch // data_ax, dist.get_rank() == 0
+            partition = dict(shard_rank=mesh.rank, num_shards=mesh.data)
     elif dist.is_initialized():
-        raise SystemExit("started by torchrun: pass --mesh N,seq with N the number of "
-                         "processes (each would otherwise train alone on its own batch)")
+        raise SystemExit("started by torchrun: pass --mesh data,seq with data, or data x seq, "
+                         "the number of processes (each would otherwise train alone on its own "
+                         "batch)")
 
     cfg = tiny_test_config() if args.tiny else OmniVGGTConfig()
     if args.drop_path > 0:
@@ -157,8 +188,8 @@ def _train(args, device):
     else:
         from omnivggt_tpu_torch.data.streaming import ShardedSampleStream, batch_stream
 
-        # under torchrun each process streams its own partition of the shards
-        stream = ShardedSampleStream(args.shards, shuffle_buffer=64, seed=args.seed)
+        # under torchrun each data rank streams its own partition of the shards
+        stream = ShardedSampleStream(args.shards, shuffle_buffer=64, seed=args.seed, **partition)
         batches = batch_stream(stream, local_batch)
 
     logger = None

@@ -11,10 +11,14 @@ On a mesh (`sharding`, parallel/sharding.ModelSharding) the forward runs
 under its strategies, and `state_sharding` lays the state out as the JAX
 step's annotations do (parallel/fsdp.py): "none" keeps it replicated,
 "zero2" shards the AdamW moments and reduce-scatters the gradients onto
-them, "fsdp" shards the parameters too. With the data axis over processes
-(parallel/mesh.py) each process computes its scenes' share of the global
-loss (the counts it divides by are summed over the data ranks), and the
-gradients are summed over the processes.
+them, "fsdp" shards the parameters too. Over processes (parallel/mesh.py)
+each process computes its share of the global loss, its scenes (data
+axis) and its frames (seq axis) over counts summed over every process,
+and the gradients are summed over the processes: train/losses.py states
+the invariant. With the seq axis over processes the state stays
+replicated ("none"): the seq group's sum runs through its peer memory on
+CUDA (collectives.seq_all_reduce_sum, in rank order, so every process
+keeps the same bits), then the data group's.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 from omnivggt_tpu_torch.config import OmniVGGTConfig
 from omnivggt_tpu_torch.models import omnivggt as M
 from omnivggt_tpu_torch.models.aggregator import AuxInputs
-from omnivggt_tpu_torch.parallel.collectives import all_reduce_sum
+from omnivggt_tpu_torch.parallel import collectives as C
 from omnivggt_tpu_torch.train import losses as LS
 from omnivggt_tpu_torch.train.optim import Optimizer, warmup_cosine_decay_schedule
 
@@ -127,8 +131,10 @@ def make_train_step(
     point_valid, camera_valid, and camera_mask/depth_mask (S,) when
     use_aux_inputs (modality-injection training). With the data axis over
     processes, each process's own B / data scenes (mesh.shard_batch).
-    metrics: the losses and grad_norm (before clipping), as device
-    scalars, over the whole batch.
+    With the seq axis over processes too, every process is given the whole
+    frames of its scenes and takes its own (models/omnivggt.apply, and the
+    GT here). metrics: the losses and grad_norm (before clipping), as
+    device scalars, over the whole batch, the same in every process.
 
     sharding: a parallel.sharding.ModelSharding; the forward runs under its
     strategies ("allgather" or "ring" for the global attention: the ring
@@ -166,17 +172,29 @@ def make_train_step(
             "use 'allgather' or 'ring' (torch ops, differentiable)"
         )
     mesh = sharding.mesh if sharding is not None else None
-    if mesh is not None and mesh.seq_processes:
+    over_seq = mesh is not None and mesh.seq_processes
+    if over_seq and state_sharding != "none":
         raise NotImplementedError(
-            "training with the seq axis over processes is not ported yet: it is the next "
-            "slice (the loss's first-valid-camera rebase across processes, and the backward "
-            "kernels through a seq-process mesh). Train on a mesh whose seq axis is logical "
-            "ranks (make_mesh(data=<world size>, seq=...)); the forward and InferenceSession "
-            "run over seq processes"
+            f"state_sharding={state_sharding!r} with the seq axis over processes is not "
+            "ported yet: it is the next slice (the state sharded over data x seq processes, "
+            "the seq part of every reduce-scatter and gather through the seq group's peer "
+            "memory). Train over seq processes with state_sharding='none', or shard the "
+            "state on a mesh whose seq axis is logical ranks (make_mesh(data=<world size>, "
+            "seq=...))"
         )
 
-    def global_count(x):
-        return all_reduce_sum(x, mesh)
+    def process_sum(x):
+        """x summed over every process: the seq group's, then the data group's."""
+        if over_seq:
+            x = C.seq_sum(x, mesh)
+        return C.all_reduce_sum(x, mesh)
+
+    def own_frames(batch):
+        """This seq process's frames of the batch's GT; the images stay
+        whole (apply takes its own)."""
+        frames = M.own_frames(batch["images"].shape[1], mesh)
+        return {k: v if k == "images" or v.ndim == 0 else M.frames_of(v, frames)
+                for k, v in batch.items()}
 
     def loss_and_grads(model, batch, step: int, layout=None) -> dict:
         images = batch["images"]
@@ -199,15 +217,17 @@ def make_train_step(
             preds = M.apply(
                 model, images, cfg, aux, attn_impl=attn_impl, pad_tokens=False,
                 remat=remat, train_generator=generator, sharding=sharding,
+                gather_outputs=not over_seq,
             )
-            losses = LS.total_loss(preds, batch, (H, W),
-                                   global_count=global_count if mesh is not None else None)
+            losses = LS.total_loss(preds, own_frames(batch) if over_seq else batch, (H, W),
+                                   global_count=process_sum if mesh is not None else None,
+                                   mesh=mesh)
             losses["total"].backward()
-        losses = {k: v.detach() for k, v in losses.items()}
-        if mesh is not None:
-            for v in losses.values():  # the shares, summed: the global losses
-                all_reduce_sum(v, mesh)
-        return losses
+        if mesh is None:
+            return {k: v.detach() for k, v in losses.items()}
+        # the shares, summed: the global losses
+        summed = process_sum(torch.stack([v.detach() for v in losses.values()]))
+        return dict(zip(losses, summed.unbind()))
 
     def train_step(state: TrainState, batch: dict):
         laid_out = state.layout.mode if state.layout is not None else "none"
@@ -220,9 +240,18 @@ def make_train_step(
         if state.layout is not None:
             state.layout.sync_grads()
         elif mesh is not None:
-            for p in state.model.parameters():
+            params = [p for p in state.model.parameters() if p.requires_grad]
+            if over_seq:
+                # every process sums the same tensors in the same order: one
+                # the forward did not reach gets the zeros the optimizer
+                # would give it
+                for p in params:
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                C.seq_all_reduce_sum([p.grad for p in params], mesh)
+            for p in params:
                 if p.grad is not None:
-                    all_reduce_sum(p.grad, mesh)
+                    C.all_reduce_sum(p.grad, mesh)
         metrics["grad_norm"] = state.optimizer.step()
         if state.layout is not None and state.layout.mode == "zero2":
             state.layout.gather_params()

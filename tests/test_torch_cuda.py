@@ -936,6 +936,23 @@ def _process_ring_inputs(nl, device):
     return _qkv((1, 2 * nl, 2, 64), 2 * nl, 21, device, scale=2.0)
 
 
+_PEER_SIZES, _PEER_BUCKET = (777, 3000, 5, 1024), 1000
+
+
+def _peer_part(rank, dtype, device):
+    """Seq rank `rank`'s part of a gathered (1, 2 x 6, 2, 8) tensor."""
+    return (torch.arange(96, device=device).reshape(1, 6, 2, 8) * 0.25 + 100 * rank).to(dtype)
+
+
+def _peer_weight(rank, dtype, device):
+    """The gathered tensor's weight in rank `rank`'s loss."""
+    return torch.cos(torch.arange(192, device=device).reshape(1, 12, 2, 8) * (rank + 1.5)).to(dtype)
+
+
+def _peer_grad(rank, n, device):
+    return torch.sin(torch.arange(n, device=device) * 0.37 + rank * 3.1) * (rank + 1)
+
+
 def _process_worker(rank, rdzv, out):
     import os
 
@@ -960,6 +977,18 @@ def _process_worker(rank, rdzv, out):
         q, k, v = (x[:, rank * nl:(rank + 1) * nl] for x in _process_ring_inputs(nl, dev))
         o = getattr(RK, name)(q, k, v, mesh, bounded_logits=bounded, qk_int8=int8)
         res["ring"].append(C.seq_all_gather(o, mesh, 1).cpu())
+    # the training collectives through the peer memory: the differentiable
+    # gather's backward (fp32 and bf16) and the bucketed gradient sum
+    res["gather"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = _peer_part(rank, dtype, dev).requires_grad_()
+        gathered = C.seq_gather(x, mesh, 1)
+        (gathered * _peer_weight(rank, dtype, dev)).sum().backward()
+        res["gather"][str(dtype)] = (gathered.detach().cpu(), x.grad.cpu())
+    grads = [_peer_grad(rank, n, dev) for n in _PEER_SIZES]
+    C.reset_calls()
+    C.seq_all_reduce_sum(grads, mesh, bucket_elems=_PEER_BUCKET)
+    res["sum"] = ([g.cpu() for g in grads], C.calls()["seq_all_reduce"])
     mesh.close()
     torch.save(res, os.path.join(out, f"rank_{rank}.pt"))
     dist.barrier()
@@ -999,6 +1028,30 @@ def test_peer_memory_maps_the_other_process(cuda, process_runs):
     buffer, through the handle it opened."""
     for rank, res in enumerate(process_runs):
         assert res["seq_rank"] == rank and res["opens"] >= 1 and res["read"]
+
+
+def test_seq_gather_and_bucketed_sum_over_peer_memory(cuda, process_runs):
+    """The training collectives through the peer-mapped buffers: the
+    differentiable gather joins the parts in rank order, and its backward
+    hands each process its own part of every process's gradient summed in
+    rank order (fp32 and bf16, bitwise); the bucketed gradient sum (4
+    tensors over buckets of 1000 elements, one cut inside a tensor) leaves
+    every process the same bits, the rank-order sum, in 5 buckets through
+    one buffer."""
+    for dtype in (torch.float32, torch.bfloat16):
+        whole = torch.cat([_peer_part(r, dtype, cuda) for r in range(2)], dim=1).cpu()
+        w = [_peer_weight(r, dtype, cuda) for r in range(2)]  # cos as the card rounds it
+        for rank, res in enumerate(process_runs):
+            out, grad = res["gather"][str(dtype)]
+            assert torch.equal(out, whole), dtype
+            want = (w[0] + w[1])[:, rank * 6:(rank + 1) * 6].cpu()
+            assert torch.equal(grad, want), (dtype, rank)
+    want = [_peer_grad(0, n, cuda) + _peer_grad(1, n, cuda) for n in _PEER_SIZES]
+    for res in process_runs:
+        got, buckets = res["sum"]
+        assert buckets == -(-sum(_PEER_SIZES) // _PEER_BUCKET)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w.cpu())
 
 
 def test_ring_process_form_is_the_logical_form_bitwise(cuda, process_runs):

@@ -306,7 +306,8 @@ def test_dryrun_runs_without_jax():
     raises: (a) the sharded train step under allgather and under fsdp, (b)
     the four sharded forwards, (c) the flagship's 128-view forward on the
     meta device, (d) the three strategies over two gloo seq processes
-    against logical ranks."""
+    against logical ranks, (e) two train steps over two gloo seq
+    processes against logical ranks."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -318,6 +319,7 @@ def test_dryrun_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
-    assert proc.stdout.count("PASS") == 10 and "FAIL" not in proc.stdout
-    assert proc.stdout.count("over 2 gloo processes") == 3
+    assert proc.stdout.count("PASS") == 11 and "FAIL" not in proc.stdout
+    assert proc.stdout.count("over 2 gloo processes") == 4
+    assert "parameters bitwise equal across the processes: True" in proc.stdout
     assert "state_sharding=fsdp" in proc.stdout and "pose_enc (1, 128, 9)" in proc.stdout

@@ -203,10 +203,14 @@ def _worker(rank, rdzv, out):
     results["exact"] = exact_mode_error(mesh)
     model = tiny_model()
     opt = TS.make_optimizer(model, learning_rate=1e-3, warmup_steps=1, total_steps=10)
-    try:
-        TS.make_train_step(model.config, opt, ModelSharding(mesh, "allgather"))
-    except NotImplementedError as e:
-        results["train"] = str(e)
+    results["train"] = {}
+    for mode in ("zero2", "fsdp"):
+        try:
+            TS.make_train_step(model.config, opt, ModelSharding(mesh, "allgather"),
+                               state_sharding=mode)
+        except NotImplementedError as e:
+            results["train"][mode] = str(e)
+    TS.make_train_step(model.config, opt, ModelSharding(mesh, "allgather"))  # "none" trains
     torch.save(results, os.path.join(out, f"results_{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -363,18 +367,25 @@ def test_exact_mode_refuses_frames_that_do_not_divide(runs):
 def test_counted_collectives(runs):
     """One allgather forward (2 global layers, GT cameras and depth): the
     K and V gathers of every global layer, the cameras' gather, the camera
-    tokens' and the four dense outputs', one depth sum. Logical seq ranks
-    hold every frame and count none of them."""
+    tokens' and the four dense outputs', one depth sum; no gradient to
+    carry, so none of the differentiable gather (collectives.seq_gather).
+    Logical seq ranks hold every frame and count none of them."""
     depth = TC.tiny_test_config().aggregator.depth
     ref_calls, ref_elems = runs["ref"]["forwards"][1]
     for got in runs["got"]:
         calls, elems = got["forwards"][1]
         assert calls == {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0,
-                         "seq_all_gather": 2 * depth + 6, "seq_max": 0, "seq_sum": 1}
+                         "seq_all_gather": 2 * depth + 6, "seq_max": 0, "seq_sum": 1,
+                         "seq_gather": 0, "seq_reduce_scatter": 0, "seq_all_reduce": 0}
         assert ref_calls == {k: 0 for k in calls} and ref_elems == ref_calls
         assert elems["seq_sum"] == 2
 
 
 def test_training_over_seq_processes_raises(runs):
+    """Training over seq processes keeps its state replicated: zero2 and fsdp
+    raise and name the next slice (state_sharding "none" trains:
+    tests/test_torch_seq_training.py)."""
     for got in runs["got"]:
-        assert "next slice" in got["train"]
+        assert sorted(got["train"]) == ["fsdp", "zero2"]
+        for mode, message in got["train"].items():
+            assert "next slice" in message and f"state_sharding={mode!r}" in message
