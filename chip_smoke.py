@@ -244,6 +244,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
      against the reference's) and the trunk leaves that hold most of the
      gradients' difference. Time-sliced processes on one card measure
      correctness, not scaling.
+ 18. (k) zero2 and fsdp with the seq axis over processes, after (j): the
+     reference here, the flagship at B=1, S=8, 518 px as in 17 on 4
+     logical seq ranks at state none (one GT layout: cameras on frames 1,
+     2, 5, 6, depth on 0, 3, 4, 7), then 4 processes spawned on the card,
+     one seq rank and one chunk of the state each, 3 steps under zero2 and
+     then fsdp from the same init: each process's state bytes equal to
+     fsdp.state_bytes_per_device, metrics and whole-parameter checksums
+     equal across the processes after every step, the step-1 loss within
+     1e-2, the trunk-gradient gate at K_GRAD_LIMIT (derived beside it for
+     4 bf16-rounded partials), phase (h)'s fixed parameter gates, launches,
+     collectives and barriers a step as derived in advance; two planted
+     faults (the seq part of the reduce-scatter left out, the own chunk
+     taken at the next index) must fail the gradient gate. Step ms, peak
+     memory a process and on the card, peer-buffer bytes and barriers a
+     step, per mode.
 Bounds (bound_ms) are the larger of the bytes each kernel must move over
 3.35 TB/s and its matrix-product operations over the H100 SXM's published
 peak for their type: 989 TFLOP/s bf16 dense, 1,979 TOP/s int8, 67 TFLOP/s
@@ -879,22 +894,37 @@ def new_model_for_training(cfg, dev):
     return model
 
 
-def gradient_readings(g_k, g_p) -> dict:
-    """Gradients g_k against the reference g_p ({name: tensor}; each of g_p
-    moved to its g_k's device in turn, so g_p may be a file's mapped
-    tensors): 1 - cosine, both norms, and per leaf of g_p (name, ||diff||^2,
-    ||ref||^2), all in float64."""
+def gradient_sums(g_k, g_p) -> dict:
+    """The sums behind gradient_readings, in float64: <g_k, g_p>, ||g_k||^2
+    and ||g_p||^2 over the leaves of g_p, and per leaf (name, ||diff||^2,
+    ||ref||^2). Sums of parts (chunks of sharded leaves held by different
+    processes) add up to the sums of the whole."""
     dot = n_k = n_p = 0.0
     leaves = []
     for n, b in g_p.items():
         a, b = g_k[n].double(), b.to(g_k[n].device).double()
         dot += (a * b).sum().item()
+        n_k += (a * a).sum().item()
         b_sq = (b * b).sum().item()
         n_p += b_sq
         leaves.append((n, ((a - b) ** 2).sum().item(), b_sq))
-    n_k = sum((a.double() ** 2).sum().item() for a in g_k.values())
-    return {"one_minus_cos": 1 - dot / (n_k * n_p) ** 0.5, "norm": n_k ** 0.5,
-            "ref_norm": n_p ** 0.5, "leaves": leaves}
+    return {"dot": dot, "n_k": n_k, "n_p": n_p, "leaves": leaves}
+
+
+def readings_of_sums(x) -> dict:
+    """1 - cosine, both norms and the leaves of gradient_sums `x`."""
+    return {"one_minus_cos": 1 - x["dot"] / (x["n_k"] * x["n_p"]) ** 0.5,
+            "norm": x["n_k"] ** 0.5, "ref_norm": x["n_p"] ** 0.5, "leaves": x["leaves"]}
+
+
+def gradient_readings(g_k, g_p) -> dict:
+    """Gradients g_k against the reference g_p ({name: tensor}; each of g_p
+    moved to its g_k's device in turn, so g_p may be a file's mapped
+    tensors): 1 - cosine, both norms, and per leaf of g_p (name, ||diff||^2,
+    ||ref||^2), all in float64."""
+    x = gradient_sums(g_k, g_p)
+    x["n_k"] = sum((a.double() ** 2).sum().item() for a in g_k.values())
+    return readings_of_sums(x)
 
 
 def trunk_gradient_gate(label, loss_k, g_k, loss_p, g_p):
@@ -3640,21 +3670,24 @@ SEQ_TRAIN_FAULTS = ("the gather's backward keeps this process's own gradient",
                     "the gradients left unsummed over the seq group")
 
 
-def seq_train_batch(cam, dev):
-    """The train phase's batch (seed 3) with a layout's camera GT."""
+def seq_train_batch(cam, dev, frames=S_TRAIN, depth_gt=SEQ_TRAIN_DEPTH_GT):
+    """The train phase's batch (seed 3) of `frames` frames with a layout's
+    camera GT and depth GT on `depth_gt`."""
     from omnivggt_tpu_torch.train.step import synthetic_batch
 
-    batch = synthetic_batch(S_TRAIN, IMG, dev, seed=3)
-    frames = torch.arange(S_TRAIN, device=dev)
-    cam_mask = torch.isin(frames, torch.tensor(cam, device=dev))
+    batch = synthetic_batch(frames, IMG, dev, seed=3)
+    idx = torch.arange(frames, device=dev)
+    cam_mask = torch.isin(idx, torch.tensor(cam, device=dev))
     batch.update(camera_mask=cam_mask, camera_valid=cam_mask,
-                 depth_mask=torch.isin(frames, torch.tensor(SEQ_TRAIN_DEPTH_GT, device=dev)))
+                 depth_mask=torch.isin(idx, torch.tensor(depth_gt, device=dev)))
     return batch
 
 
-def seq_train_step(cfg, model, mesh):
+def seq_train_step(cfg, model, mesh, state_sharding="none"):
     """A fresh layer-decay optimizer on `model` and the allgather train step
-    on `mesh` (the phase's settings)."""
+    on `mesh` (the phase's settings), the state laid out for
+    `state_sharding` on it."""
+    from omnivggt_tpu_torch.parallel import fsdp as FS
     from omnivggt_tpu_torch.parallel.sharding import ModelSharding
     from omnivggt_tpu_torch.train.optim import make_finetune_optimizer
     from omnivggt_tpu_torch.train.step import init_state, make_train_step
@@ -3662,8 +3695,8 @@ def seq_train_step(cfg, model, mesh):
     model.zero_grad(set_to_none=True)
     opt = make_finetune_optimizer(model, learning_rate=1e-4, warmup_steps=1, total_steps=100)
     step_fn = make_train_step(cfg, opt, ModelSharding(mesh, "allgather"), use_aux_inputs=True,
-                              remat=True)
-    return init_state(model, opt), step_fn
+                              remat=True, state_sharding=state_sharding)
+    return FS.shard_state(init_state(model, opt), mesh, state_sharding), step_fn
 
 
 def seq_step_collectives(cfg, n_params) -> dict:
@@ -3682,18 +3715,23 @@ def seq_step_collectives(cfg, n_params) -> dict:
             "seq_all_reduce": -(-n_params // C.SEQ_BUCKET_ELEMS)}
 
 
+def tensor_words(t) -> torch.Tensor:
+    """The sum of a tensor's int32 words and the sum of each word times its
+    position mod 65521 plus 1 (int64, wrapping), taken on its device."""
+    w = t.detach().reshape(-1).view(torch.int32).to(torch.int64)
+    pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+    return torch.stack([w.sum(), (w * pos).sum()])
+
+
 def param_checksum(model) -> str:
-    """A digest of the parameters' bits, taken on the card: per tensor the
-    sum of its int32 words and the sum of each word times its position
-    mod 65521 plus 1 (int64, wrapping), hashed on the host."""
+    """A digest of the parameters' bits: tensor_words of each, hashed on
+    the host."""
     import hashlib
 
     h = hashlib.sha256()
     for name, p in model.named_parameters():
-        w = p.detach().reshape(-1).view(torch.int32).to(torch.int64)
-        pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
         h.update(name.encode())
-        h.update(torch.stack([w.sum(), (w * pos).sum()]).cpu().numpy().tobytes())
+        h.update(tensor_words(p).cpu().numpy().tobytes())
     return h.hexdigest()
 
 
@@ -3747,27 +3785,30 @@ def camera_residuals(cfg, model, batch, mesh) -> list:
     return (preds["pose_enc_list"][:, 0] - gt[0][None])[:, valid].cpu().tolist()
 
 
-def seq_train_reference(cfg, dev, tmp, card):
-    """The phase's steps on make_mesh(data=1, seq=2) logical ranks here:
-    {layout: metrics, step ms, launches, ||ref - init||^2 after the first
-    update and the last}; the trunk's gradients at the init and the
-    parameters after the first update and the last step go to files in
+def seq_train_reference(cfg, dev, tmp, card, n=SEQ_TRAIN_PROCS, layouts=SEQ_TRAIN_LAYOUTS,
+                        frames=S_TRAIN, depth_gt=SEQ_TRAIN_DEPTH_GT, steps=J_STEPS,
+                        phase="(j)"):
+    """The phase's steps on make_mesh(data=1, seq=n) logical ranks here, at
+    state none: {layout: metrics, step ms, launches, ||ref - init||^2 after
+    the first update and the last}; the trunk's gradients at the init and
+    the parameters after the first update and the last step go to files in
     `tmp`."""
     from omnivggt_tpu_torch.ops.kernels import flash_attention as FK
     from omnivggt_tpu_torch.parallel.mesh import make_mesh
 
-    mesh = make_mesh(data=1, seq=SEQ_TRAIN_PROCS, device=dev)
+    mesh = make_mesh(data=1, seq=n, device=dev)
     model = new_model_for_training(cfg, dev)
     init = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
     refs = {}
-    for li, (label, cam) in enumerate(SEQ_TRAIN_LAYOUTS):
+    for li, (label, cam) in enumerate(layouts):
         if li:
             model.load_state_dict(init)
         state, step_fn = seq_train_step(cfg, model, mesh)
-        batch = seq_train_batch(cam, dev)
+        batch = seq_train_batch(cam, dev, frames, depth_gt)
         ref = {"history": [], "ms": [], "update_sq": {},
                "residuals": camera_residuals(cfg, model, batch, mesh)}
-        for i in range(J_STEPS):
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(steps):
             if i == 1:
                 FK.reset_launches()
             torch.cuda.synchronize()
@@ -3777,11 +3818,12 @@ def seq_train_reference(cfg, dev, tmp, card):
             ref["ms"].append((time.perf_counter() - t0) * 1e3)
             if i == 1:
                 ref["launches"] = FK.launches()
+                ref["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
             ref["history"].append({k: v.item() for k, v in metrics.items()})
             if i == 0:
                 torch.save({n: g.cpu() for n, g in trunk_grads(model).items()},
                            os.path.join(tmp, f"grads_{li}.pt"))
-            if i in (FIRST_UPDATE, J_STEPS - 1):
+            if i in (FIRST_UPDATE, steps - 1):
                 params = {n: p.detach().cpu() for n, p in model.named_parameters()}
                 ref["update_sq"][i] = sum(
                     torch.linalg.vector_norm(p.double() - init[n].double()).item() ** 2
@@ -3789,11 +3831,11 @@ def seq_train_reference(cfg, dev, tmp, card):
                 torch.save(params, os.path.join(tmp, f"params_{li}_{i}.pt"))
                 del params
         refs[label] = ref
-        print(f"(j) reference [{label}], 2 logical ranks in one process: steps "
+        print(f"{phase} reference [{label}], {n} logical ranks in one process: steps "
               + "; ".join(", ".join(f"{k} {v:.6f}" for k, v in sorted(m.items()))
                           for m in ref["history"])
               + f"; step ms {[round(t, 2) for t in ref['ms']]}; launches {ref['launches']}; "
-              f"card {card}")
+              f"peak {ref['peak_gb']:.3f} GB; card {card}")
         del state, step_fn, batch
         gc.collect()
     del model, init
@@ -4006,6 +4048,425 @@ def seq_training_phase(cfg, dev, card):
           f"{ref_s:.2f} s, {n} processes {procs_s:.2f} s); card {card}")
 
 
+# (k) zero2 and fsdp with the seq axis over processes: 4 flagship processes
+# on the one card, one seq rank and one chunk of the sharded state each,
+# against 4 logical seq ranks at state none here
+K_PROCS, K_FRAMES, K_STEPS = 4, 8, 3
+K_MODES = ("zero2", "fsdp")
+# (label, frames with camera GT), seq rank r holding frames 2r, 2r + 1: the
+# first valid camera in rank 0 and cameras in every rank; depth GT in every
+# rank. One layout: how the state is sharded does not depend on where the
+# GT cameras sit, and phase (j) crosses the camera rebase with the first
+# camera in rank 1
+K_LAYOUTS = (("first camera in rank 0", (1, 2, 5, 6)),)
+K_DEPTH_GT = (0, 3, 4, 7)
+K_FAULTS = ("the seq part of the reduce-scatter left out",
+            "the process's own chunk taken at the next index")
+# The train gate's limit on 1 - cosine of the trunk's gradients at k seq
+# processes, against the same step on k logical ranks in one process.
+# The trunk's weight gradients come out of cuBLAS in bf16 (the fp32
+# masters are cast at use), so a process's gradient of a weight is the
+# partial g_i of its frames rounded to bf16 once, and the processes' sum
+# adds k rounded partials, sum (g_i + e_i), where the logical ranks round
+# the whole g = sum g_i once (e_0). Round to nearest in bf16 (8 significant
+# bits) errs by at most u = 2^-8 of the value, so ||e_i|| <= u ||g_i||; the
+# errors of different roundings are independent and of mean 0, so
+# E ||sum e_i - e_0||^2 <= u^2 (sum ||g_i||^2 + ||g||^2). 1 - cosine is
+# half the squared relative size of the difference's part across g, at
+# most ||diff||^2 / (2 ||g||^2). With no process's partial larger than the
+# whole in norm (||g_i|| <= ||g||), sum ||g_i||^2 <= k ||g||^2, and
+#     1 - cosine <= u^2 (k + 1) / 2 = 2^-17 (k + 1).
+# k = 2: 2.289e-5, which phase (j)'s sound readings meet (4.706e-6 with a
+# GT camera in both processes, 3.3e-8 with one) and the own-gradient-only
+# fault fails (1.084e-4, 4.7x; PERF.md, phase (j)). k = 4: 3.815e-5, 2.8x
+# under that fault's 2-process reading; this phase's faults must exceed
+# it too. Phases (h) and (j) keep 1e-5.
+K_GRAD_LIMIT = 2.0 ** -17 * (K_PROCS + 1)
+
+
+def sharded_step_collectives(cfg, mode, n) -> dict:
+    """The collectives of one step a process under `mode` over n seq
+    processes (data 1), allgather, remat, GT cameras and depth: state
+    none's seq collectives (seq_step_collectives) with one more seq_sum
+    (the global norm's shard squares) and the replicated gradients in
+    buckets of collectives.SEQ_BUCKET_ELEMS; a reduce-scatter counted for
+    every sharded tensor. zero2: the sharded gradients in flat buckets of
+    SEQ_BUCKET_ELEMS / n elements a destination, the update gathered back
+    in groups of at most SEQ_BUCKET_ELEMS whole elements (a flat bucket
+    each). fsdp: a flat gather a group (parallel/fsdp.py's block groups and
+    the rest), twice for the aggregator's frame and global blocks (remat
+    recomputes them; DINOv2 is not), and a flat reduce-scatter for each
+    group once. Bucket counts follow collectives.state_buckets. The
+    meta-device layout gives the groups; nothing runs."""
+    from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
+    from omnivggt_tpu_torch.parallel import collectives as C
+    from omnivggt_tpu_torch.parallel import fsdp as FS
+    from omnivggt_tpu_torch.parallel.mesh import Mesh
+
+    model = OmniVGGT(cfg, device="meta", seed=None)
+    n_params = sum(p.numel() for p in model.parameters())
+    layout = FS.StateLayout(model, Mesh(1, n, torch.device("meta")), mode)
+    size = {name: sum(s.numel() for s in shards) for name, shards in layout.shards.items()}
+    sharded = list(size)
+    depth, bucket = cfg.aggregator.depth, C.SEQ_BUCKET_ELEMS
+    calls = {"seq_all_gather": 2, "seq_max": 0, "seq_sum": 6, "seq_gather": 4 * depth + 1,
+             "seq_reduce_scatter": 2 * depth + 1,
+             "seq_all_reduce": -(-(n_params - sum(size.values())) // bucket),
+             "reduce_scatter": len(sharded)}
+
+    def gathers(names):
+        return len(C.state_buckets([size[x] // n for x in names], bucket))
+
+    def scatters(names):
+        return len(C.state_buckets([size[x] // n for x in names], bucket // n))
+
+    if mode == "zero2":
+        sizes = [size[x] for x in sharded]
+        groups = [[sharded[i] for i, _ in members]
+                  for members, _ in C.state_buckets(sizes, max(sizes + [bucket]))]
+        calls.update(all_gather=len(sharded), state_seq_scatter=scatters(sharded),
+                     state_seq_gather=sum(gathers(g) for g in groups))
+    else:
+        groups = {**layout.block_groups, "rest": layout.rest}
+
+        def uses(group):
+            return 2 if group.startswith(("aggregator.frame_blocks.",
+                                          "aggregator.global_blocks.")) else 1
+
+        calls.update(
+            all_gather=sum(len(names) * uses(g) for g, names in groups.items()),
+            state_seq_gather=sum(gathers(names) * uses(g) for g, names in groups.items() if names),
+            state_seq_scatter=sum(scatters(names) for names in groups.values() if names))
+    return calls
+
+
+def step_barriers(calls) -> int:
+    """Peer-memory barriers of a step's counted collectives: two a seq
+    collective or bucket."""
+    return 2 * sum(v for k, v in calls.items() if k.startswith(("seq_", "state_seq_")))
+
+
+def whole_param_checksum(state) -> str:
+    """param_checksum of the whole parameters: under fsdp the sharded ones
+    gathered in groups of at most collectives.SEQ_BUCKET_ELEMS elements,
+    one flat collective each (every process calls this)."""
+    import hashlib
+
+    from omnivggt_tpu_torch.parallel import collectives as C
+
+    layout, model = state.layout, state.model
+    if layout is None or layout.mode != "fsdp":
+        return param_checksum(model)
+    sums = {n: tensor_words(p) for n, p in model.named_parameters() if n not in layout.specs}
+    sharded = [n for n, _ in model.named_parameters() if n in layout.specs]
+    sizes = [layout.shards[n][0].numel() * layout.mesh.size for n in sharded]
+    for members, _ in C.state_buckets(sizes, max(sizes + [C.SEQ_BUCKET_ELEMS])):
+        group = [sharded[i] for i, _ in members]
+        fulls = C.all_gather_many([layout.shards[n] for n in group], layout.mesh,
+                                  [layout.specs[n] for n in group])
+        for n, full in zip(group, fulls):
+            sums[n] = tensor_words(full)
+        del fulls
+    h = hashlib.sha256()
+    for n, _ in model.named_parameters():
+        h.update(n.encode())
+        h.update(sums[n].cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def process_parts(state, mesh, ref, grads):
+    """(this process's part of each tensor of `ref`, the same part of
+    ref's): a sharded one's chunk (data rank x seq + seq rank, taken from
+    the mesh, not from the layout) of the gradient the optimizer stepped
+    (`grads`) or of the parameter; a replicated one whole, in seq rank 0
+    alone, since every process holds the same, so that the parent's sums
+    over the processes are the sums of the whole."""
+    layout, slots = state.layout, state.optimizer.slots
+    index = mesh.rank * mesh.seq + mesh.seq_rank
+    got, want = {}, {}
+    for name, r in ref.items():
+        t = slots[name][0].grad if grads else slots[name][0].detach()
+        if name in layout.specs:
+            dim = layout.specs[name]
+            n = r.shape[dim] // mesh.size
+            got[name], want[name] = t, r.narrow(dim, index * n, n)
+        elif mesh.seq_rank == 0:
+            got[name], want[name] = t, r
+    return got, want
+
+
+def partial_param_readings(state, mesh, ref, dev) -> dict:
+    """param_readings of this process's parts (process_parts), with the
+    squared difference in place of the gap (the parent adds them up)."""
+    x = param_readings(*process_parts(state, mesh, ref, grads=False), dev, update_sq=1.0)
+    x["diff_sq"] = x.pop("gap") ** 2
+    return x
+
+
+def combined_param_readings(parts, update_sq) -> dict:
+    """partial_param_readings of every process as param_readings of the whole."""
+    return {"bitwise": all(x["bitwise"] for x in parts),
+            "outside": sum(x["outside"] for x in parts), "n": sum(x["n"] for x in parts),
+            "worst": max(x["worst"] for x in parts),
+            "gap": (sum(x["diff_sq"] for x in parts) / update_sq) ** 0.5}
+
+
+def combined_gradient_readings(parts) -> dict:
+    """gradient_sums of every process's parts as gradient_readings of the
+    whole, with the three leaves that hold most of the squared difference
+    (name, relative error, share of the difference, share of the squared
+    norm)."""
+    total = {k: sum(x[k] for x in parts) for k in ("dot", "n_k", "n_p")}
+    leaves = defaultdict(lambda: [0.0, 0.0])
+    for x in parts:
+        for name, d, b_sq in x["leaves"]:
+            leaves[name][0] += d
+            leaves[name][1] += b_sq
+    g = readings_of_sums({**total, "leaves": []})
+    diff_sq = sum(d for d, _ in leaves.values()) or 1.0
+    g["leaves"] = [[n, (d / b_sq) ** 0.5 if b_sq else float("inf"), d / diff_sq,
+                    b_sq / g["ref_norm"] ** 2]
+                   for n, (d, b_sq) in sorted(leaves.items(), key=lambda kv: -kv[1][0])[:3]]
+    return g
+
+
+def seq_shard_worker_body(rank, port, tmp):
+    import torch.distributed as dist
+
+    from omnivggt_tpu_torch.config import OmniVGGTConfig
+    from omnivggt_tpu_torch.ops.kernels import flash_attention as FK
+    from omnivggt_tpu_torch.parallel import collectives as C
+    from omnivggt_tpu_torch.parallel.mesh import Mesh, make_mesh, multihost_initialize
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, "reference.json")) as f:
+        shared = json.load(f)
+    on_card = shared["device"] == "cuda"
+    dev = multihost_initialize(device=shared["device"], backend="gloo", local_rank=0,
+                               init_method=f"tcp://127.0.0.1:{port}", world_size=K_PROCS,
+                               rank=rank, timeout=300)
+    mesh = make_mesh(data=1, seq=K_PROCS, device=dev)
+    if not (mesh.seq_processes and mesh.seq_rank == rank and (mesh.peer is not None) == on_card):
+        raise AssertionError(f"rank {rank}: the mesh is not a seq-process mesh: {mesh}")
+    cfg = OmniVGGTConfig()
+    res = {"rank": rank, "ready_s": time.perf_counter() - t0, "runs": {}, "faults": []}
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def fresh(mode):
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        return seq_train_step(cfg, new_model_for_training(cfg, dev), mesh, mode)
+
+    for mode in K_MODES:
+        for li, (label, cam) in enumerate(K_LAYOUTS):
+            state, step_fn = fresh(mode)
+            batch = seq_train_batch(cam, dev, K_FRAMES, K_DEPTH_GT)
+            out = {"history": [], "ms": [], "checksums": [], "params": {}, "card_gb": [],
+                   "peak_gb": [], "peak_reserved_gb": []}
+            for i in range(K_STEPS):
+                if i == 1:
+                    FK.reset_launches()
+                    C.reset_calls()
+                    barriers = mesh.peer.barriers if on_card else 0
+                sync()
+                if on_card:  # the step's own peak, not the readings' between steps
+                    torch.cuda.reset_peak_memory_stats()
+                t = time.perf_counter()
+                state, metrics = step_fn(state, batch)
+                sync()
+                out["ms"].append((time.perf_counter() - t) * 1e3)
+                out["peak_gb"].append(torch.cuda.max_memory_allocated() / 1e9 if on_card else 0.0)
+                out["peak_reserved_gb"].append(
+                    torch.cuda.max_memory_reserved() / 1e9 if on_card else 0.0)
+                if i == 1:
+                    out["launches"], out["calls"] = FK.launches(), C.calls()
+                    out["barriers"] = mesh.peer.barriers - barriers if on_card else None
+                free, total = torch.cuda.mem_get_info() if on_card else (0, 0)
+                out["card_gb"].append((total - free) / 1e9)
+                out["history"].append({k: v.item() for k, v in metrics.items()})
+                if i == 0:
+                    out["grads"] = gradient_sums(*process_parts(
+                        state, mesh, load_mapped(tmp, f"grads_{li}.pt"), grads=True))
+                    out["state_bytes"] = per_rank_state_bytes(state)
+                if i in (FIRST_UPDATE, K_STEPS - 1):
+                    out["params"][i] = partial_param_readings(
+                        state, mesh, load_mapped(tmp, f"params_{li}_{i}.pt"), dev)
+                out["checksums"].append(whole_param_checksum(state))
+            out["peak_gb"], out["peak_reserved_gb"] = max(out["peak_gb"]), max(
+                out["peak_reserved_gb"])
+            out["peer_bytes"] = mesh.peer.nbytes if on_card else 0
+            res["runs"][f"{mode} {li}"] = out
+            del state, step_fn, batch
+
+    # the planted faults, each one fsdp step from the init on the first layout
+    batch = seq_train_batch(K_LAYOUTS[0][1], dev, K_FRAMES, K_DEPTH_GT)
+    sound_scatter, sound_ranks = C._seq_scatter_state, Mesh.own_ranks
+
+    def own_part_only(xs, mesh, dims, bucket_elems):
+        return [x.narrow(d, mesh.seq_rank * (x.shape[d] // mesh.seq), x.shape[d] // mesh.seq)
+                .clone() for x, d in zip(xs, dims)]
+
+    def next_index(m):
+        first = (sound_ranks.fget(m).start + 1) % m.size
+        return range(first, first + m.local_size)
+
+    for fault in K_FAULTS:
+        try:
+            if fault == K_FAULTS[0]:
+                C._seq_scatter_state = own_part_only
+            else:
+                Mesh.own_ranks = property(next_index)
+            state, step_fn = fresh("fsdp")
+            state, metrics = step_fn(state, batch)
+        finally:
+            C._seq_scatter_state, Mesh.own_ranks = sound_scatter, sound_ranks
+        res["faults"].append({"fault": fault, "total": metrics["total"].item(),
+                              "grads": gradient_sums(*process_parts(
+                                  state, mesh, load_mapped(tmp, "grads_0.pt"), grads=True))})
+        del state, step_fn
+    mesh.close()
+    with open(os.path.join(tmp, f"seq_shard_{rank}.json"), "w") as f:
+        json.dump(res, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def seq_sharded_training_phase(cfg, dev, card):
+    """(k) zero2 and fsdp with the seq axis over processes: the reference on
+    K_PROCS logical seq ranks at state none here (seq_train_reference),
+    then K_PROCS spawned processes on this card (seq_shard_worker_body),
+    each one seq rank of make_mesh(data=1, seq=4) over a gloo group and
+    one chunk of the state, taking the same steps under zero2 and then
+    fsdp; every process's readings are held here."""
+    import shutil
+    import tempfile
+
+    from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
+    from omnivggt_tpu_torch.parallel import fsdp as FS
+    from omnivggt_tpu_torch.parallel.mesh import Mesh
+
+    t_phase = time.perf_counter()
+    n = K_PROCS
+    print(f"(k) zero2 and fsdp with the seq axis over {n} processes on one card (gloo group + "
+          f"CUDA IPC), flagship B=1 S={K_FRAMES} {IMG}px, allgather, remat, {K_STEPS} steps a "
+          f"mode and layout, the state in {n} chunks, one a process: time-sliced processes on "
+          f"one card measure correctness and memory, not scaling; card {card}")
+    meta = OmniVGGT(cfg, device="meta", seed=None)
+    want_bytes = {m: FS.state_bytes_per_device(meta, Mesh(1, n, torch.device("meta")), m)
+                  for m in K_MODES}
+    want_calls = {m: sharded_step_collectives(cfg, m, n) for m in K_MODES}
+    want_launches = train_step_launches(cfg)
+    for m in K_MODES:
+        print(f"(k) {m}, derived before the run: state {want_bytes[m] / 1e9:.3f} GB a process; "
+              f"collectives a process a step {want_calls[m]}; barriers a step "
+              f"{step_barriers(want_calls[m])}; launches a step {want_launches}")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_seq_shard_")
+    try:
+        refs = seq_train_reference(cfg, dev, tmp, card, n=n, layouts=K_LAYOUTS,
+                                   frames=K_FRAMES, depth_gt=K_DEPTH_GT, steps=K_STEPS,
+                                   phase="(k)")
+        with open(os.path.join(tmp, "reference.json"), "w") as f:
+            json.dump({"device": dev.type}, f)
+        ref_s = time.perf_counter() - t_phase
+        free, total = torch.cuda.mem_get_info()
+        print(f"(k) the card before the spawn: {free / 1e9:.3f} of {total / 1e9:.3f} GB free "
+              f"(this process holds {torch.cuda.memory_allocated() / 1e9:.3f} GB); reference "
+              f"{ref_s:.2f} s; card {card}")
+        procs_s = run_processes("(k)", n, tmp, body=seq_shard_worker_body)
+        got = []
+        for r in range(n):
+            with open(os.path.join(tmp, f"seq_shard_{r}.json")) as f:
+                got.append(json.load(f))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    for r, res in enumerate(got):
+        print(f"  seq rank {r}: ready (group, mesh) in {res['ready_s']:.2f} s")
+    print(f"(k) train gate limit 1 - cosine <= 2^-17 x ({n} + 1) = {K_GRAD_LIMIT:.3e} "
+          f"({n} bf16-rounded partials, derived in K_GRAD_LIMIT's comment)")
+    checksums = {}
+    for mode in K_MODES:
+        for li, (label, _) in enumerate(K_LAYOUTS):
+            ref = refs[label]
+            rows = [res["runs"][f"{mode} {li}"] for res in got]
+            x = rows[0]
+            tag = f"(k) {mode} [{label}]"
+            for r, y in enumerate(rows):
+                print(f"{tag} seq rank {r}: steps "
+                      + "; ".join(", ".join(f"{k} {v:.6f}" for k, v in sorted(m.items()))
+                                  for m in y["history"])
+                      + f"; launches a step {y['launches']}; collectives a step "
+                      f"{ {k: v for k, v in y['calls'].items() if v} }; barriers a step "
+                      f"{y['barriers']}")
+            loss_rel = abs(x["history"][0]["total"] - ref["history"][0]["total"]) / abs(
+                ref["history"][0]["total"])
+            g = combined_gradient_readings([y["grads"] for y in rows])
+            print(f"{tag} train gate against {n} logical ranks at state none: step-1 loss rel "
+                  f"{loss_rel:.3e} (limit {LOSS_REL_TOL:g}), trunk gradient 1 - cosine "
+                  f"{g['one_minus_cos']:.3e} (limit {K_GRAD_LIMIT:.3e}), norms {g['norm']:.4f} "
+                  f"/ {g['ref_norm']:.4f}; the leaves holding most of the difference (relative "
+                  "error, share of the squared difference, share of the squared norm): "
+                  + "; ".join(f"{nm} {e:.3e} {d:.3f} {b:.3e}" for nm, e, d, b in g["leaves"]))
+            if loss_rel > LOSS_REL_TOL or g["one_minus_cos"] > K_GRAD_LIMIT:
+                raise AssertionError(f"{tag}: the processes' step leaves the train gate")
+            for i, limit in ((FIRST_UPDATE, OUTSIDE_MAX), (K_STEPS - 1, FINAL_OUTSIDE_MAX)):
+                readings = combined_param_readings([y["params"][str(i)] for y in rows],
+                                                   ref["update_sq"][i])
+                if not params_pass(f"{mode} [{label}] after step {i}, the processes' chunks vs "
+                                   "the logical ranks", readings, limit):
+                    raise AssertionError(f"{tag}: parameters after step {i} differ from the "
+                                         "logical ranks'")
+            for y in rows[1:]:
+                if y["history"] != x["history"] or y["checksums"] != x["checksums"]:
+                    raise AssertionError(f"{tag}: the processes' metrics or parameters differ "
+                                         "from each other")
+            checksums[(mode, li)] = x["checksums"]
+            for r, y in enumerate(rows):
+                calls = {k: y["calls"][k] for k in want_calls[mode]}
+                if y["launches"] != want_launches or calls != want_calls[mode]:
+                    raise AssertionError(f"{tag} seq rank {r}: launches {y['launches']} (want "
+                                         f"{want_launches}), collectives {calls} (want "
+                                         f"{want_calls[mode]})")
+                if y["barriers"] != step_barriers(want_calls[mode]):
+                    raise AssertionError(f"{tag} seq rank {r}: {y['barriers']} barriers a step, "
+                                         f"want {step_barriers(want_calls[mode])}")
+                if y["state_bytes"] != want_bytes[mode]:
+                    raise AssertionError(f"{tag} seq rank {r}: state {y['state_bytes']} bytes, "
+                                         f"state_bytes_per_device {want_bytes[mode]}")
+                if not all(np.isfinite(v) for m in y["history"] for v in m.values()):
+                    raise AssertionError(f"{tag}: a loss or grad_norm is not finite")
+            peaks = [y["peak_gb"] for y in rows]
+            print(f"{tag} step ms a process {[[round(t, 2) for t in y['ms']] for y in rows]} "
+                  f"beside {[round(t, 2) for t in ref['ms']]} on {n} logical ranks in one process "
+                  f"(peak {ref['peak_gb']:.3f} GB); state a process {x['state_bytes'] / 1e9:.3f} "
+                  f"GB (= state_bytes_per_device); peak memory a process "
+                  f"{[round(v, 3) for v in peaks]} GB, their sum {sum(peaks):.3f} GB (reserved "
+                  f"{sum(y['peak_reserved_gb'] for y in rows):.3f}); the card in use after a "
+                  f"step, largest reading {max(v for y in rows for v in y['card_gb']):.3f} GB; "
+                  f"peer buffers a process {x['peer_bytes'] / 2**20:.1f} MiB; barriers a step "
+                  f"{x['barriers']}; card {card}")
+            print(f"  metrics bitwise equal across the processes, whole-parameter checksums "
+                  f"equal after every step: {x['checksums'][-1][:16]}...")
+    for li, (label, _) in enumerate(K_LAYOUTS):
+        same = checksums[("zero2", li)] == checksums[("fsdp", li)]
+        print(f"(k) [{label}] zero2 and fsdp hold bitwise equal parameters after every step: "
+              f"{same}")
+    for i, fault in enumerate(K_FAULTS):
+        g = combined_gradient_readings([res["faults"][i]["grads"] for res in got])
+        print(f"(k) planted fault (fsdp), {fault}: trunk gradient 1 - cosine "
+              f"{g['one_minus_cos']:.3e} (must exceed {K_GRAD_LIMIT:.3e})")
+        if not g["one_minus_cos"] > K_GRAD_LIMIT:
+            raise AssertionError(f"(k) the train gate passes a planted fault: {fault}")
+    print(f"(k) passed in {time.perf_counter() - t_phase:.2f} s (reference on logical ranks "
+          f"{ref_s:.2f} s, {n} processes {procs_s:.2f} s); card {card}")
+
+
 def synthetic_inputs(dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
@@ -4200,6 +4661,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     seq_training_phase(cfg, dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seq_sharded_training_phase(cfg, dev, card)
     # a kernel's launches on the main path that runs it: one train step, or
     # one served S=8 request for the serving kernels; the probes' in their phase
     # the ring wrappers' in the sharded flagship forwards

@@ -43,6 +43,7 @@ def apply(p: CameraHead, tokens_last: torch.Tensor, num_valid_frames=None) -> to
     across the S frame tokens, so padded frames (bucketed serving) are
     masked out of its keys. Returns (num_iterations, B, S, 9) fp32 activated
     pose encodings."""
+    L.run_forward_pre_hooks(p, (tokens_last,))
     cfg = p.cfg
     pose_tokens = L.layer_norm(p.token_norm, tokens_last[:, :, 0], cfg.ln_eps)
     B, S, _ = pose_tokens.shape

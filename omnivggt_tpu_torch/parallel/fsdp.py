@@ -12,13 +12,23 @@ layouts are held by hand, with the collectives of parallel/collectives.py:
            at use, then freed     backward)
 
 A sharded tensor splits along one dim into `mesh.size` equal chunks,
-rank-major (parallel/collectives.py); each chunk is a tensor of its own.
+rank-major: rank (d, s) holds chunk d * seq + s (parallel/collectives.py),
+and a process the chunks of the ranks it runs (`mesh.own_ranks`: all of
+them on logical ranks, its data rank's slab over data processes, one chunk
+over seq processes); each chunk is a tensor of its own.
 Under fsdp a transformer block's sharded parameters are gathered by a
 forward pre-hook on its module (ops/layers.block runs it) and released by
 its forward hook: per DINOv2 block, per aggregator frame and global block
-(finer than the JAX package's layer pair), per camera-head trunk block.
+(finer than the JAX package's layer pair), and once a call for the camera
+head, which runs its trunk once an iteration (`REPEATED_STACKS`).
 remat's recomputation gathers again. Everything else (embeddings, tokens,
-the adapters, the heads) is one group, gathered for the whole step.
+the adapters, the heads) is one group, gathered for the whole step. A
+group is gathered, and its gradients reduce-scattered in the backward, as
+one flat collective (collectives.gather_shards), so over seq processes a
+block costs two barriers a gather and not two a tensor; a gather returns
+tensors of their own, never views of the peer buffer that the next one
+overwrites. Every process runs the same graph, so under remat they issue
+the same gathers and reduce-scatters in the same order.
 
 Which dim a tensor shards on is decided from the JAX leaf it belongs to.
 The JAX package stacks the aggregator's 24 frame and global blocks, the
@@ -59,6 +69,10 @@ STATE_SHARDING_MODES = ("none", "zero2", "fsdp")
 # the components under which the JAX package stacks per-layer parameters
 STACKED_KEYS = ("blocks", "frame_blocks", "global_blocks", "trunk", "pose_embeddings",
                 "camera_adapters")
+# the stacked blocks that their owner runs more than once a call (the
+# camera head's trunk, once an iteration): fsdp gathers the owner's
+# sharded parameters as one group a call, not a group a block call
+REPEATED_STACKS = ("trunk",)
 
 
 def check_mode(mode: str) -> None:
@@ -187,40 +201,50 @@ class StateLayout:
             self._placeholders[name] = nn.Parameter(p.new_empty(0), requires_grad=False)
             owner._parameters[pname] = self._placeholders[name]
             del self.params[name]
+        # {module name: the sharded parameters its call gathers}: each
+        # L.Block, except those of a module that owns one of
+        # REPEATED_STACKS, which is one group for the call, so that a
+        # block's gradient sums its uses before the reduce-scatter, in the
+        # order state "none" accumulates them
         self.block_groups: Dict[str, List[str]] = {}
         if mode == "fsdp":
             grouped = set()
             for mname, module in model.named_modules():
-                if isinstance(module, L.Block):
-                    names = [n for n in self.specs if n.startswith(mname + ".")]
-                    if names:
-                        self.block_groups[mname] = names
-                        grouped.update(names)
-                        module.register_forward_pre_hook(
-                            lambda m, args, names=names: self.gather(names))
-                        module.register_forward_hook(
-                            lambda m, args, out, names=names: self.release(names))
+                repeats = any(c in REPEATED_STACKS for c, _ in module.named_children())
+                if not (isinstance(module, L.Block) or repeats):
+                    continue
+                names = [n for n in self.specs if n.startswith(mname + ".") and n not in grouped]
+                if names:
+                    self.block_groups[mname] = names
+                    grouped.update(names)
+                    module.register_forward_pre_hook(
+                        lambda m, args, names=names: self.gather(names))
+                    module.register_forward_hook(
+                        lambda m, args, out, names=names: self.release(names))
             self.rest = [n for n in self.specs if n not in grouped]
 
     def local_pieces(self, name: str, full: torch.Tensor) -> List[torch.Tensor]:
-        """This process's chunks of `full` (views)."""
-        dim, mesh = self.specs[name], self.mesh
-        if mesh.group is not None:
-            slab = full.shape[dim] // mesh.data
-            full = full.narrow(dim, mesh.rank * slab, slab)
-        return list(full.chunk(mesh.local_size, dim))
+        """This process's chunks of `full` (views): chunk i of the mesh's
+        `size` for each rank i it runs."""
+        dim = self.specs[name]
+        n = full.shape[dim] // self.mesh.size
+        return [full.narrow(dim, i * n, n) for i in self.mesh.own_ranks]
 
     def full_tensor(self, name: str, pieces) -> torch.Tensor:
         """The whole tensor from this process's `pieces` and every other
-        data rank's (a gather over processes)."""
+        process's (a gather over processes)."""
         return C.all_gather(pieces, self.mesh, self.specs[name])
 
     # fsdp: gathers at use
     def gather(self, names) -> None:
-        for name in names:
+        """The group's sharded parameters whole, one flat collective."""
+        if not names:
+            return
+        fulls = C.gather_shards([self.shards[n] for n in names], self.mesh,
+                                [self.specs[n] for n in names])
+        for name, full in zip(names, fulls):
             owner, pname = self._owners[name]
-            owner._parameters[pname] = C.gather_shards(self.shards[name], self.mesh,
-                                                       self.specs[name])
+            owner._parameters[pname] = full
 
     def release(self, names) -> None:
         for name in names:
@@ -242,26 +266,44 @@ class StateLayout:
 
     # the gradient sync and the update (train/step.py)
     def sync_grads(self) -> None:
-        """Gradients summed over the data ranks: zero2 reduce-scatters each
-        sharded parameter's onto its shards (fsdp did so in the backward),
-        and the replicated parameters' are all-reduced."""
-        for name, p in self.params.items():
+        """Gradients summed over the ranks: zero2 reduce-scatters the
+        sharded parameters' onto their shards (one flat collective over the
+        seq processes; fsdp did so in the backward), and the replicated
+        parameters' are summed over the seq processes (seq_all_reduce_sum,
+        in rank order), then all-reduced over the data ranks, as state
+        "none" sums them. One the forward did not reach gets zeros, so every
+        process passes the same tensors."""
+        for p in self.params.values():
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-            if name in self.specs:  # zero2
-                for shard, g in zip(self.shards[name], C.reduce_scatter(p.grad, self.mesh,
-                                                                        self.specs[name])):
+        sharded = [n for n in self.params if n in self.specs]  # zero2
+        if sharded:
+            chunks = C.reduce_scatter_many([self.params[n].grad for n in sharded], self.mesh,
+                                           [self.specs[n] for n in sharded])
+            for name, cs in zip(sharded, chunks):
+                for shard, g in zip(self.shards[name], cs):
                     shard.grad = g
-                p.grad = None
-            else:
-                C.all_reduce_sum(p.grad, self.mesh)
+                self.params[name].grad = None
+        grads = [p.grad for n, p in self.params.items() if n not in self.specs]
+        if self.mesh.seq_processes:
+            C.seq_all_reduce_sum(grads, self.mesh)
+        for g in grads:
+            C.all_reduce_sum(g, self.mesh)
 
     @torch.no_grad()
     def gather_params(self) -> None:
         """zero2: every rank's updated shards gathered back into the
-        replicated parameters."""
-        for name in self.specs:
-            self.params[name].copy_(self.full_tensor(name, self.shards[name]))
+        replicated parameters, in groups of at most collectives'
+        SEQ_BUCKET_ELEMS elements (one flat collective each over the seq
+        processes; a group's whole tensors are the only copy it adds)."""
+        names = list(self.specs)
+        sizes = [self.params[n].numel() for n in names]
+        for members, _ in C.state_buckets(sizes, max(sizes + [C.SEQ_BUCKET_ELEMS])):
+            group = [names[i] for i, _ in members]
+            fulls = C.all_gather_many([self.shards[n] for n in group], self.mesh,
+                                      [self.specs[n] for n in group])
+            for name, full in zip(group, fulls):
+                self.params[name].copy_(full)
 
     def zero_grad(self) -> None:
         for shards in self.shards.values():

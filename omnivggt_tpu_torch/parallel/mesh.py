@@ -33,11 +33,13 @@ The JAX package lays its (data, seq) mesh over devices. Here a mesh is
     on CUDA the data moves through peer-mapped device memory
     (parallel/peer.py, `mesh.peer`), so the processes may share one card
     and the default group may be gloo when data is 1. Training runs over
-    them with a replicated state (state_sharding "none"): the gathers are
-    differentiable, and the parameter gradients are summed over the seq
-    group through its peer memory (parallel/collectives.py), then over the
-    data group, whose collectives still need NCCL on CUDA. zero2 / fsdp
-    over seq processes are not ported (train/step.make_train_step raises).
+    them under every state sharding: the gathers are differentiable, the
+    parameter gradients are summed (state "none") or reduce-scattered
+    (zero2, fsdp) over the seq group through its peer memory
+    (parallel/collectives.py), then over the data group, whose collectives
+    still need NCCL on CUDA. A sharded state lies in `data x seq` chunks,
+    one a process: process (d, s) holds chunk d * seq + s (`own_ranks`),
+    as the JAX package's NamedSharding over ("data", "seq") places it.
 
   - "data": scene/batch parallelism;
   - "seq":  sequence parallelism over frames / tokens, the axis the
@@ -96,6 +98,14 @@ class Mesh:
     @property
     def local_size(self) -> int:
         return self.local_shape[DATA_AXIS] * self.local_shape[SEQ_AXIS]
+
+    @property
+    def own_ranks(self) -> range:
+        """The rank-major indices (data rank x seq + seq rank) of the ranks
+        this process runs: all of them on logical ranks, its data rank's
+        seq ranks over data processes, its one rank over seq processes."""
+        first = self.rank * self.seq + self.seq_rank
+        return range(first, first + self.local_size)
 
     @property
     def seq_processes(self) -> bool:

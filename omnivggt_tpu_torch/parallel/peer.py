@@ -121,12 +121,20 @@ class PeerMemory:
         self.device = torch.device(device)
         self._buffers: Dict[tuple, SymmetricBuffer] = {}
         self.opens = 0  # handles opened so far (a cache miss opens size - 1)
+        self.barriers = 0  # barrier() calls so far
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes this process has allocated for its own buffers."""
+        return sum(math.prod(b.shape) * torch.empty((), dtype=b.dtype).element_size()
+                   for b in self._buffers.values())
 
     def barrier(self) -> None:
         """This process's stream drained, then every process of the group
         here: what each wrote before is visible to all after."""
         import torch.distributed as dist
 
+        self.barriers += 1
         torch.cuda.current_stream(self.device).synchronize()
         dist.barrier(group=self.group)
 

@@ -13,9 +13,11 @@ exist); --device cpu runs the kernels' plain versions on the CPU.
 (parallel/fsdp.py). Started by torchrun (the process group comes from its
 environment), either the data axis lies over the processes (data = the
 number of processes, seq logical ranks in each) or both axes do (data x
-seq = the number of processes, one seq rank each, state_sharding none;
-with data 1 the group is gloo and the processes may share a card, their
-seq data moving through peer memory). --batch is the global batch: each
+seq = the number of processes, one seq rank each, under every
+--state_sharding; with data 1 the group is gloo and the processes may
+share a card, their seq data moving through peer memory). The state is
+laid out before a checkpoint is restored into it, so no process holds the
+whole state on the way. --batch is the global batch: each
 data rank streams its own partition of the shards and takes batch / data
 scenes of it, the seq processes of one data rank read the same samples
 and each runs its own frames, and only the process of global rank 0 logs
@@ -37,10 +39,16 @@ this one process.
         --device cpu --steps 2 --views 2 --target_size 28 --mesh 1,2
 
     # the same 2-way sequence mesh as two processes (gloo on the CPU), each
-    # running 2 of the 4 frames of every scene
+    # running 2 of the 4 frames of every scene, the state laid out over both
     torchrun --standalone --nproc_per_node 2 -m omnivggt_tpu_torch.tools.train \\
         --shards 'shards/shard-*.tar' --batch 1 --views 4 --tiny --device cpu \\
-        --mesh 1,2 --steps 2
+        --mesh 1,2 --state_sharding fsdp --steps 2
+
+    # the flagship over 4 seq processes on one card, each 2 of 8 frames and
+    # a quarter of the sharded state (gloo + CUDA IPC)
+    torchrun --standalone --nproc_per_node 4 -m omnivggt_tpu_torch.tools.train \\
+        --shards 'shards/shard-*.tar' --batch 1 --views 8 --mesh 1,4 \\
+        --state_sharding fsdp --steps 1000 --ckpt_dir runs/ft
 """
 
 from __future__ import annotations
@@ -167,13 +175,14 @@ def _train(args, device):
         cfg, optimizer, sharding, use_aux_inputs=True, remat=not args.no_remat, seed=args.seed,
         state_sharding=args.state_sharding,
     )
-    state = resume_or_init(args.ckpt_dir, init_state(model, optimizer))
+    state = init_state(model, optimizer)
+    if sharding is not None:
+        # laid out first: a restore then loads each process's own chunks
+        fsdp.shard_state(state, sharding.mesh, args.state_sharding)
+    state = resume_or_init(args.ckpt_dir, state)
     start = state.step
     if start and rank0:
         print(f"resumed from {args.ckpt_dir} at step {start}")
-    if sharding is not None:
-        # a restored state is whole; lay it out over the mesh
-        fsdp.shard_state(state, sharding.mesh, args.state_sharding)
 
     if args.data_root:
         from omnivggt_tpu_torch.data.dataset import SceneDataset, prefetch

@@ -7,15 +7,17 @@ schedule's count, and the step) goes into one `torch.save` file,
 into place; the newest `keep_last` files are kept. The JAX package's orbax
 directories are a different format and are not read here.
 
-A state laid out over a mesh (zero2 / fsdp, parallel/fsdp.py) is gathered
-into the unsharded layout one tensor at a time, on every process (the
-gathers are collectives): the process of data rank 0 copies each whole
-tensor to the host as soon as it is gathered and alone writes the file,
-the others drop it, so a save holds one gathered tensor at a time on the
-device. A replicated state whose data axis lies over processes is written
-by data rank 0 too. Restore reads the file on the host and copies it into
-the layout of the state it loads into, so a checkpoint written sharded
-restores unsharded, and the other way round.
+A state laid out over a mesh (zero2 / fsdp, parallel/fsdp.py; its chunks
+over data processes, seq processes or both) is gathered into the unsharded
+layout one tensor at a time, on every process (the gathers are
+collectives): the process of global rank 0 copies each whole tensor to
+the host as soon as it is gathered and alone writes the file, the others
+drop it, so a save holds one gathered tensor at a time on the device. A
+replicated state over processes is written by global rank 0 too. Restore
+reads the file on the host and copies it into the layout of the state it
+loads into (each process its own chunks), so a checkpoint written sharded
+restores unsharded, and the other way round, and a state is laid out
+before it is restored: no process holds the whole state on the way.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ def _checkpoints(ckpt_dir: str):
 
 
 def _writes() -> bool:
-    """Whether this process writes: the only one, or data rank 0."""
+    """Whether this process writes: the only one, or global rank 0."""
     import torch.distributed as dist
 
     return not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0
@@ -47,7 +49,7 @@ def save_train_state(ckpt_dir: str, state: TrainState, step: Optional[int] = Non
                      keep_last: int = 3) -> str:
     """Write {ckpt_dir}/step_{N}.pt and prune all but the newest keep_last.
     Under processes every process calls it (the gathers are collectives)
-    and data rank 0 writes; every process returns the path."""
+    and global rank 0 writes; every process returns the path."""
     step = state.step if step is None else step
     path = os.path.join(os.path.abspath(ckpt_dir), f"{_PREFIX}{step:08d}{_SUFFIX}")
     writes = _writes()

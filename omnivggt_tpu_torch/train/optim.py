@@ -35,7 +35,7 @@ from typing import Callable, Dict, List, Optional
 import torch
 from torch import nn
 
-from omnivggt_tpu_torch.parallel.collectives import all_reduce_sum
+from omnivggt_tpu_torch.parallel.collectives import all_reduce_sum, seq_sum
 
 NO_DECAY_KEYS = (
     "cls_token", "pos_embed", "register_tokens", "camera_token", "register_token",
@@ -122,7 +122,9 @@ class Optimizer:
     process's shards, each with moments of its own, under the parameter's
     weight-decay mask and layer-decay scale. The global norm stays one norm
     over the whole gradient: the squares of the sharded gradients summed
-    over every rank, each replicated gradient counted once. `state_dict`
+    over every rank (over the seq processes in rank order, then over the
+    data ranks, so every process clips by the same bits), each replicated
+    gradient counted once. `state_dict`
     gathers the moments into the unsharded layout, `load_state_dict`
     re-shards such a dict, so a checkpoint restores under any layout."""
 
@@ -200,7 +202,11 @@ class Optimizer:
                 return torch.zeros((), device=grads[0].device)
             return torch.stack([torch.linalg.vector_norm(g.float()) for g in gs]).square().sum()
 
-        return (all_reduce_sum(squares(sharded), self.layout.mesh) + squares(replicated)).sqrt()
+        mesh = self.layout.mesh
+        total = squares(sharded)
+        if mesh.seq_processes:
+            total = seq_sum(total, mesh)
+        return (all_reduce_sum(total, mesh) + squares(replicated)).sqrt()
 
     @torch.no_grad()
     def step(self) -> torch.Tensor:

@@ -15,10 +15,12 @@ them, "fsdp" shards the parameters too. Over processes (parallel/mesh.py)
 each process computes its share of the global loss, its scenes (data
 axis) and its frames (seq axis) over counts summed over every process,
 and the gradients are summed over the processes: train/losses.py states
-the invariant. With the seq axis over processes the state stays
-replicated ("none"): the seq group's sum runs through its peer memory on
-CUDA (collectives.seq_all_reduce_sum, in rank order, so every process
-keeps the same bits), then the data group's.
+the invariant. With the seq axis over processes the seq group's part of
+every sum runs first, in rank order, through its peer memory on CUDA
+(collectives.seq_all_reduce_sum under "none", so every process keeps the
+same bits; the flat reduce-scatters and gathers of parallel/fsdp.py under
+"zero2" / "fsdp", whose state lies in data x seq chunks, one a process),
+then the data group's.
 """
 
 from __future__ import annotations
@@ -140,7 +142,8 @@ def make_train_step(
     strategies ("allgather" or "ring" for the global attention: the ring
     kernels of "ring_fused" have no backward). state_sharding: "none",
     "zero2" or "fsdp" (needs `sharding`, whose mesh the state shards
-    over); the state must be laid out for it first
+    over: logical ranks, the data axis over processes, or both axes over
+    processes); the state must be laid out for it on that mesh first
     (parallel/fsdp.shard_state or sharded_init), else the step raises.
 
     Stochastic depth (cfg.aggregator.drop_path_rate > 0) draws from a
@@ -173,15 +176,6 @@ def make_train_step(
         )
     mesh = sharding.mesh if sharding is not None else None
     over_seq = mesh is not None and mesh.seq_processes
-    if over_seq and state_sharding != "none":
-        raise NotImplementedError(
-            f"state_sharding={state_sharding!r} with the seq axis over processes is not "
-            "ported yet: it is the next slice (the state sharded over data x seq processes, "
-            "the seq part of every reduce-scatter and gather through the seq group's peer "
-            "memory). Train over seq processes with state_sharding='none', or shard the "
-            "state on a mesh whose seq axis is logical ranks (make_mesh(data=<world size>, "
-            "seq=...))"
-        )
 
     def process_sum(x):
         """x summed over every process: the seq group's, then the data group's."""

@@ -953,6 +953,37 @@ def _peer_grad(rank, n, device):
     return torch.sin(torch.arange(n, device=device) * 0.37 + rank * 3.1) * (rank + 1)
 
 
+# a block's sharded tensors: (whole shape, sharded dim); a bucket of 80
+# elements takes the chunks of the first three in one gather bucket and the
+# last in a second, and each tensor's reduce-scatter in a bucket of its own
+_BLOCK = (((6, 8), 0), ((4, 10), 1), ((2, 3, 12), 2), ((16,), 0))
+_BLOCK_BUCKET = 80
+
+
+def _block_whole(i, dtype, device):
+    shape, _ = _BLOCK[i]
+    n = int(np.prod(shape))
+    return (torch.arange(n, device=device).reshape(shape) * 0.125 - i).to(dtype)
+
+
+def _block_grad(i, rank, dtype, device):
+    """Rank `rank`'s gradient of tensor i of the block (whole)."""
+    shape, _ = _BLOCK[i]
+    n = int(np.prod(shape))
+    return torch.sin(torch.arange(n, device=device).reshape(shape) * (0.7 + i) + rank).to(dtype)
+
+
+def _block_chunk(x, i, rank):
+    dim = _BLOCK[i][1]
+    n = x.shape[dim] // 2
+    return x.narrow(dim, rank * n, n)
+
+
+def _small_part(rank, device):
+    return torch.arange(24, dtype=torch.float32, device=device).reshape(4, 6).sin() * (rank + 1) \
+        - rank
+
+
 def _process_worker(rank, rdzv, out):
     import os
 
@@ -985,10 +1016,42 @@ def _process_worker(rank, rdzv, out):
         gathered = C.seq_gather(x, mesh, 1)
         (gathered * _peer_weight(rank, dtype, dev)).sum().backward()
         res["gather"][str(dtype)] = (gathered.detach().cpu(), x.grad.cpu())
+    # the seq axis's gathers and reductions with the tensor in one bucket,
+    # and copied out in buckets of 5 elements
+    res["small_buckets"], x, sound = {}, _small_part(rank, dev), C.SEQ_BUCKET_ELEMS
+    for bucket in (24, 5):
+        C.SEQ_BUCKET_ELEMS = bucket
+        try:
+            res["small_buckets"][bucket] = [t.cpu() for t in (
+                C.seq_all_gather(x, mesh, 1), C.seq_sum(x, mesh), C.seq_max(x, mesh),
+                C.seq_reduce_scatter(x, mesh, 1))]
+        finally:
+            C.SEQ_BUCKET_ELEMS = sound
     grads = [_peer_grad(rank, n, dev) for n in _PEER_SIZES]
     C.reset_calls()
     C.seq_all_reduce_sum(grads, mesh, bucket_elems=_PEER_BUCKET)
     res["sum"] = ([g.cpu() for g in grads], C.calls()["seq_all_reduce"])
+    # the state's flat collectives: a block's chunks gathered as one
+    # (differentiable: its backward a flat reduce-scatter), and both in
+    # buckets of _BLOCK_BUCKET elements
+    res["block"] = {}
+    dims = [d for _, d in _BLOCK]
+    for dtype in (torch.float32, torch.bfloat16):
+        shards = [[_block_chunk(_block_whole(i, dtype, dev), i, rank).clone().requires_grad_()]
+                  for i in range(len(_BLOCK))]
+        C.reset_calls()
+        fulls = C.gather_shards(shards, mesh, dims)
+        sum((f * _block_grad(i, rank, dtype, dev)).sum() for i, f in enumerate(fulls)).backward()
+        flat = C.calls()
+        small = C.all_gather_many([[s[0].detach()] for s in shards], mesh, dims,
+                                  bucket_elems=_BLOCK_BUCKET)
+        scattered = C.reduce_scatter_many([_block_grad(i, rank, dtype, dev)
+                                           for i in range(len(_BLOCK))], mesh, dims,
+                                          bucket_elems=_BLOCK_BUCKET)
+        res["block"][str(dtype)] = {
+            "gathered": [f.detach().cpu() for f in fulls], "grads": [s[0].grad.cpu() for s in shards],
+            "small": [f.cpu() for f in small], "scattered": [c.cpu() for (c,) in scattered],
+            "flat": flat, "calls": C.calls()}
     mesh.close()
     torch.save(res, os.path.join(out, f"rank_{rank}.pt"))
     dist.barrier()
@@ -1052,6 +1115,57 @@ def test_seq_gather_and_bucketed_sum_over_peer_memory(cuda, process_runs):
         assert buckets == -(-sum(_PEER_SIZES) // _PEER_BUCKET)
         for g, w in zip(got, want):
             assert torch.equal(g, w.cpu())
+
+
+def test_seq_collectives_in_buckets_smaller_than_the_tensor(cuda, process_runs):
+    """seq_all_gather, seq_sum, seq_max and seq_reduce_scatter through the
+    peer memory give the same bits with the tensor in one staging bucket
+    and copied out in buckets of 5 elements."""
+    parts = [_small_part(r, cuda) for r in range(2)]
+    total = parts[0] + parts[1]
+    for rank, res in enumerate(process_runs):
+        want = (torch.cat(parts, 1), total, torch.maximum(parts[0], parts[1]),
+                total[:, rank * 3:(rank + 1) * 3])
+        for bucket in (24, 5):
+            for name, a, b in zip(("gather", "sum", "max", "scatter"),
+                                  res["small_buckets"][bucket], want):
+                assert torch.equal(a, b.cpu()), (bucket, name, rank)
+
+
+def test_flat_state_collectives_over_peer_memory_are_the_logical_layout(cuda, process_runs):
+    """The state's flat collectives over two processes through the peer
+    memory, fp32 and bf16, bitwise against the same calls on 2 logical
+    ranks in one process: a block's chunks gathered as one collective
+    (one bucket each way), its backward reduce-scattering every rank's
+    gradient in rank order onto the chunks; and the gather and the
+    reduce-scatter in buckets of 80 elements (2 and 4 buckets)."""
+    from omnivggt_tpu_torch.parallel import collectives as C
+    from omnivggt_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=1, seq=2, device=cuda)
+    dims = [d for _, d in _BLOCK]
+    for dtype in (torch.float32, torch.bfloat16):
+        wholes = [_block_whole(i, dtype, cuda) for i in range(len(_BLOCK))]
+        shards = [[_block_chunk(w, i, r).clone().requires_grad_() for r in range(2)]
+                  for i, w in enumerate(wholes)]
+        fulls = C.gather_shards(shards, mesh, dims)
+        sum((f * _block_grad(i, r, dtype, cuda)).sum() for i, f in enumerate(fulls)
+            for r in range(2)).backward()
+        summed = [_block_grad(i, 0, dtype, cuda) + _block_grad(i, 1, dtype, cuda)
+                  for i in range(len(_BLOCK))]
+        for rank, res in enumerate(process_runs):
+            got = res["block"][str(dtype)]
+            for i, w in enumerate(wholes):
+                assert torch.equal(got["gathered"][i], fulls[i].detach().cpu()), (dtype, i)
+                assert torch.equal(got["gathered"][i], w.cpu()) and torch.equal(
+                    got["small"][i], w.cpu()), (dtype, i)
+                want = shards[i][rank].grad.cpu()
+                assert torch.equal(got["grads"][i], want), (dtype, rank, i)
+                assert torch.equal(want, _block_chunk(summed[i], i, rank).cpu()), (dtype, i)
+                assert torch.equal(got["scattered"][i], want), (dtype, rank, i)
+            assert (got["flat"]["state_seq_gather"], got["flat"]["state_seq_scatter"]) == (1, 1)
+            assert (got["calls"]["state_seq_gather"] - 1, got["calls"]["state_seq_scatter"] - 1) \
+                == (2, 4)
 
 
 def test_ring_process_form_is_the_logical_form_bitwise(cuda, process_runs):

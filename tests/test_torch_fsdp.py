@@ -239,8 +239,12 @@ def test_sharded_init_and_refusals():
     assert layout.mode == "fsdp" and len(layout.shards) > 0.8 * len(ref)
     for name, shards in layout.shards.items():
         assert torch.equal(torch.cat([s.detach() for s in shards], layout.specs[name]), ref[name])
+    # a group a Block, except the camera head's trunk (run once an
+    # iteration): one group for the head's call
     assert sorted(layout.block_groups) == sorted(
-        n for n, m in state.model.named_modules() if type(m).__name__ == "Block")
+        n for n, m in state.model.named_modules()
+        if type(m).__name__ == "Block" and not n.startswith("camera_head.")) + ["camera_head"]
+    assert all(n.startswith("camera_head.") for n in layout.block_groups["camera_head"])
     assert all(n not in layout.rest for names in layout.block_groups.values() for n in names)
     C.reset_calls()
     full = layout.full_state_dict()

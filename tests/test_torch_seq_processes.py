@@ -182,6 +182,51 @@ def exact_mode_error(mesh):
     return None, dict(session._served)
 
 
+def training_refusals(mesh):
+    """{what: the message} of what training over the seq processes still
+    refuses: the fused ring (its kernels have no backward), and a state
+    laid out on another mesh (the same axes as logical ranks) than the
+    step's, which the step refuses before it reads the batch."""
+    from omnivggt_tpu_torch.parallel import fsdp as TF
+
+    out = {}
+    for what in ("ring_fused", "zero2", "fsdp"):
+        model = tiny_model()
+        opt = TS.make_optimizer(model, learning_rate=1e-3, warmup_steps=1, total_steps=10)
+        try:
+            if what == "ring_fused":
+                TS.make_train_step(model.config, opt, ModelSharding(mesh, "ring_fused"))
+                continue
+            step = TS.make_train_step(model.config, opt, ModelSharding(mesh, "allgather"),
+                                      state_sharding=what)
+            logical = PM.Mesh(1, N_PROC, mesh.device)
+            step(TF.shard_state(TS.init_state(model, opt), logical, what, min_elems=0), {})
+        except ValueError as e:
+            out[what] = str(e)
+    return out
+
+
+def combines_in_small_buckets(mesh):
+    """{bucket: seq_all_gather along dim 1, seq_sum, seq_max and
+    seq_reduce_scatter along dim 1} of a (4, 6) tensor staged in buckets
+    of 24 elements (one) and of 5 (the tensor copied out bucket by
+    bucket)."""
+    x = small_part(mesh.seq_rank)
+    out, sound = {}, C.SEQ_BUCKET_ELEMS
+    for bucket in (24, 5):
+        C.SEQ_BUCKET_ELEMS = bucket
+        try:
+            out[bucket] = (C.seq_all_gather(x, mesh, 1), C.seq_sum(x, mesh), C.seq_max(x, mesh),
+                           C.seq_reduce_scatter(x, mesh, 1))
+        finally:
+            C.SEQ_BUCKET_ELEMS = sound
+    return out
+
+
+def small_part(rank):
+    return torch.arange(24, dtype=torch.float32).reshape(4, 6).sin() * (rank + 1) - rank
+
+
 def _worker(rank, rdzv, out):
     torch.set_num_threads(1)
     import torch.distributed as dist
@@ -201,16 +246,8 @@ def _worker(rank, rdzv, out):
     results["ring"] = ring_kernels(mesh)
     results["session"] = session_answers(mesh)
     results["exact"] = exact_mode_error(mesh)
-    model = tiny_model()
-    opt = TS.make_optimizer(model, learning_rate=1e-3, warmup_steps=1, total_steps=10)
-    results["train"] = {}
-    for mode in ("zero2", "fsdp"):
-        try:
-            TS.make_train_step(model.config, opt, ModelSharding(mesh, "allgather"),
-                               state_sharding=mode)
-        except NotImplementedError as e:
-            results["train"][mode] = str(e)
-    TS.make_train_step(model.config, opt, ModelSharding(mesh, "allgather"))  # "none" trains
+    results["train"] = training_refusals(mesh)
+    results["small_buckets"] = combines_in_small_buckets(mesh)
     torch.save(results, os.path.join(out, f"results_{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -376,16 +413,36 @@ def test_counted_collectives(runs):
         calls, elems = got["forwards"][1]
         assert calls == {"all_reduce": 0, "reduce_scatter": 0, "all_gather": 0,
                          "seq_all_gather": 2 * depth + 6, "seq_max": 0, "seq_sum": 1,
-                         "seq_gather": 0, "seq_reduce_scatter": 0, "seq_all_reduce": 0}
+                         "seq_gather": 0, "seq_reduce_scatter": 0, "seq_all_reduce": 0,
+                         "state_seq_gather": 0, "state_seq_scatter": 0}
         assert ref_calls == {k: 0 for k in calls} and ref_elems == ref_calls
         assert elems["seq_sum"] == 2
 
 
 def test_training_over_seq_processes_raises(runs):
-    """Training over seq processes keeps its state replicated: zero2 and fsdp
-    raise and name the next slice (state_sharding "none" trains:
-    tests/test_torch_seq_training.py)."""
+    """What training over seq processes still refuses (every state sharding
+    trains: tests/test_torch_seq_training.py): the fused ring, whose
+    kernels have no backward, and a zero2 / fsdp state laid out on another
+    mesh than the step's (the same axes as logical ranks), before any
+    forward."""
     for got in runs["got"]:
-        assert sorted(got["train"]) == ["fsdp", "zero2"]
-        for mode, message in got["train"].items():
-            assert "next slice" in message and f"state_sharding={mode!r}" in message
+        assert sorted(got["train"]) == ["fsdp", "ring_fused", "zero2"]
+        assert "ring kernels have no backward" in got["train"]["ring_fused"]
+        for mode in ("zero2", "fsdp"):
+            message = got["train"][mode]
+            assert f"laid out for state_sharding={mode!r}" in message, message
+            assert f"this step is {mode!r}" in message, message
+
+
+def test_seq_collectives_staged_in_buckets_smaller_than_the_tensor(runs):
+    """The seq axis's gathers and reductions give the same bits whether the
+    tensor fits one bucket or is copied out in buckets of 5 elements."""
+    parts = [small_part(r) for r in range(N_PROC)]
+    total = parts[0] + parts[1]
+    for rank, got in enumerate(runs["got"]):
+        want = (torch.cat(parts, 1), total, torch.maximum(parts[0], parts[1]),
+                total[:, rank * 3:(rank + 1) * 3])
+        for bucket in (24, 5):
+            for name, a, b in zip(("gather", "sum", "max", "scatter"), got["small_buckets"][bucket],
+                                  want):
+                assert torch.equal(a, b), (bucket, name, rank)

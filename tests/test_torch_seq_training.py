@@ -28,9 +28,19 @@ gradients taken at the init).
   - planted faults (the gather's backward keeping only this process's own
     gradient; the gradients left unsummed over the seq group) land far
     outside the tolerance;
-  - the counted collectives of one step; zero2 / fsdp refused;
+  - the counted collectives of one step;
   - a (2, 2) mesh over four processes for one step against logical ranks;
-  - the training CLI under torchrun on --mesh 1,2 against its logical run.
+  - zero2 and fsdp over the processes (the state in data x seq chunks, one
+    a process; min_elems 0, as tests/test_fsdp.py sets _MIN_SHARD_ELEMS):
+    the gradient chunks the optimizer is given are bitwise state none's
+    summed gradient's; 2 steps against none and the JAX step; each
+    process's chunk index and state bytes against the JAX package's
+    NamedSharding and count, on (1, 2) and (2, 2); planted faults (the
+    seq part of the reduce-scatter left out, the own chunk taken at the
+    next index); a fsdp checkpoint gathered one tensor at a time, restored
+    into a laid-out state;
+  - the training CLI under torchrun on --mesh 1,2 against its logical run,
+    under every state sharding.
 
 The spawned processes import no JAX: the module imports it only inside the
 tests that run here.
@@ -53,6 +63,7 @@ import torch
 from omnivggt_tpu_torch import config as TC
 from omnivggt_tpu_torch.models import omnivggt as TM
 from omnivggt_tpu_torch.parallel import collectives as C
+from omnivggt_tpu_torch.parallel import fsdp as TF
 from omnivggt_tpu_torch.parallel import mesh as PM
 from omnivggt_tpu_torch.parallel.sharding import ModelSharding
 from omnivggt_tpu_torch.train import step as TS
@@ -73,6 +84,9 @@ CASES = tuple(
     ("no camera mask", "first_camera_in_rank_1", "allgather", 0.0, False, 1),
 )
 FAULTS = ("own gradient only", "unsummed over seq")
+SHARDED = ("zero2", "fsdp")
+SHARDED_LAYOUT = "first_camera_in_rank_0"
+SHARDED_FAULTS = ("seq part of the reduce-scatter left out", "own chunk at the next index")
 
 
 def make_batch(layout, scenes=1, seed=0, camera_valid=True):
@@ -170,18 +184,172 @@ def planted(mesh, fault):
 
 
 def refusals(mesh):
-    """{what: the message} of the step's refusals on `mesh`."""
+    """{what: the message} of what training on `mesh` still refuses: the
+    fused ring, and a zero2 / fsdp state laid out on another mesh (the
+    same axes as logical ranks), which the step refuses before it reads
+    the batch."""
     out = {}
-    for mode in ("zero2", "fsdp"):
-        try:
-            new_state(mesh, state_sharding=mode)
-        except NotImplementedError as e:
-            out[mode] = str(e)
     try:
         new_state(mesh, "ring_fused")
     except ValueError as e:
         out["ring_fused"] = str(e)
+    for mode in SHARDED:
+        state, step = new_state(mesh, state_sharding=mode)
+        TF.shard_state(state, PM.Mesh(1, 2, mesh.device), mode, min_elems=0)
+        try:
+            step(state, {})
+        except ValueError as e:
+            out[mode] = str(e)
     return out
+
+
+def new_sharded(mesh, mode):
+    """new_state laid out under `mode` on `mesh` (min_elems 0: the tiny
+    config's leaves are all below the default)."""
+    state, step = new_state(mesh, state_sharding=mode)
+    if mode != "none":
+        TF.shard_state(state, mesh, mode, min_elems=0)
+    return state, step
+
+
+def capture_first_grads(state) -> dict:
+    """{parameter name: the gradients the optimizer's first step is given,
+    one a tensor it steps (a chunk of a sharded one)}, filled by it."""
+    grads, real = {}, state.optimizer.step
+
+    def first_step():
+        state.optimizer.step = real
+        grads.update({n: [t.grad.clone() for t in ts] for n, ts in state.optimizer.slots.items()})
+        return real()
+
+    state.optimizer.step = first_step
+    return grads
+
+
+def process_state_bytes(state) -> int:
+    """The bytes this process holds of a TrainState: each parameter (its
+    chunk under fsdp) and its two AdamW moments (their chunks under zero2
+    and fsdp)."""
+    layout, opt, total = state.layout, state.optimizer, 0
+    for name, slots in opt.slots.items():
+        param = (layout.params[name] if layout is not None and layout.mode == "zero2"
+                 and name in layout.specs else slots[0])
+        moments = opt.adamw.state[slots[0]]
+        total += sum(t.numel() * t.element_size()
+                     for t in (param, moments["exp_avg"], moments["exp_avg_sq"]))
+    return total
+
+
+def chunk_placement(state) -> tuple:
+    """(name, sharded dim, [start, stop) along it) of the chunks this
+    process holds of the largest sharded parameter: its layout's
+    local_pieces of the dim's indices."""
+    layout = state.layout
+    name = max(layout.specs, key=lambda n: layout.shards[n][0].numel())
+    dim, shard = layout.specs[name], layout.shards[name][0]
+    shape = [1] * shard.ndim
+    shape[dim] = shard.shape[dim] * layout.mesh.size
+    pieces = layout.local_pieces(name, torch.arange(shape[dim]).view(shape))
+    return name, dim, int(pieces[0].min()), int(pieces[-1].max()) + 1
+
+
+def train_sharded(mesh, mode, batch, steps=STEPS):
+    """`steps` steps of `mode` from the seed-0 init: (metrics a step, the
+    final parameters whole, the first step's gradients, its collectives,
+    the process's state bytes, its chunk of the largest sharded tensor)."""
+    state, step = new_sharded(mesh, mode)
+    grads = capture_first_grads(state)
+    batch = PM.shard_batch(mesh, batch)
+    history, counted = [], None
+    for i in range(steps):
+        C.reset_calls()
+        state, metrics = step(state, batch)
+        if i == 0:
+            counted = C.calls()
+        history.append({k: v.item() for k, v in metrics.items()})
+    whole = state.layout.full_state_dict() if state.layout is not None else state.model.state_dict()
+    params = {k: v.detach().clone() for k, v in whole.items()}
+    out = {"history": history, "params": params, "grads": grads, "calls": counted}
+    if state.layout is not None:
+        out["bytes"] = process_state_bytes(state)
+        out["placement"] = chunk_placement(state)
+    return out
+
+
+def sharded_planted(mesh, mode, fault):
+    """train_sharded's metrics and final parameters under `mode` with a
+    planted fault: the reduce-scatter keeping this process's part of its
+    own gradient (the seq part left out), or every process holding and
+    stepping the chunk at the next index."""
+    batch = make_batch(SHARDED_LAYOUT)
+    if fault == SHARDED_FAULTS[0]:
+        real = C._seq_scatter_state
+
+        def own_part_only(xs, mesh, dims, bucket_elems):
+            return [x.narrow(d, mesh.seq_rank * (x.shape[d] // mesh.seq), x.shape[d] // mesh.seq)
+                    .clone() for x, d in zip(xs, dims)]
+
+        C._seq_scatter_state = own_part_only
+        try:
+            out = train_sharded(mesh, mode, batch)
+        finally:
+            C._seq_scatter_state = real
+    else:
+        real = PM.Mesh.own_ranks
+
+        def next_index(m):
+            first = (real.fget(m).start + 1) % m.size
+            return range(first, first + m.local_size)
+
+        PM.Mesh.own_ranks = property(next_index)
+        try:
+            out = train_sharded(mesh, mode, batch)
+        finally:
+            PM.Mesh.own_ranks = real
+    return out["history"], out["params"]
+
+
+def fsdp_save(mesh, out):
+    """One fsdp step (at rate 0) over the processes, then its checkpoint:
+    how many gathered tensors were alive at each gather of a save that
+    drops them (every process gathers, global rank 0 writes), the file,
+    and whether a fsdp state laid out first and restored from it holds the
+    file's parameters and moments bitwise."""
+    import weakref
+
+    import torch.distributed as dist
+
+    from omnivggt_tpu_torch.train import checkpointing as CK
+
+    state, step = new_sharded(mesh, "fsdp")
+    state, _ = step(state, PM.shard_batch(mesh, make_batch(SHARDED_LAYOUT)))
+    gathered, alive, sound = [], [], C.all_gather
+
+    def all_gather(*args, **kwargs):
+        alive.append(sum(r() is not None for r in gathered))
+        whole = sound(*args, **kwargs)
+        gathered.append(weakref.ref(whole))
+        return whole
+
+    C.all_gather = all_gather
+    try:
+        state.layout.full_state_dict(lambda t: None)
+        state.optimizer.state_dict(lambda t: None)
+    finally:
+        C.all_gather = sound
+    path = CK.save_train_state(os.path.join(out, "ckpt_fsdp"), state)
+    dist.barrier()  # the file is written
+    like, _ = new_sharded(mesh, "fsdp")
+    CK.restore_train_state(path, like)
+    saved = torch.load(path, weights_only=True)
+    model, moments = like.layout.full_state_dict(), like.optimizer.state_dict()["adamw"]["state"]
+    roundtrip = (all(torch.equal(model[k], v) for k, v in saved["model"].items())
+                 and all(torch.equal(moments[i][key], e[key])
+                         for i, e in saved["optimizer"]["adamw"]["state"].items()
+                         for key in ("exp_avg", "exp_avg_sq")))
+    return {"path": path, "gathers": len(gathered), "alive": max(alive), "roundtrip": roundtrip,
+            "step": like.step, "held": sum(s.numel() for ss in like.layout.shards.values()
+                                           for s in ss)}
 
 
 def digest(params):
@@ -203,11 +371,18 @@ def _worker(rank, world, rdzv, out):
         results = {"mesh": (mesh.seq_processes, mesh.seq_rank, mesh.group is None),
                    "cases": run_cases(mesh),
                    "faults": {f: planted(mesh, f) for f in FAULTS},
-                   "refusals": refusals(mesh)}
+                   "refusals": refusals(mesh),
+                   "sharded": {m: train_sharded(mesh, m, make_batch(SHARDED_LAYOUT))
+                               for m in ("none",) + SHARDED},
+                   "sharded_faults": {(m, f): sharded_planted(mesh, m, f)
+                                      for m in SHARDED for f in SHARDED_FAULTS},
+                   "fsdp_save": fsdp_save(mesh, out)}
     else:
         mesh = PM.make_mesh(data=2, seq=2, device="cpu")
+        batch = make_batch("first_camera_in_rank_1", scenes=2)
         results = {"mesh": (mesh.rank, mesh.seq_rank),
-                   "2x2": train(mesh, make_batch("first_camera_in_rank_1", scenes=2), steps=1)}
+                   "2x2": train(mesh, batch, steps=1),
+                   "2x2 sharded": {m: train_sharded(mesh, m, batch, steps=1) for m in SHARDED}}
     torch.save(results, os.path.join(out, f"results_{rank}.pt"))
     dist.barrier()
     dist.destroy_process_group()
@@ -355,12 +530,15 @@ def test_counted_collectives(runs):
     assert all(v == 0 for k, v in ref_calls.items() if k.startswith("seq"))
 
 
-def test_zero2_and_fsdp_over_seq_processes_name_the_next_slice(runs):
+def test_what_training_over_seq_processes_still_refuses(runs):
+    """The fused ring (no backward), and a state laid out on another mesh
+    than the step's; zero2 and fsdp themselves train (below)."""
     for got in runs["got"]:
-        for mode in ("zero2", "fsdp"):
-            assert "next slice" in got["refusals"][mode], mode
-            assert f"state_sharding={mode!r}" in got["refusals"][mode]
+        assert sorted(got["refusals"]) == ["fsdp", "ring_fused", "zero2"]
         assert "ring kernels have no backward" in got["refusals"]["ring_fused"]
+        for mode in SHARDED:
+            assert f"laid out for state_sharding={mode!r}" in got["refusals"][mode], mode
+            assert f"this step is {mode!r}" in got["refusals"][mode], mode
 
 
 def test_two_by_two_mesh_over_four_processes(runs_2x2):
@@ -410,12 +588,26 @@ def _jax_run(strategy, batches):
     return out
 
 
+@pytest.fixture(scope="module")
+def jax_steps():
+    """strategy -> _jax_run of both layouts, each compiled once for the module."""
+    done = {}
+
+    def get(strategy):
+        if strategy not in done:
+            done[strategy] = _jax_run(strategy, {layout: make_batch(layout)
+                                                 for layout in sorted(LAYOUTS)})
+        return done[strategy]
+
+    return get
+
+
 @pytest.mark.parametrize("strategy", STRATEGIES)
-def test_processes_train_to_the_jax_step(runs, strategy):
+def test_processes_train_to_the_jax_step(runs, jax_steps, strategy):
     """Both layouts' 2 steps over the processes against the JAX package's
     step on its (1, 2) mesh: metrics at rtol 2e-4 / atol 1e-6, the largest
     parameter at rtol 1e-4 / atol 2e-5."""
-    want = _jax_run(strategy, {layout: make_batch(layout) for layout in sorted(LAYOUTS)})
+    want = jax_steps(strategy)
     for layout, (jhist, jparams) in want.items():
         hist, params, _ = runs["got"][1]["cases"][f"{layout} {strategy}"]
         for g, w in zip(hist, jhist):
@@ -439,28 +631,40 @@ def test_cli_backend_under_torchrun(mesh, world, backend):
     assert launch_backend(mesh, world) == backend
 
 
-def test_training_cli_under_torchrun_over_seq_processes(tmp_path):
+# the CLI with the tiny config's leaves sharded (as tests/test_fsdp.py sets
+# _MIN_SHARD_ELEMS; they are all below the default threshold)
+CLI_MAIN = """import sys
+from omnivggt_tpu_torch.parallel import fsdp
+fsdp._MIN_SHARD_ELEMS = 0
+from omnivggt_tpu_torch.tools.train import main
+main(sys.argv[1:])
+"""
+
+
+@pytest.mark.parametrize("state_sharding", ("none",) + SHARDED)
+def test_training_cli_under_torchrun_over_seq_processes(tmp_path, state_sharding):
     """torchrun --nproc_per_node 2 runs the training CLI on --mesh 1,2 on the
-    CPU: the gloo group from torchrun's environment, one seq rank a
-    process, both reading the same samples; global rank 0 alone logs (each
-    step once) and writes the one checkpoint, and the logged losses equal
-    the same CLI's run on 2 logical ranks within 1e-6."""
+    CPU under each --state_sharding: the gloo group from torchrun's
+    environment, one seq rank a process, both reading the same samples;
+    global rank 0 alone logs (each step once) and writes the one
+    checkpoint, and the logged losses equal the same CLI's run on 2
+    logical ranks within 1e-6."""
     from omnivggt_tpu_torch.data.streaming import write_shards
 
     samples = [{k: v.numpy() for k, v in TS.synthetic_batch(S, HW, "cpu", seed=i).items()}
                for i in range(4)]
     write_shards(samples, str(tmp_path / "shards"), samples_per_shard=2)
+    (tmp_path / "cli_main.py").write_text(CLI_MAIN)
     args = ["--shards", str(tmp_path / "shards" / "*.tar"), "--batch", "1", "--views", str(S),
             "--tiny", "--device", "cpu", "--mesh", "1,2", "--steps", "2", "--warmup", "1",
-            "--log_every", "1"]
+            "--log_every", "1", "--state_sharding", state_sharding]
     env = dict(os.environ, PYTHONPATH=str(REPO), CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
     logged = {}
     for launch in ("torchrun", "logical"):
         ck = tmp_path / launch
         cmd = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
                 "--nproc_per_node", "2"] if launch == "torchrun" else [sys.executable])
-        proc = subprocess.run(cmd + ["-m", "omnivggt_tpu_torch.tools.train", *args,
-                                     "--ckpt_dir", str(ck)],
+        proc = subprocess.run(cmd + [str(tmp_path / "cli_main.py"), *args, "--ckpt_dir", str(ck)],
                               cwd=tmp_path, env=env, capture_output=True, text=True, timeout=240)
         assert proc.returncode == 0, proc.stdout[-3000:] + proc.stderr[-3000:]
         logged[launch] = [json.loads(x) for x in (ck / "metrics.jsonl").read_text().splitlines()]
@@ -471,3 +675,219 @@ def test_training_cli_under_torchrun_over_seq_processes(tmp_path):
     for got, want in zip(logged["torchrun"], logged["logical"]):
         for key in ("total", "camera", "depth", "point", "grad_norm"):
             _close(got[key], want[key], f"CLI {key}")
+
+
+def test_cli_lays_the_state_out_before_restoring(tmp_path, monkeypatch):
+    """The training CLI resuming a fsdp run (2 logical seq ranks here) lays
+    the state out first, so the restore loads each process's chunks into
+    it and no state is whole on the way; the resumed step is logged."""
+    from omnivggt_tpu_torch.data.streaming import write_shards
+    from omnivggt_tpu_torch.tools import train as CLI
+    from omnivggt_tpu_torch.train import checkpointing as CK
+
+    samples = [{k: v.numpy() for k, v in TS.synthetic_batch(S, HW, "cpu", seed=i).items()}
+               for i in range(2)]
+    write_shards(samples, str(tmp_path / "shards"), samples_per_shard=2)
+    monkeypatch.setattr(TF, "_MIN_SHARD_ELEMS", 0)
+    args = ["--shards", str(tmp_path / "shards" / "*.tar"), "--batch", "1", "--views", str(S),
+            "--tiny", "--device", "cpu", "--mesh", "1,2", "--state_sharding", "fsdp",
+            "--warmup", "1", "--log_every", "1", "--ckpt_dir", str(tmp_path / "ck")]
+    CLI.main(args + ["--steps", "1"])
+    layouts, sound = [], CK.restore_train_state
+
+    def restore(path, like):
+        layouts.append((like.layout.mode, like.layout.mesh.shape, len(like.layout.shards)))
+        return sound(path, like)
+
+    monkeypatch.setattr(CK, "restore_train_state", restore)
+    state = CLI.main(args + ["--steps", "2"])
+    assert layouts == [("fsdp", {"data": 1, "seq": 2}, len(state.layout.specs))]
+    assert len(state.layout.specs) > 0 and state.step == 2
+    logged = [json.loads(x) for x in (tmp_path / "ck" / "metrics.jsonl").read_text().splitlines()]
+    assert [m["step"] for m in logged] == [1, 2]
+
+
+def _tiny_specs(ranks):
+    model = TM.OmniVGGT(TC.tiny_test_config(), device="meta", seed=None)
+    return {n: d for n, d in TF.tree_specs(model, ranks, 0).items() if d is not None}
+
+
+@pytest.mark.parametrize("mode", SHARDED)
+def test_sharded_gradient_chunks_are_state_nones_bitwise(runs, mode):
+    """At data 1 the gradients the optimizer's first step is given over the
+    two processes, under zero2 (reduce-scattered after the backward) and
+    fsdp (in it), are bitwise the matching chunk of state none's summed
+    gradient over the same processes: the same rank-order sum; the
+    replicated leaves' are bitwise none's too."""
+    specs = _tiny_specs(2)
+    for rank, got in enumerate(runs["got"]):
+        none, x = got["sharded"]["none"]["grads"], got["sharded"][mode]["grads"]
+        assert none.keys() == x.keys() and len(specs) > 0.8 * len(none)
+        for name, (whole,) in none.items():
+            if name in specs:
+                dim = specs[name]
+                n = whole.shape[dim] // 2
+                whole = whole.narrow(dim, rank * n, n)
+            assert len(x[name]) == 1 and torch.equal(x[name][0], whole), (mode, rank, name)
+
+
+@pytest.mark.parametrize("mode", SHARDED)
+def test_sharded_modes_train_to_none_and_to_the_jax_step(runs, jax_steps, mode):
+    """2 steps of zero2 / fsdp over the processes: metrics and parameters
+    against state none over the same processes (1e-6, the Adam floor for
+    the parameters), and against the JAX step on its (1, 2) mesh, whose
+    zero2 / fsdp equal its none up to the reduction order, at
+    tests/test_torch_fsdp.py's figures (metrics rtol 2e-4 / atol 1e-6; the
+    largest parameter rtol 1e-4 / atol 2e-5; every one within 1e-4); both
+    processes hold the same parameters bit for bit."""
+    from tests import torch_port_util as U
+
+    want_hist, want_params, _ = runs["got"][0]["cases"][f"{SHARDED_LAYOUT} allgather"]
+    jhist, jparams = jax_steps("allgather")[SHARDED_LAYOUT]
+    largest = max(jparams, key=lambda k: jparams[k].numel())
+    digests = set()
+    for got in runs["got"]:
+        x = got["sharded"][mode]
+        _history_close(x["history"], want_hist, mode)
+        _params_close(x["params"], want_params, mode)
+        for g, w in zip(x["history"], jhist):
+            for key in w:
+                np.testing.assert_allclose(g[key], w[key], rtol=2e-4, atol=1e-6,
+                                           err_msg=f"{mode} {key}")
+        np.testing.assert_allclose(x["params"][largest].numpy(), jparams[largest].numpy(),
+                                   rtol=1e-4, atol=2e-5, err_msg=f"{mode} {largest}")
+        U.assert_trees_close(x["params"], jparams, rel=0.0, floor=1e-4)
+        digests.add(digest(x["params"]))
+    assert len(digests) == 1
+
+
+@pytest.mark.parametrize("data,seq", [(1, 2), (2, 2)])
+def test_chunk_index_is_the_jax_named_shardings(request, data, seq):
+    """Each process's chunk of the largest sharded tensor, under both modes,
+    is the one that the JAX package's NamedSharding over ("data", "seq")
+    places on device (data rank, seq rank) of a virtual CPU mesh."""
+    import jax
+    from jax.sharding import NamedSharding
+    from jax.sharding import PartitionSpec as P
+
+    from omnivggt_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    jmesh = jax_make_mesh(data=data, seq=seq, devices=jax.devices()[:data * seq])
+    if data == 1:
+        got, key = request.getfixturevalue("runs")["got"], "sharded"
+    else:
+        got, key = request.getfixturevalue("runs_2x2")["got"], "2x2 sharded"
+    for rank, res in enumerate(got):
+        for mode in SHARDED:
+            name, dim, start, stop = res[key][mode]["placement"]
+            length = (stop - start) * data * seq
+            where = NamedSharding(jmesh, P(("data", "seq"))).devices_indices_map((length,))
+            index = where[jmesh.devices[divmod(rank, seq)]][0]
+            assert (start, stop) == (index.start, index.stop), (mode, rank, name, dim)
+
+
+@pytest.mark.parametrize("mode", SHARDED)
+def test_state_bytes_a_process_are_the_jax_count(runs, runs_2x2, mode):
+    """The bytes each process holds after a step (its parameters, or their
+    chunks under fsdp, and their moments' chunks) equal
+    state_bytes_per_device, which equals the JAX package's count on the
+    same mesh (eval_shape; its two int32 step counts aside)."""
+    import jax
+
+    from omnivggt_tpu import config as JC
+    from omnivggt_tpu.models import omnivggt as JM
+    from omnivggt_tpu.parallel import fsdp as JF
+    from omnivggt_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from omnivggt_tpu.train import step as JS
+
+    shapes = jax.eval_shape(lambda: JS.init_state(JM.init(jax.random.PRNGKey(0),
+                                                          JC.tiny_test_config()),
+                                                  JS.make_optimizer()))
+    model = TM.OmniVGGT(TC.tiny_test_config(), device="meta", seed=None)
+    for (data, seq), got, key in (((1, 2), runs["got"], "sharded"),
+                                  ((2, 2), runs_2x2["got"], "2x2 sharded")):
+        jmesh = jax_make_mesh(data=data, seq=seq, devices=jax.devices()[:data * seq])
+        want = JF.state_bytes_per_device(shapes, jmesh, mode, min_elems=0) - 8
+        assert TF.state_bytes_per_device(model, PM.Mesh(data, seq, torch.device("meta")), mode,
+                                         min_elems=0) == want
+        for res in got:
+            assert res[key][mode]["bytes"] == want, (data, seq, mode)
+
+
+@pytest.mark.parametrize("mode", SHARDED)
+@pytest.mark.parametrize("fault", SHARDED_FAULTS)
+def test_sharded_planted_faults_leave_the_tolerance(runs, mode, fault):
+    """The reduce-scatter keeping this process's part of its own gradient
+    (the seq part left out), or every process holding the chunk at the
+    next index: the metrics or the parameters land far outside the
+    tolerance of state none's run."""
+    want = runs["got"][0]["cases"][f"{SHARDED_LAYOUT} allgather"][:2]
+    for got in runs["got"]:
+        assert _worst_relative(got["sharded_faults"][(mode, fault)], want) > 1e3 * TOL
+
+
+def test_fsdp_checkpoint_over_seq_processes(runs):
+    """A fsdp save over the two processes after a step at rate 0 holds one
+    gathered tensor at a time (none alive at the next gather), global rank
+    0 alone writes it, its parameters are state none's after the same step
+    bitwise, and a fsdp state laid out first restores from it bitwise,
+    each process holding its half of the sharded tensors."""
+    saves = [got["fsdp_save"] for got in runs["got"]]
+    path = saves[0]["path"]
+    assert all(x["path"] == path for x in saves) and os.listdir(os.path.dirname(path)) == [
+        os.path.basename(path)]
+    _, want, _ = train(PM.make_mesh(data=1, seq=2, device="cpu"), make_batch(SHARDED_LAYOUT),
+                       steps=1)
+    saved = torch.load(path, weights_only=True)["model"]
+    assert saved.keys() == want.keys()
+    for k, v in want.items():
+        assert torch.equal(saved[k], v), k
+    specs = _tiny_specs(2)
+    sharded = sum(v.numel() for k, v in want.items() if k in specs)
+    for x in saves:
+        assert x["alive"] == 0 and x["gathers"] >= 3 * len(specs)
+        assert x["roundtrip"] and x["step"] == 1 and 2 * x["held"] == sharded
+
+
+@pytest.mark.parametrize("mode", SHARDED)
+def test_sharded_counted_collectives(runs, mode):
+    """One step's collectives a process: state none's seq collectives and
+    one more seq_sum (the shards' squares of the global norm), the
+    replicated gradients' sum in one bucket, a reduce-scatter counted for
+    every sharded tensor. zero2: after the backward one flat bucket of
+    reduce-scatters and, after the update, one of gathers; fsdp: one flat
+    gather a block (twice for the aggregator's: remat), one for the camera
+    head's call (its trunk runs once an iteration) and one for the rest,
+    and a flat reduce-scatter for each gather the graph keeps."""
+    cfg = TC.tiny_test_config()
+    depth, n_sharded = cfg.aggregator.depth, len(_tiny_specs(2))
+    blocks = 2 * depth  # frame and global; the tiny config's patch embed is a conv
+    assert cfg.aggregator.patch_embed == "conv"
+    for got in runs["got"]:
+        calls = got["sharded"][mode]["calls"]
+        assert {k: v for k, v in calls.items() if k.startswith("seq")} == {
+            "seq_all_gather": 2, "seq_max": 0, "seq_sum": 6, "seq_gather": 4 * depth + 1,
+            "seq_reduce_scatter": 2 * depth + 1, "seq_all_reduce": 1}
+        assert calls["reduce_scatter"] == n_sharded
+        if mode == "zero2":
+            assert calls["all_gather"] == n_sharded
+            assert calls["state_seq_gather"] == calls["state_seq_scatter"] == 1
+        else:
+            assert calls["all_gather"] > n_sharded
+            assert calls["state_seq_gather"] == 2 * blocks + 2
+            assert calls["state_seq_scatter"] == blocks + 2
+
+
+@pytest.mark.parametrize("mode", SHARDED)
+def test_sharded_two_by_two_mesh_over_four_processes(runs_2x2, mode):
+    """zero2 / fsdp on data 2 x seq 2 over four processes, one chunk each:
+    one step's metrics and parameters equal the logical (2, 2) step's at
+    state none, and all four processes hold the same parameters."""
+    want_hist, want_params, _ = runs_2x2["ref"]
+    digests = set()
+    for got in runs_2x2["got"]:
+        x = got["2x2 sharded"][mode]
+        _history_close(x["history"], want_hist, f"2x2 {mode}")
+        _params_close(x["params"], want_params, f"2x2 {mode}")
+        digests.add(digest(x["params"]))
+    assert len(digests) == 1
