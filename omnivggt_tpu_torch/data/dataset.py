@@ -33,6 +33,7 @@ import torch
 from omnivggt_tpu_torch.data.formats import is_co3d_sequence, is_scannet_scene, load_scene
 from omnivggt_tpu_torch.data.view_selection import compute_ranking
 from omnivggt_tpu_torch.utils.geometry import unproject_depth_map_to_point_map
+from omnivggt_tpu_torch.utils.profiling import span
 
 
 def _normalizing_transform(exv_w2c: np.ndarray, valid: np.ndarray):
@@ -237,7 +238,8 @@ def prefetch(iterator: Iterator[dict], depth: int = 2) -> Iterator[dict]:
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with span("data.wait"):
+            item = q.get()
         if item is _END:
             return
         if isinstance(item, BaseException):

@@ -48,6 +48,7 @@ from omnivggt_tpu_torch.ops import layers as L
 from omnivggt_tpu_torch.parallel import collectives as PC
 from omnivggt_tpu_torch.utils.device import resolve_device
 from omnivggt_tpu_torch.utils.platform import exact_fp32
+from omnivggt_tpu_torch.utils.profiling import span
 
 
 CONFIG_NAME, WEIGHTS_NAME = "config.json", "model.safetensors"
@@ -365,39 +366,42 @@ def apply(
     # full fp32 wherever the forward runs fp32, whatever the caller's TF32
     # switches (utils/platform.exact_fp32); bf16 work is unaffected
     with exact_fp32():
-        layers, patch_start_idx = agg.apply(
-            model.aggregator, images, aux,
-            output_layers=needed_layers(cfg),
-            dtype=cfg.trunk_dtype,
-            attn_impl=attn_impl,
-            sharding=sharding,
-            allow_bounded=cfg.bounded_attn_logits,
-            approx_gelu=cfg.approx_gelu,
-            pad_tokens=pad_tokens,
-            remat=remat,
-            train_generator=train_generator,
-            drop_path_rate=cfg.aggregator.drop_path_rate,
-            num_valid_frames=num_valid_frames,
-            int8_dense=cfg.trunk_quant,
-            int8_qk=cfg.attn_quant == "int8",
-        )
+        with span("model.trunk", frames=images.shape[0] * images.shape[1]):
+            layers, patch_start_idx = agg.apply(
+                model.aggregator, images, aux,
+                output_layers=needed_layers(cfg),
+                dtype=cfg.trunk_dtype,
+                attn_impl=attn_impl,
+                sharding=sharding,
+                allow_bounded=cfg.bounded_attn_logits,
+                approx_gelu=cfg.approx_gelu,
+                pad_tokens=pad_tokens,
+                remat=remat,
+                train_generator=train_generator,
+                drop_path_rate=cfg.aggregator.drop_path_rate,
+                num_valid_frames=num_valid_frames,
+                int8_dense=cfg.trunk_quant,
+                int8_qk=cfg.attn_quant == "int8",
+            )
         last = layers[cfg.aggregator.depth - 1]
         if mesh is not None:
             # the head reads only the camera tokens, of every frame
             last = PC.seq_gather(last[:, :, :1].contiguous(), mesh, 1)
-        pose_enc_list = chead.apply(
-            model.camera_head, last.to(cfg.heads_dtype), num_valid_frames=num_valid_frames,
-        )
+        with span("model.camera_head"):
+            pose_enc_list = chead.apply(
+                model.camera_head, last.to(cfg.heads_dtype), num_valid_frames=num_valid_frames,
+            )
         predictions = {"pose_enc": pose_enc_list[-1], "pose_enc_list": pose_enc_list}
         for name, head, key in (
             ("depth_head", model.depth_head, "depth"),
             ("point_head", model.point_head, "world_points"),
         ):
             hcfg = getattr(cfg, name)
-            preds, conf = dhead.apply(
-                head, [layers[i] for i in hcfg.intermediate_layer_idx], (H, W),
-                patch_start_idx, dtype=cfg.heads_dtype, quant=cfg.head_quant,
-            )
+            with span("model.dpt_head"):
+                preds, conf = dhead.apply(
+                    head, [layers[i] for i in hcfg.intermediate_layer_idx], (H, W),
+                    patch_start_idx, dtype=cfg.heads_dtype, quant=cfg.head_quant,
+                )
             if mesh is not None and gather_outputs:
                 preds, conf = (PC.seq_gather(x, mesh, 1) for x in (preds, conf))
             predictions[key] = preds

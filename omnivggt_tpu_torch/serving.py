@@ -25,6 +25,7 @@
 from __future__ import annotations
 
 import io
+import itertools
 import json
 import threading
 import time
@@ -34,6 +35,8 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from omnivggt_tpu_torch.utils.profiling import record_since, span
 
 
 DEFAULT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128)
@@ -298,27 +301,29 @@ class InferenceSession:
             return np.stack([r[name] for r in reqs])
 
         with self._forward_lock, torch.inference_mode():
-            aux = M.make_aux(
-                Sb, stack("extrinsics"), stack("intrinsics"), stack("depth"), stack("mask"),
-                reqs[0]["depth_gt_index"], reqs[0]["camera_gt_index"], device=dev,
-            )
-            # a device scalar: the kernels' dynamic valid-key variant, no host sync
-            nv = torch.tensor(S, dtype=torch.int32, device=dev) if masked else None
-            images = torch.as_tensor(stack("images"), device=dev)
-            preds = M.apply(self.model, images, self.model.config, aux, num_valid_frames=nv,
-                            sharding=self.sharding)
-            arrays = {k: v.float().cpu().numpy() for k, v in preds.items()}
+            with span("serve.stage_in"):
+                aux = M.make_aux(
+                    Sb, stack("extrinsics"), stack("intrinsics"), stack("depth"), stack("mask"),
+                    reqs[0]["depth_gt_index"], reqs[0]["camera_gt_index"], device=dev,
+                )
+                # a device scalar: the kernels' dynamic valid-key variant, no host sync
+                nv = torch.tensor(S, dtype=torch.int32, device=dev) if masked else None
+                images = torch.as_tensor(stack("images"), device=dev)
+            with span("serve.forward", scenes=B, frames_run=B * Sb, frames_requested=B * S):
+                preds = M.apply(self.model, images, self.model.config, aux,
+                                num_valid_frames=nv, sharding=self.sharding)
+            with span("serve.copy_out"):
+                arrays = {k: v.float().cpu().numpy() for k, v in preds.items()}
+                outs: List[Dict[str, np.ndarray]] = [{} for _ in range(B)]
+                for k, arr in arrays.items():
+                    for b in range(B):
+                        if k == "pose_enc_list":
+                            outs[b][k] = arr[:, b, :S]
+                        else:
+                            outs[b][k] = arr[b, :S]
         with self._lock:
             served = (*reqs[0]["exec_key"], B)
             self._served[served] = self._served.get(served, 0) + 1
-
-        outs: List[Dict[str, np.ndarray]] = [{} for _ in range(B)]
-        for k, arr in arrays.items():
-            for b in range(B):
-                if k == "pose_enc_list":
-                    outs[b][k] = arr[:, b, :S]
-                else:
-                    outs[b][k] = arr[b, :S]
         return outs
 
     def infer(
@@ -453,6 +458,7 @@ class Batcher:
         self.window = window_ms / 1000.0
         self._cv = threading.Condition()
         self._pending: Dict[tuple, List[dict]] = {}  # key -> [entry]
+        self._ids = itertools.count()  # request ids, for the queue spans
         self._stop = False
         self._thread = threading.Thread(target=self._loop, daemon=True)
         self._thread.start()
@@ -471,6 +477,8 @@ class Batcher:
             "result": None,
             "error": None,
             "t": time.monotonic(),
+            "id": next(self._ids),
+            "t_ns": time.time_ns(),
         }
         with self._cv:
             self._pending.setdefault(prepared["key"], []).append(entry)
@@ -499,14 +507,15 @@ class Batcher:
             self._cv.notify()
         self._thread.join(timeout=5)
 
-    def _loop(self):
-        while True:
-            group = None
-            with self._cv:
+    def _take_group(self) -> Optional[List[dict]]:
+        """Wait for the next group to dispatch; None once closed and
+        drained."""
+        with self._cv:
+            while True:
                 while not self._pending and not self._stop:
                     self._cv.wait()
                 if self._stop and not self._pending:
-                    return
+                    return None
                 # a FULL group dispatches immediately regardless of age —
                 # waiting on the oldest key's window would starve it
                 key = next(
@@ -530,6 +539,16 @@ class Batcher:
                 del entries[: self.max_batch]
                 if not entries:
                     del self._pending[key]
+                for e in group:
+                    record_since("serve.queue", e["t_ns"], request=e["id"])
+                return group
+
+    def _loop(self):
+        while True:
+            with span("serve.batch_wait"):
+                group = self._take_group()
+            if group is None:
+                return
             try:
                 outs = self.session._execute([e["req"] for e in group])
                 for e, out in zip(group, outs):

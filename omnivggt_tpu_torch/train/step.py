@@ -38,6 +38,7 @@ from omnivggt_tpu_torch.models.aggregator import AuxInputs
 from omnivggt_tpu_torch.parallel import collectives as C
 from omnivggt_tpu_torch.train import losses as LS
 from omnivggt_tpu_torch.train.optim import Optimizer, warmup_cosine_decay_schedule
+from omnivggt_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -74,9 +75,10 @@ def init_state(model: torch.nn.Module, optimizer: Optimizer) -> TrainState:
 
 def batch_to_device(batch: dict, device) -> dict:
     """numpy (or tensor) batch -> tensors on `device`."""
-    return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
-                               device=device)
-            for k, v in batch.items()}
+    with span("train.h2d"):
+        return {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
+                                   device=device)
+                for k, v in batch.items()}
 
 
 def synthetic_batch(S: int, size: int, device, seed: int = 0, scenes: int = 1) -> dict:
@@ -208,15 +210,17 @@ def make_train_step(
         if layout is not None:
             layout.zero_grad()
         with layout.gathered_rest() if layout is not None else contextlib.nullcontext():
-            preds = M.apply(
-                model, images, cfg, aux, attn_impl=attn_impl, pad_tokens=False,
-                remat=remat, train_generator=generator, sharding=sharding,
-                gather_outputs=not over_seq,
-            )
-            losses = LS.total_loss(preds, own_frames(batch) if over_seq else batch, (H, W),
-                                   global_count=process_sum if mesh is not None else None,
-                                   mesh=mesh)
-            losses["total"].backward()
+            with span("train.forward"):
+                preds = M.apply(
+                    model, images, cfg, aux, attn_impl=attn_impl, pad_tokens=False,
+                    remat=remat, train_generator=generator, sharding=sharding,
+                    gather_outputs=not over_seq,
+                )
+                losses = LS.total_loss(preds, own_frames(batch) if over_seq else batch, (H, W),
+                                       global_count=process_sum if mesh is not None else None,
+                                       mesh=mesh)
+            with span("train.backward"):
+                losses["total"].backward()
         if mesh is None:
             return {k: v.detach() for k, v in losses.items()}
         # the shares, summed: the global losses
@@ -230,27 +234,29 @@ def make_train_step(
             raise ValueError(f"the state is laid out for state_sharding={laid_out!r} on "
                              f"{getattr(state.layout, 'mesh', None)}; this step is "
                              f"{state_sharding!r} on {mesh}")
-        metrics = loss_and_grads(state.model, batch, state.step, state.layout)
-        if state.layout is not None:
-            state.layout.sync_grads()
-        elif mesh is not None:
-            params = [p for p in state.model.parameters() if p.requires_grad]
-            if over_seq:
-                # every process sums the same tensors in the same order: one
-                # the forward did not reach gets the zeros the optimizer
-                # would give it
+        with span("train.step"):
+            metrics = loss_and_grads(state.model, batch, state.step, state.layout)
+            if state.layout is not None:
+                state.layout.sync_grads()
+            elif mesh is not None:
+                params = [p for p in state.model.parameters() if p.requires_grad]
+                if over_seq:
+                    # every process sums the same tensors in the same order: one
+                    # the forward did not reach gets the zeros the optimizer
+                    # would give it
+                    for p in params:
+                        if p.grad is None:
+                            p.grad = torch.zeros_like(p)
+                    C.seq_all_reduce_sum([p.grad for p in params], mesh)
                 for p in params:
-                    if p.grad is None:
-                        p.grad = torch.zeros_like(p)
-                C.seq_all_reduce_sum([p.grad for p in params], mesh)
-            for p in params:
-                if p.grad is not None:
-                    C.all_reduce_sum(p.grad, mesh)
-        metrics["grad_norm"] = state.optimizer.step()
-        if state.layout is not None and state.layout.mode == "zero2":
-            state.layout.gather_params()
-        state.step += 1
-        return state, metrics
+                    if p.grad is not None:
+                        C.all_reduce_sum(p.grad, mesh)
+            with span("train.optimizer"):
+                metrics["grad_norm"] = state.optimizer.step()
+            if state.layout is not None and state.layout.mode == "zero2":
+                state.layout.gather_params()
+            state.step += 1
+            return state, metrics
 
     train_step.loss_and_grads = loss_and_grads
     return train_step

@@ -1,14 +1,18 @@
 """Tracing and profiling (counterpart of omnivggt_tpu/utils/profiling.py).
 
-  - `annotate(name)`: a named range in the profiler's trace
-    (torch.profiler.record_function);
+  - `span(name, **counts)` / `recording()`: the program's own spans. Off
+    (the default) a span is one check and a shared null context; inside
+    `recording()` each span records its name, start and end on
+    time.time_ns (the clock of torch.profiler's events), its thread, the
+    span open around it on that thread and its counts, and under an
+    active torch.profiler it is also a record_function of its name;
   - `trace(logdir)`: torch.profiler over a block, CPU and (where there is
     one) CUDA activity, written to `logdir` as a Chrome / Perfetto trace;
     yields the profiler, whose `key_averages()` hold the device times;
   - `force(tree)`: every tensor of a tree copied to host numpy, a true
     completion barrier;
-  - `Timer` / `timed`: wall-clock sections whose `.set(out)` forces the
-    block's outputs before the clock stops;
+  - `Timer`: wall-clock sections whose `.set(out)` forces the block's
+    outputs before the clock stops;
   - `flops_estimate(cfg, S, H, W)`: the JAX package's analytic forward
     FLOPs of the model, the same arithmetic in the same order;
   - `sharded_attention_roofline`: the JAX package's allgather-vs-ring model
@@ -24,17 +28,104 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from omnivggt_tpu_torch.utils.pytree import to_numpy
 
 
-def annotate(name: str):
-    return torch.profiler.record_function(name)
+class Recorder:
+    """The spans recorded while `recording()` is on, in the order they
+    ended: dicts of name, t0 and t1 (ns, time.time_ns), thread
+    (threading.get_native_id, which torch.profiler's events of that thread
+    carry as their device_resource_id; None for a span recorded after the
+    fact), parent (the name of the span open around it on its thread, or
+    None) and counts."""
+
+    def __init__(self):
+        self.spans: List[dict] = []
+        self._lock = threading.Lock()
+
+    def add(self, name: str, t0: int, t1: int, thread=None, parent=None, counts=None) -> None:
+        item = {"name": name, "t0": t0, "t1": t1, "thread": thread, "parent": parent,
+                "counts": counts or {}}
+        with self._lock:
+            self.spans.append(item)
+
+
+_recorder: Optional[Recorder] = None
+_open = threading.local()  # .names: the names of this thread's open spans
+_OFF = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def recording():
+    """Record every span of the process, from any thread, while the block
+    runs; yields the Recorder. One recording at a time."""
+    global _recorder
+    if _recorder is not None:
+        raise RuntimeError("spans are already being recorded")
+    _recorder = rec = Recorder()
+    try:
+        yield rec
+    finally:
+        _recorder = None
+
+
+class _Span:
+    __slots__ = ("rec", "name", "counts", "t0", "parent", "names", "ranged")
+
+    def __init__(self, rec: Recorder, name: str, counts: dict):
+        self.rec, self.name, self.counts = rec, name, counts
+
+    def __enter__(self):
+        names = getattr(_open, "names", None)
+        if names is None:
+            names = _open.names = []
+        self.parent = names[-1] if names else None
+        names.append(self.name)
+        self.names = names
+        self.t0 = time.time_ns()
+        # the record_function lies inside [t0, t1], so its events (and the
+        # launches made under it) fall inside the span's interval
+        self.ranged = None
+        if torch.autograd.profiler._is_profiler_enabled:
+            self.ranged = torch.profiler.record_function(self.name)
+            self.ranged.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        if self.ranged is not None:
+            self.ranged.__exit__(*exc)
+        t1 = time.time_ns()
+        self.names.pop()
+        self.rec.add(self.name, self.t0, t1, threading.get_native_id(), self.parent, self.counts)
+        return False
+
+
+def span(name: str, **counts):
+    """A named span of the program around the block, with counts of the
+    work it does (ints known on the host). While nothing records, a
+    shared null context. No name starts with "cu": a trace reader takes
+    CPU events so named for the CUDA runtime's launches."""
+    rec = _recorder
+    if rec is None:
+        return _OFF
+    return _Span(rec, name, counts)
+
+
+def record_since(name: str, t0: int, **counts) -> None:
+    """Record a span that began at t0 (time.time_ns) somewhere else, such
+    as a request's wait from its enqueue on a caller's thread to the
+    worker taking it: no thread, no parent. Nothing while nothing
+    records."""
+    rec = _recorder
+    if rec is not None:
+        rec.add(name, t0, time.time_ns(), counts=counts)
 
 
 @contextlib.contextmanager
@@ -59,7 +150,7 @@ def force(tree):
 
 
 class _Section:
-    """Yielded by Timer.section and timed: .set(out) hands over the block's
+    """Yielded by Timer.section: .set(out) hands over the block's
     outputs, which are forced before the clock stops (the work is
     asynchronous; stopping at the end of the block would time the launches
     only)."""
@@ -104,20 +195,6 @@ class Timer:
             n = self.counts[name]
             lines.append(f"{name}: {total*1000:.1f} ms total, {total/n*1000:.2f} ms/call x{n}")
         return "\n".join(lines)
-
-
-@contextlib.contextmanager
-def timed(name: str):
-    """One timed block printing '<name>: X ms'; yields a _Section whose
-    .set(out) forces the outputs before the clock stops."""
-    t0 = time.perf_counter()
-    handle = _Section()
-    try:
-        yield handle
-    finally:
-        if handle.value is not None:
-            force(handle.value)
-        print(f"{name}: {(time.perf_counter() - t0) * 1000:.1f} ms")
 
 
 def flops_estimate(cfg, S: int, H: Optional[int] = None, W: Optional[int] = None) -> float:
