@@ -9,9 +9,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
      kernel's registers and shared memory from ptxas' report, and fails if
      a backward kernel (dq, dk/dv, D 64 and 128) or a ring kernel
      (ring_step_tma bf16 and int8, ring_stage) or a conv kernel
-     (conv3x3_bf16_tma, conv3x3_fp32_tma) spills a register, or if the
-     ring step's or the conv kernel's launch shape differs from
-     RK.ring_launch_shape's or CK.conv_launch_shape's;
+     (conv3x3_bf16_tma, conv3x3_fp32_tma, conv_tf32x3 at N 16, 32, 64,
+     128, split_weights) spills a register, if ptxas injects a fence
+     between the tf32 kernel's products (C7519), or if the ring step's or a
+     conv kernel's launch shape differs from RK.ring_launch_shape's,
+     CK.conv_launch_shape's or CT.launch_shape's;
   3. kernels: each kernel against its plain PyTorch version at the shapes
      the flagship's 518 px, 8-view forward gives it, bf16 inputs, the plain
      version in fp32 from the same inputs; prints errors beside the stated
@@ -20,7 +22,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
      run, and at head dim 128: 21 launches on the same inputs bitwise
      equal (o and LSE), and two planted faults that must leave the
      tolerance (the last key tile left out; K and V of the next head,
-     through the kernel's test hook);
+     through the kernel's test hook); then the fp32 head convolutions'
+     tensor-core kernel (conv2d_tf32x3) at the shapes the flagship's S=8
+     heads give it (check_conv_tf32x3): against its plain version within
+     the fp32 convolution tolerance, its median relative error against a
+     float64 reference at most twice the plain version's (cuDNN fp32), a
+     planted fault a shape that must fail, one launch and no copy a call;
   4. backward kernels, at the shapes the flagship's S=4 training step
      gives them (global bounded, frame bounded, DINOv2 running-max), plus
      a dynamic kv_valid and a clamp-saturation case: the forward kernel's
@@ -40,10 +47,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
   5. flagship forward: the 1.2B OmniVGGTConfig() at S=8, 518x518, seeded
      random weights (trunk stored in bf16), synthetic images with GT
      cameras and depth for some frames, through model(...) with the kernels
-     ("auto") and with attn_impl="plain"; checks shapes, finiteness, the
-     kernels' launch counts per forward, the pose decoding and depth
-     unprojection, and the kernel path against the plain path under the
-     serving gate (pose_enc max-abs and median relative errors <= 2e-2);
+     ("auto") and with attn_impl="plain" and every head convolution on the
+     library; checks shapes, finiteness, the kernels' launch counts per
+     forward (56 conv_tf32x3, 28 of each head's 32 convolutions), the
+     pose decoding and depth unprojection, and the kernel path against the
+     plain path under the serving gate (pose_enc max-abs and median
+     relative errors <= 2e-2);
      then one forward under torch.profiler: device time by kernel family
      and the device's idle share;
   6. flagship training: the same model with fp32 master weights, S=4 at
@@ -310,6 +319,7 @@ POSE_TOL = REL_TOL = 2e-2  # the JAX package's serving gate (_probe_failures)
 LOSS_REL_TOL, GRAD_COS_MIN = 1e-2, 1 - 1e-5
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12  # H100 SXM: bf16 dense, HBM
 PEAK_INT8, PEAK_FP32 = 1979e12, 67e12  # int8 dense; fp32 outside the tensor cores
+PEAK_TF32X3 = 495e12 / 3  # fp32-accurate products as three TF32 ones (dense TF32 495)
 P_TOKENS = 1374  # tokens per frame at 518 px: 37 * 37 patches + 5 special tokens
 REPLACES = {
     "flash_attention": "omnivggt_tpu/ops/pallas/flash_attention.py:60",
@@ -319,6 +329,7 @@ REPLACES = {
     "flash_attention_int8": "omnivggt_tpu/ops/pallas/flash_attention.py:60",
     "flash_attention_packed_stream": "omnivggt_tpu/ops/pallas/flash_attention.py:1034",
     "conv3x3_folded": "omnivggt_tpu/ops/pallas/conv3x3.py:99",
+    "conv_tf32x3": "none: XLA's fp32 convolutions of omnivggt_tpu/models/dpt_head.py",
     "layout_probes": "tools/probe_mosaic_layouts.py:37",
     "ring_flash_attention": "omnivggt_tpu/ops/pallas/ring_attention.py:91",
     "ring_flash_attention_hbm": "omnivggt_tpu/ops/pallas/ring_attention.py:260",
@@ -331,6 +342,7 @@ SOURCES = {
     "flash_attention_int8": "omnivggt_tpu_torch/csrc/flash_attention.cu",
     "flash_attention_packed_stream": "omnivggt_tpu_torch/csrc/flash_attention.cu",
     "conv3x3_folded": "omnivggt_tpu_torch/csrc/conv3x3.cu",
+    "conv_tf32x3": "omnivggt_tpu_torch/csrc/conv_tf32x3.cu",
     "layout_probes": "omnivggt_tpu_torch/csrc/layout_probes.cu",
     "ring_flash_attention": "omnivggt_tpu_torch/csrc/ring_attention.cu",
     "ring_flash_attention_hbm": "omnivggt_tpu_torch/csrc/ring_attention.cu",
@@ -514,6 +526,40 @@ def conv_build_report(CK, log, probe_log):
     entries = {**bf16, **fp32, **probe}
     if (len(bf16), len(fp32)) != (3, 3) or any(e.get("spills") != [0, 0] for e in entries.values()):
         raise AssertionError(f"a conv kernel spills or is missing from ptxas' report: {entries}")
+
+
+def tf32x3_build_report(CT, log):
+    """The fp32 head convolutions' tensor-core kernel (csrc/conv_tf32x3.cu):
+    registers and spills of conv_tf32x3 at N 16, 32, 64 and 128 and of the
+    weight split, from ptxas' report; a spill, a fence ptxas injects
+    between the products (C7519: it would drain the tensor pipe before
+    each), or a launch shape the built library reports that differs from
+    CT.launch_shape's (the heads' widths and the card tests') fails the
+    run."""
+    for cout in (16, 32, 48, 128, 256, 512, 1024):
+        built, shape = CT.built_launch_shape(cout), CT.launch_shape(cout)
+        if built != shape:
+            raise AssertionError(f"CT.launch_shape({cout}) {shape} is not the source's {built}")
+    for cout in (256, 32):
+        geo = CT._geometry(cout)
+        print(f"  conv_tf32x3 at cout {cout}: N {geo['n']}, {geo['stages']} stages, "
+              f"{geo['threads']} threads, {geo['smem']} bytes of dynamic shared memory")
+    if not log:
+        print("  conv_tf32x3: library built before this run, no ptxas report")
+        return
+    convs = ptxas_entries(log, r"(conv_tf32x3)ILi(\d+)ELi0E()")  # the forms real calls run
+    split = ptxas_entries(log, r"(split_weights)()()")
+    for (kernel, n, _), e in sorted({**convs, **split}.items()):
+        regs = " (setmaxnreg: 40 producer, 232 consumers)" if n else ""
+        print(f"  {kernel}{f' N={n}' if n else ''}: {e.get('registers')} registers at launch"
+              f"{regs}, spill stores/loads {e.get('spills')} bytes")
+    entries = {**convs, **split}
+    spills = any(e.get("spills") != [0, 0] for e in entries.values())
+    if (len(convs), len(split)) != (4, 1) or spills:
+        raise AssertionError(f"a conv_tf32x3 kernel spills or is missing from ptxas' report: "
+                             f"{entries}")
+    if "C7519" in log:
+        raise AssertionError("ptxas injected fences between conv_tf32x3's products (C7519)")
 
 
 def check_kernels(FK, dev):
@@ -1961,6 +2007,110 @@ def check_conv(CK, dev):
             del pre, tol, x_nchw
             torch.cuda.empty_cache()
     return {"conv3x3_folded": result}
+
+
+# (cin, cout, k, side, relu, planted fault) of the fp32 head convolutions
+# the flagship's S=8 forward gives conv_tf32x3: the residual units' 256 ->
+# 256 3x3 at 148, 74, 37 and 19, layer3_rn, the 1x1 projections at 37,
+# output_conv1 and output_conv2[0]; each with one planted fault
+TF32X3_CASES = [
+    (256, 256, 3, 148, True, "halo_column"), (256, 256, 3, 74, False, "one_pass_tf32"),
+    (256, 256, 3, 37, False, "lo_hi_dropped"), (256, 256, 3, 19, False, "one_pass_tf32"),
+    (1024, 256, 3, 37, False, "lo_hi_dropped"), (2048, 256, 1, 37, False, "bias_dropped"),
+    (2048, 512, 1, 37, False, "lo_hi_dropped"), (2048, 1024, 1, 37, False, "one_pass_tf32"),
+    (256, 128, 3, 296, False, "bias_dropped"), (128, 32, 3, IMG, True, "relu_dropped"),
+]
+TF32X3_MEDIAN_RATIO = 2.0  # its median relative error against cuDNN fp32's, at most
+
+
+def check_conv_tf32x3(CT, dev):
+    """The fp32 head convolutions' tensor-core kernel (conv2d_tf32x3, x
+    channels-last as the heads hand it, S=8 frames) against its plain
+    version (conv2d_tf32x3_plain: cuDNN fp32, TF32 off) at every case of
+    TF32X3_CASES: entry by entry within 2 (taps cin + 1) 2^-24 conv(|x|,
+    |w|) + |b| terms (both sides' fp32 sums), and against a float64
+    F.conv2d of the same inputs with a median relative error at most
+    TF32X3_MEDIAN_RATIO times the plain version's; one launch and no input
+    copy a call, the output channels-last; each case's planted fault must
+    fail one of the two; at 148 21 launches bitwise equal; times of the
+    kernel, the plain version and F.conv2d, and the bound (the operations
+    over 495 / 3 TFLOP/s, TF32 at three products a multiply, against the
+    bytes)."""
+    F = torch.nn.functional
+    result = new_results()
+    for cin, cout, k, side, relu, fault in TF32X3_CASES:
+        gen = torch.Generator(device="cpu").manual_seed(cin * 1000 + side)
+        conv = torch.nn.Conv2d(cin, cout, k, padding=k // 2)
+        with torch.no_grad():
+            conv.weight.copy_((torch.rand(conv.weight.shape, generator=gen) * 2 - 1)
+                              * (cin * k * k) ** -0.5)
+            conv.bias.copy_(torch.rand(cout, generator=gen) - 0.5)
+        conv = conv.to(dev).requires_grad_(False)
+        x = torch.randn((S, side, side, cin), generator=gen).to(dev).permute(0, 3, 1, 2)
+        pad = k // 2
+        with torch.no_grad():
+            before = (CT.conv2d_tf32x3.launches, CT.conv2d_tf32x3.relayouts)
+            out = CT.conv2d_tf32x3(conv, x, pad, relu=relu)
+            calls = (CT.conv2d_tf32x3.launches - before[0], CT.conv2d_tf32x3.relayouts - before[1])
+            plain = CT.conv2d_tf32x3_plain(conv, x, pad, relu=relu)
+            bad = CT._launch(conv, x, relu, fault=CT.FAULTS[fault])
+            x64, w64, b64 = x.double(), conv.weight.double(), conv.bias.double()
+            ref = F.conv2d(x64, w64, b64, padding=pad)
+            ref = F.relu(ref) if relu else ref
+            tol = F.conv2d(x64.abs(), w64.abs(), b64.abs(), padding=pad)
+            tol.mul_(2 * (k * k * cin + 1) * 2.0**-24)  # the ReLU is 1-Lipschitz
+            del x64
+        torch.cuda.synchronize()
+        if calls != (1, 0) or not out.is_contiguous(memory_format=torch.channels_last):
+            raise AssertionError(f"conv_tf32x3: {calls} (launches, copies) a call, or the output "
+                                 "is not channels-last")
+        diff = (out - plain).abs()
+        ratio = (diff.double() / tol).max().item()
+        max_err = diff.max().item()
+        nz = ref != 0
+
+        def median_rel(y):
+            return ((y.double() - ref).abs()[nz] / ref[nz].abs()).median().item()
+
+        med, med_plain = median_rel(out), median_rel(plain)
+        bad_ratio = ((bad.double() - ref).abs() / tol).max().item()
+        bad_med = median_rel(bad)
+        del diff, bad, nz
+        line = (f"kernel conv_tf32x3 [{S}x{cin}->{cout} {k}x{k} {side}x{side} channels_last fp32 "
+                f"relu={relu}]: vs plain max_abs_err {max_err:.3e}, worst err/tol {ratio:.3e} "
+                f"(tol per entry: 2 (taps cin + 1) 2^-24 conv(|x|, |w|) + |b|); median relative "
+                f"error vs float64 {med:.3e}, plain {med_plain:.3e} (ratio {med / med_plain:.3f}, "
+                f"limit {TF32X3_MEDIAN_RATIO:g}); planted fault {fault}: err/tol {bad_ratio:.3g}, "
+                f"median {bad_med:.3e}")
+        if not (np.isfinite(ratio) and ratio <= 1.0 and med <= TF32X3_MEDIAN_RATIO * med_plain):
+            raise AssertionError("conv_tf32x3 disagrees with its plain version")
+        if not (bad_ratio > 1.0 or bad_med > TF32X3_MEDIAN_RATIO * med_plain):
+            raise AssertionError(f"conv_tf32x3: the planted fault {fault} passes the check")
+        with torch.no_grad():
+            ms = median_ms(lambda: CT.conv2d_tf32x3(conv, x, pad, relu=relu), 10)
+            plain_ms = median_ms(lambda: CT.conv2d_tf32x3_plain(conv, x, pad, relu=relu), 10)
+            lib_ms = median_ms(lambda: F.conv2d(x, conv.weight, conv.bias, padding=pad), 10)
+            if side == 148:  # 21 launches on the same inputs: the same bits
+                same = all(torch.equal(CT.conv2d_tf32x3(conv, x, pad, relu=relu), out)
+                           for _ in range(20))
+                line += f"; 21 launches bitwise equal: {same}"
+                if not same:
+                    raise AssertionError("conv_tf32x3: 21 launches differ")
+        flops = 2 * k * k * cin * cout * S * side * side
+        nbytes = 4 * (x.numel() + out.numel() + 2 * conv.weight.numel())
+        by_ops, by_bytes = flops / PEAK_TF32X3 * 1e3, nbytes / PEAK_BYTES * 1e3
+        bnd = (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+        line += (f" | kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} "
+                 f"ms, F.conv2d fp32 {lib_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+        print(line)
+        result["errs"].append(max_err)
+        result["ms"].append(ms)
+        result["plain_ms"].append(plain_ms)
+        result["library_ms"].append(lib_ms)
+        result["bound"].append(bnd)
+        del x, out, plain, ref, tol
+        torch.cuda.empty_cache()
+    return {"conv_tf32x3": result}
 
 
 def probes_phase():
@@ -4504,7 +4654,9 @@ def main() -> int:
     from omnivggt_tpu_torch.config import OmniVGGTConfig
     from omnivggt_tpu_torch.models.omnivggt import OmniVGGT
     from omnivggt_tpu_torch.ops.kernels import build
+    from omnivggt_tpu_torch.models import dpt_head as TDH
     from omnivggt_tpu_torch.ops.kernels import conv3x3 as CK
+    from omnivggt_tpu_torch.ops.kernels import conv_tf32x3 as CT
     from omnivggt_tpu_torch.ops.kernels import flash_attention as FK
     from omnivggt_tpu_torch.ops.kernels import ring_attention as RK
     from omnivggt_tpu_torch.parallel import peer as PE
@@ -4516,9 +4668,10 @@ def main() -> int:
 
     t0 = time.perf_counter()
     # every nvcc at once, here before any process is spawned (phase (i))
-    logs = build.build_all(FK.SOURCES + (CK.SOURCE, PL.SOURCE, RK.SOURCE, PE.SOURCE))
+    logs = build.build_all(FK.SOURCES + (CK.SOURCE, CT.SOURCE, PL.SOURCE, RK.SOURCE, PE.SOURCE))
     FK.load_kernels()
     CK.load_kernels()
+    CT.load_kernels()
     RK.load_kernels()
     PE.load_library()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc sm_90a, one process per source: "
@@ -4541,6 +4694,7 @@ def main() -> int:
     backward_build_report(FK, logs[FK.SOURCES[1]])
     ring_build_report(RK, logs[RK.SOURCE])
     conv_build_report(CK, logs[CK.SOURCE], logs[PL.SOURCE])
+    tf32x3_build_report(CT, logs[CT.SOURCE])
 
     kernel_results = check_kernels(FK, dev)
     check_tma_forms(FK, dev)
@@ -4548,6 +4702,7 @@ def main() -> int:
     kernel_results.update(check_serving_attention(FK, dev))
     kernel_results.update(check_ring(RK, FK, dev))
     kernel_results.update(check_conv(CK, dev))
+    kernel_results.update(check_conv_tf32x3(CT, dev))
     probe_results, probe_launches = probes_phase()
     kernel_results.update(probe_results)
 
@@ -4575,10 +4730,20 @@ def main() -> int:
         model(**inputs)  # warm-up (cuBLAS/cuDNN plans)
         torch.cuda.synchronize()
         FK.reset_launches()
+        convs, tc = TDH.conv_counts(), (CT.conv2d_tf32x3.launches, CT.conv2d_tf32x3.relayouts)
         preds = model(**inputs)
         extrinsic, intrinsic = pose_encoding_to_extri_intri(preds["pose_enc"], (IMG, IMG))
         torch.cuda.synchronize()
         launches = FK.launches()
+        # the fp32 heads: 28 of each head's 32 convolutions (one chunk of S
+        # frames) on the tensor-core kernel, none of its inputs copied
+        routes = TDH.conv_counts(since=convs)
+        tc = (CT.conv2d_tf32x3.launches - tc[0], CT.conv2d_tf32x3.relayouts - tc[1])
+        print(f"main path head convolutions per forward: {routes}; conv_tf32x3 launches, input "
+              f"copies {tc}")
+        if routes != {"kernel_convs": 56, "library_convs": 8} or tc != (56, 0):
+            raise AssertionError(f"head convolution routes {routes}, conv_tf32x3 {tc}: expected "
+                                 "28 + 4 a head, 56 launches, no copies")
         points = unproject_depth_map_to_point_map(preds["depth"][0], extrinsic[0], intrinsic[0])
         print(f"main path launches per forward: {launches}")
         expect = {"flash_attention": cfg.aggregator.depth,
@@ -4614,12 +4779,24 @@ def main() -> int:
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         profile_breakdown(f"forward S={S}", forward)
 
-        ref = model(**inputs, attn_impl="plain")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        model(**inputs, attn_impl="plain")
-        torch.cuda.synchronize()
-        plain_fwd_ms = (time.perf_counter() - t0) * 1e3
+        # the plain path: plain attention, and every head convolution on
+        # the library (the kernel's rule forced to refuse them all)
+        rule, CT.eligible = CT.eligible, lambda *a, **k: False
+        try:
+            convs = TDH.conv_counts()
+            ref = model(**inputs, attn_impl="plain")
+            plain_routes = TDH.conv_counts(since=convs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(**inputs, attn_impl="plain")
+            torch.cuda.synchronize()
+            plain_fwd_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            CT.eligible = rule
+        print(f"plain path head convolutions per forward: {plain_routes}")
+        if plain_routes != {"kernel_convs": 0, "library_convs": 64}:
+            raise AssertionError(f"the plain path's head convolutions {plain_routes}: expected "
+                                 "all 64 on the library")
 
     # the JAX package's serving gate, as the port's ladder applies it
     from omnivggt_tpu_torch.models import omnivggt as TM
@@ -4667,7 +4844,8 @@ def main() -> int:
     # a kernel's launches on the main path that runs it: one train step, or
     # one served S=8 request for the serving kernels; the probes' in their phase
     # the ring wrappers' in the sharded flagship forwards
-    path_launches = {**serving_launches, **ring_launches, "layout_probes": probe_launches}
+    path_launches = {**serving_launches, **ring_launches, "layout_probes": probe_launches,
+                     "conv_tf32x3": tc[0]}
     path_launches.update({k: n for k, n in train_launches.items() if n})
 
     # per kernel: the largest error over its checked variants; the mean

@@ -1,9 +1,9 @@
 // Hopper (sm_90a) primitives in raw PTX, shared by the kernels that stage
 // tiles with the Tensor Memory Accelerator (TMA) and multiply them with
-// warpgroup MMA (wgmma): mbarriers, 4-D and 1-D TMA loads and bulk copies, wgmma
-// descriptors and instructions, register hand-over between warpgroups, and
-// the host-side encoding of a TMA tensor map. No PyTorch header is
-// included.
+// warpgroup MMA (wgmma): mbarriers, 4-D (tiled and im2col) and 1-D TMA loads
+// and bulk copies, wgmma descriptors and instructions (bf16, s8, tf32),
+// register hand-over between warpgroups, and the host-side encoding of TMA
+// tensor maps (tiled and im2col). No PyTorch header is included.
 //
 // Layout conventions (bf16, 128-byte swizzle, every tile 1024-byte aligned):
 //   - a TMA box is (64 columns = 128 bytes) x rows; row r sits at r * 128
@@ -98,6 +98,21 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// im2col mode: the 4-D map's pixelsPerColumn pixels from base pixel (c0 =
+// first channel, w, h, n), walking W, then H, then N through the map's
+// bounding box, each pixel read at (w + off_w, h + off_h) (a filter tap);
+// pixels outside the tensor read as zeros
+__device__ __forceinline__ void tma_load_im2col_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                                   int c0, int w, int h, int n, uint16_t off_w,
+                                                   uint16_t off_h) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.im2col.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2], {%7, %8};\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(w), "r"(h), "r"(n),
+      "h"(off_w), "h"(off_h)
       : "memory");
 }
 
@@ -478,6 +493,115 @@ __device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// ---- tf32 wgmma with A from registers ---------------------------------------
+
+// The A fragment of an m64nNk8 tf32 product, per warp of the warpgroup (16
+// rows, warp w rows 16 w ..): a[0] row g, column q; a[1] row g + 8, column
+// q; a[2] row g, column q + 4; a[3] row g + 8, column q + 4 (g = lane / 4, q
+// = lane % 4), as mma.sync's m16n8k8 tf32 A. The hardware reads the upper 19
+// bits of each register.
+
+// cvt.rna: fp32 to the nearest tf32 (ties away from zero), low 13 bits zero
+__device__ __forceinline__ uint32_t to_tf32_rna(float x) {
+  uint32_t y;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(y) : "f"(x));
+  return y;
+}
+
+// d (m64n16, fp32) = a (registers, tf32 fragments) * b (smem, K-major tf32,
+// 128-byte swizzle)^T, plus d when accumulate != 0
+__device__ __forceinline__ void wgmma_rs_m64n16k8_tf32(float (&d)[8], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (m64n32, fp32) = a (registers, tf32 fragments) * b (smem, K-major tf32,
+// 128-byte swizzle)^T, plus d when accumulate != 0
+__device__ __forceinline__ void wgmma_rs_m64n32k8_tf32(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (m64n64, fp32) = a (registers, tf32 fragments) * b (smem, K-major tf32,
+// 128-byte swizzle)^T, plus d when accumulate != 0
+__device__ __forceinline__ void wgmma_rs_m64n64k8_tf32(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (m64n128, fp32) = a (registers, tf32 fragments) * b (smem, K-major tf32,
+// 128-byte swizzle)^T, plus d when accumulate != 0
+__device__ __forceinline__ void wgmma_rs_m64n128k8_tf32(float (&d)[64], const uint32_t (&a)[4],
+                                                   uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+
 // ---- host: tensor maps ------------------------------------------------------
 
 // cuTensorMapEncodeTiled, fetched from the driver through the runtime (the
@@ -524,6 +648,55 @@ inline bool encode_tiled_4d(CUtensorMap* map, CUtensorMapDataType type, const vo
   }
   for (int i = 0; i < 3; ++i) st[i] = static_cast<cuuint64_t>(stride_bytes[i]);
   return fn(map, type, 4, const_cast<void*>(base), d, st, b, element_strides,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// cuTensorMapEncodeIm2col, fetched like cuTensorMapEncodeTiled
+typedef CUresult (*EncodeIm2colFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const int*, const int*,
+                                   cuuint32_t, cuuint32_t, const cuuint32_t*, CUtensorMapInterleave,
+                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                   CUtensorMapFloatOOBfill);
+
+inline EncodeIm2colFn encode_im2col_fn() {
+  static EncodeIm2colFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeIm2col", &ptr, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeIm2col", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeIm2colFn>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D im2col map over a (C, W, H, N) tensor whose channels are
+// contiguous: dims innermost first, the three outer strides in bytes; a
+// load brings `pixels` pixels of `channels` channels each, the base pixel
+// walking the bounding box from (lower, lower) to (W - 1 + upper, H - 1 +
+// upper) in W and H (for a k x k pad-p filter: lower = -p, upper = p - (k -
+// 1)); coordinates outside the tensor read as zeros. Returns false where
+// the driver refuses the map.
+inline bool encode_im2col_4d(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                             const long long (&dims)[4], const long long (&stride_bytes)[3],
+                             int lower, int upper, int channels, int pixels,
+                             CUtensorMapSwizzle swizzle) {
+  EncodeIm2colFn fn = encode_im2col_fn();
+  if (fn == nullptr) return false;
+  cuuint64_t d[4], st[3];
+  for (int i = 0; i < 4; ++i) d[i] = static_cast<cuuint64_t>(dims[i]);
+  for (int i = 0; i < 3; ++i) st[i] = static_cast<cuuint64_t>(stride_bytes[i]);
+  const int lo[2] = {lower, lower}, hi[2] = {upper, upper};
+  const cuuint32_t element_strides[4] = {1, 1, 1, 1};
+  return fn(map, type, 4, const_cast<void*>(base), d, st, lo, hi,
+            static_cast<cuuint32_t>(channels), static_cast<cuuint32_t>(pixels), element_strides,
             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

@@ -5,9 +5,23 @@ Per level: LayerNorm -> 1x1 projection -> sinusoidal UV pos-embed (x0.1) ->
 resize (4x / 2x transposed conv, identity, stride-2 conv); then the
 RefineNet fusion pyramid, a bilinear align_corners=True upsample to full
 resolution, the output convs, and the activation split into values and
-confidence. Runs NCHW inside (nn.Conv2d / nn.ConvTranspose2d) and returns
-channels-last like the JAX package. Frames go through in chunks of
-`frames_chunk_size`, which bounds the full-resolution activation memory.
+confidence. The tensors are (K, C, H, W) channels-last throughout (the
+tokens' reshape is a channels-last view, and every operation after keeps
+that layout), so the final permute to (K, H, W, C), the JAX package's
+layout, is a view. Frames go through in chunks of `frames_chunk_size`,
+which bounds the full-resolution activation memory.
+
+Every convolution goes through `_conv`, which sends each one the
+tensor-core kernel takes (ops/kernels/conv_tf32x3.py: a CUDA fp32 tensor
+that autograd does not record, a 3x3 pad-1 or 1x1 stride-1 weight, cout a
+multiple of 16) to `conv2d_tf32x3`, fp32-accurate by three TF32 products,
+and the rest to the library; on the flagship 28 of a head's 32 a chunk take
+the kernel (the 4 projections, the 4 layerN_rn, the 14 residual-unit
+convolutions, the 4 fusion out_convs, output_conv1, output_conv2[0]), and
+the two transposed convolutions, the stride-2 resize and output_conv2[2]
+(32 -> 2 or 4) stay on the library, as does everything in bf16, under
+`quant="int8"`, in training and on the CPU. `conv_counts` reads the
+routes taken.
 
 The 3x3 convolutions with a narrow output (`_conv3x3`) can go two other
 ways, both off by default as in the JAX package, whose TPU measurements had
@@ -32,28 +46,56 @@ from torch import nn
 from omnivggt_tpu_torch.config import DPTHeadConfig
 from omnivggt_tpu_torch.ops import layers as L
 from omnivggt_tpu_torch.ops.activations import activate_head
+from omnivggt_tpu_torch.ops.kernels import conv_tf32x3 as CT
 from omnivggt_tpu_torch.ops.kernels.conv3x3 import conv3x3_eligible, conv3x3_folded
 
 _S2D_HEAD_CONVS = os.environ.get("OMNIVGGT_S2D_HEAD_CONVS", "0") != "0"
 _PALLAS_HEAD_CONVS = os.environ.get("OMNIVGGT_PALLAS_HEAD_CONVS", "0") != "0"
 
 
+def _conv(p, x, stride=1, padding=0, relu=False, int8=False, quantised=False):
+    """A convolution of the head (+ the ReLU that follows it, fused into
+    the kernel when it takes the convolution): `conv2d_tf32x3` where
+    `CT.eligible` accepts it and the head is not quantised (`quantised`:
+    a head under quant="int8", whose other convolutions keep the library's
+    too), else the library's (W8A8 when `int8`). Counted on
+    `_conv.kernel_convs` / `_conv.library_convs`."""
+    if not (int8 or quantised) and CT.eligible(p, x, stride, padding):
+        _conv.kernel_convs += 1
+        return CT.conv2d_tf32x3(p, x, padding, relu=relu)
+    _conv.library_convs += 1
+    y = L.conv2d(p, x, stride=stride, padding=padding, int8=int8)
+    return F.relu(y) if relu else y
+
+
+_conv.kernel_convs = 0
+_conv.library_convs = 0
+
+
+def conv_counts(since=None) -> dict:
+    """The head convolutions run so far, {"kernel_convs", "library_convs"}
+    (the transposed ones counted with the library's; `conv3x3_folded`'s,
+    under OMNIVGGT_PALLAS_HEAD_CONVS, in neither: its own `launches` count
+    them); with `since` (an earlier reading) the ones run after it."""
+    now = {"kernel_convs": _conv.kernel_convs, "library_convs": _conv.library_convs}
+    return now if since is None else {k: v - since[k] for k, v in now.items()}
+
+
 def _conv3x3(p, x, int8=False, relu=False):
     """3x3 pad-1 convolution (+ the ReLU that follows it, fused into the
     kernel when that path is taken), through the Hopper kernel or the
-    space-to-depth rewrite when enabled and eligible. The flag alone
-    decides, as in the JAX package: `conv3x3_folded` launches its kernel on
-    a CUDA tensor (and raises when a gradient is asked of it, being forward
-    only) and computes its plain version on a CPU tensor. The output is
-    NCHW whatever x's layout, as the library convolution's on the head's
-    NCHW tensors, so what follows runs as with the flag off."""
+    space-to-depth rewrite when enabled and eligible, else `_conv`. The
+    flag alone decides, as in the JAX package: `conv3x3_folded` launches
+    its kernel on a CUDA tensor (and raises when a gradient is asked of
+    it, being forward only) and computes its plain version on a CPU
+    tensor; its output is NCHW whatever x's layout."""
     if _PALLAS_HEAD_CONVS and not int8 and conv3x3_eligible(x.shape, p.weight.shape):
         return conv3x3_folded(p, x, relu=relu, memory_format=torch.contiguous_format)
     if _S2D_HEAD_CONVS and x.shape[-2] % 2 == 0 and x.shape[-1] % 2 == 0:
+        _conv.library_convs += 1
         y = L.conv2d_s2d(p, x, int8=int8)
-    else:
-        y = L.conv2d(p, x, padding=1, int8=int8)
-    return F.relu(y) if relu else y
+        return F.relu(y) if relu else y
+    return _conv(p, x, padding=1, relu=relu, int8=int8)
 
 
 class ResidualConvUnit(nn.Module):
@@ -110,8 +152,8 @@ def _rcu(p: ResidualConvUnit, x, int8=False):
     # the reference's ResidualConvUnit applies an in-place ReLU to its
     # input, so its skip connection adds relu(x), not x
     xr = F.relu(x)
-    out = F.relu(L.conv2d(p.conv1, xr, padding=1, int8=int8))
-    return L.conv2d(p.conv2, out, padding=1, int8=int8) + xr
+    out = _conv(p.conv1, xr, padding=1, relu=True, int8=int8)
+    return _conv(p.conv2, out, padding=1, int8=int8) + xr
 
 
 def _fusion(p: FeatureFusionBlock, x, residual=None, size=None, int8=False):
@@ -121,7 +163,7 @@ def _fusion(p: FeatureFusionBlock, x, residual=None, size=None, int8=False):
     if size is None:
         size = (x.shape[-2] * 2, x.shape[-1] * 2)
     x = F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=True)
-    return L.conv2d(p.out_conv, x)
+    return _conv(p.out_conv, x, quantised=int8)
 
 
 def _uv_pos_embed(width: int, height: int, dim: int, aspect_ratio: float, device,
@@ -165,22 +207,23 @@ def _forward_frames(p: DPTHead, tokens4, patch_hw, img_hw, quant="none"):
     levels = []
     for lvl, x in enumerate(tokens4):
         x = L.layer_norm(p.norm, x, cfg.ln_eps)
-        x = x.transpose(1, 2).reshape(x.shape[0], cfg.dim_in, ph, pw)
-        x = L.conv2d(p.projects[lvl], x)
+        x = x.reshape(x.shape[0], ph, pw, cfg.dim_in).permute(0, 3, 1, 2)  # channels-last
+        x = _conv(p.projects[lvl], x, quantised=q8)
         if cfg.pos_embed:
             x = _apply_pos_embed(x, W, H)
         if lvl in (0, 1):
             deconv = p.resize_layers[lvl]
+            _conv.library_convs += 1
             x = F.conv_transpose2d(
                 x, deconv.weight.to(x.dtype), deconv.bias.to(x.dtype), stride=deconv.stride
             )
         elif lvl == 3:
-            x = L.conv2d(p.resize_layers[3], x, stride=2, padding=1)
+            x = _conv(p.resize_layers[3], x, stride=2, padding=1, quantised=q8)
         levels.append(x)
 
     s = p.scratch
     l1, l2, l3, l4 = [
-        L.conv2d(getattr(s, f"layer{i + 1}_rn"), levels[i], padding=1, int8=q8)
+        _conv(getattr(s, f"layer{i + 1}_rn"), levels[i], padding=1, int8=q8)
         for i in range(4)
     ]
     out = _fusion(s.refinenet4, l4, size=l3.shape[-2:], int8=q8)
@@ -202,7 +245,7 @@ def _forward_frames(p: DPTHead, tokens4, patch_hw, img_hw, quant="none"):
     if cfg.feature_only:
         return out
     out = _conv3x3(s.output_conv2[0], out, int8=q8, relu=True)
-    return L.conv2d(s.output_conv2[2], out)
+    return _conv(s.output_conv2[2], out, quantised=q8)
 
 
 def apply(p: DPTHead, layers, images_hw, patch_start_idx: int, dtype=torch.float32,

@@ -397,11 +397,13 @@ def apply(
             ("point_head", model.point_head, "world_points"),
         ):
             hcfg = getattr(cfg, name)
-            with span("model.dpt_head"):
+            with span("model.dpt_head") as sp:
+                convs = dhead.conv_counts()
                 preds, conf = dhead.apply(
                     head, [layers[i] for i in hcfg.intermediate_layer_idx], (H, W),
                     patch_start_idx, dtype=cfg.heads_dtype, quant=cfg.head_quant,
                 )
+                sp.count(**dhead.conv_counts(since=convs))
             if mesh is not None and gather_outputs:
                 preds, conf = (PC.seq_gather(x, mesh, 1) for x in (preds, conf))
             predictions[key] = preds

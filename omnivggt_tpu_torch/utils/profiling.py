@@ -59,7 +59,23 @@ class Recorder:
 
 _recorder: Optional[Recorder] = None
 _open = threading.local()  # .names: the names of this thread's open spans
-_OFF = contextlib.nullcontext()
+
+
+class _Off:
+    """What `span` gives while nothing records: one shared null context
+    whose `count` does nothing."""
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def count(self, **counts) -> None:
+        pass
+
+
+_OFF = _Off()
 
 
 @contextlib.contextmanager
@@ -98,6 +114,10 @@ class _Span:
             self.ranged.__enter__()
         return self
 
+    def count(self, **counts) -> None:
+        """Add counts known only once the block has run."""
+        self.counts.update(counts)
+
     def __exit__(self, *exc):
         if self.ranged is not None:
             self.ranged.__exit__(*exc)
@@ -109,9 +129,10 @@ class _Span:
 
 def span(name: str, **counts):
     """A named span of the program around the block, with counts of the
-    work it does (ints known on the host). While nothing records, a
-    shared null context. No name starts with "cu": a trace reader takes
-    CPU events so named for the CUDA runtime's launches."""
+    work it does (ints known on the host; `with span(...) as s:
+    s.count(...)` adds those known only after the block). While nothing
+    records, a shared null context. No name starts with "cu": a trace
+    reader takes CPU events so named for the CUDA runtime's launches."""
     rec = _recorder
     if rec is None:
         return _OFF
