@@ -2,7 +2,11 @@
 loading, and the bf16 trunk cast (counterpart of omnivggt_tpu/checkpoint.py).
 
 The port's modules use the reference's state-dict names, so a reference
-safetensors file loads with `load_state_dict(strict=True)`.
+safetensors file loads with `load_state_dict(strict=True)`. A VGGT-layout
+state dict (VGGT's, StreamVGGT's) loads with `load_vggt_layout`: OmniVGGT's
+own leaves (the GT-camera adapters and pose embeddings, the depth patch
+embedding and placeholder) are set to zero, which makes the model compute
+VGGT's forward on images alone, and the track head's leaves are skipped.
 `read_safetensors` / `write_safetensors` implement the file format with
 torch and numpy alone (the `safetensors` package is not needed): an 8-byte
 little-endian header length, a JSON header of {name: {dtype, shape,
@@ -21,8 +25,9 @@ from __future__ import annotations
 import json
 import math
 import os
+import logging
 import sys
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -278,6 +283,35 @@ def write_safetensors(path: str, tensors: Dict[str, torch.Tensor],
         for name in names:
             t = tensors[name].detach().to("cpu").contiguous().reshape(-1)
             f.write(memoryview(t.view(torch.uint8).numpy()))
+
+
+# leaves of OmniVGGT that a VGGT-layout checkpoint lacks, and of VGGT that
+# this model has no place for
+OMNIVGGT_ONLY = ("aggregator.pose_embeddings.", "aggregator.camera_adapters.",
+                 "aggregator.depth_placeholder", "aggregator.depth_patch_embed.")
+VGGT_ONLY = ("track_head.",)
+
+
+def load_vggt_layout(model: nn.Module, sd: Dict[str, torch.Tensor]) -> List[str]:
+    """Strictly load a VGGT-layout state dict (VGGT, StreamVGGT) into
+    `model`: OmniVGGT's own leaves (OMNIVGGT_ONLY) are set to zero, and with
+    them the GT-camera injections and the depth placeholder add nothing; the
+    track head's leaves (VGGT_ONLY) are skipped. Every other leaf must be
+    present and nothing else may be left over. Returns the skipped names."""
+    sd = {k: v for k, v in sd.items() if not k.endswith(_IGNORED_SUFFIXES) and ".rope." not in k}
+    own = [k for k in sd if k.startswith(OMNIVGGT_ONLY)]
+    if own:
+        raise ValueError(f"not a VGGT-layout state dict: it holds OmniVGGT's {own[:3]}")
+    skipped = sorted(k for k in sd if k.startswith(VGGT_ONLY))
+    kept = {k: v for k, v in sd.items() if not k.startswith(VGGT_ONLY)}
+    for name, t in model.state_dict().items():
+        if name.startswith(OMNIVGGT_ONLY):
+            kept[name] = torch.zeros_like(t)
+    model.load_state_dict(kept, strict=True)
+    if skipped:
+        logging.getLogger(__name__).info("skipped %d leaves of the VGGT layout: %s",
+                                         len(skipped), ", ".join(skipped))
+    return skipped
 
 
 def load_safetensors(model: nn.Module, path: str) -> None:

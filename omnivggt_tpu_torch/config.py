@@ -2,7 +2,10 @@
 
 Counterpart of omnivggt_tpu/config.py: the same fields and defaults, so a
 configuration means the same model in both packages; dtypes resolve to
-torch dtypes.
+torch dtypes. One field is the port's own: `OmniVGGTConfig.global_attention`
+("full", the default and the JAX package's only model, or "frame_causal",
+StreamVGGT's frame-causal global attention over a key/value cache, which
+the JAX package does not have).
 """
 
 from __future__ import annotations
@@ -170,6 +173,11 @@ class OmniVGGTConfig:
     # the weight-dependent logit bound (utils/validation) and turns it off
     # for weights that break it
     bounded_attn_logits: bool = True
+    # the port's own: "full" (every frame attends to every frame of the
+    # scene) or "frame_causal" (StreamVGGT, arXiv 2507.11539: frame t's
+    # tokens attend to frames 0..t, and the camera head's trunk likewise;
+    # models/stream.py keeps the earlier frames' keys and values)
+    global_attention: str = "full"
 
     def __post_init__(self):
         agg = dataclasses.replace(
@@ -207,6 +215,11 @@ class OmniVGGTConfig:
         if self.head_quant not in ("none", "int8"):
             raise ValueError(
                 f"head_quant must be 'none' or 'int8', got {self.head_quant!r}"
+            )
+        if self.global_attention not in ("full", "frame_causal"):
+            raise ValueError(
+                "global_attention must be 'full' or 'frame_causal', "
+                f"got {self.global_attention!r}"
             )
 
     @property

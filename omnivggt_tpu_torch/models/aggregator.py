@@ -24,7 +24,13 @@ injection (counterpart of omnivggt_tpu/models/aggregator.py).
     seq S_l; slot 0 of the special tokens goes to the scene's frame 0
     (seq rank 0's first), the camera rebase runs on the whole frame axis
     (the per-frame extrinsics and masks gathered) and the depth mean over
-    every process's sums (collectives.seq_sum).
+    every process's sums (collectives.seq_sum);
+  - a frame-causal stream (`stream`, models/stream.StreamState): one frame
+    a call; each global block writes the frame's keys and values into the
+    stream's cache and attends to the cached frames 0..t; the frame takes
+    slot 0 of the special tokens only as the clip's first (an empty cache).
+    RoPE's positions are the frame's own 2D ones (there is no temporal
+    position). Frame attention and DINOv2 are unchanged.
 """
 
 from __future__ import annotations
@@ -252,6 +258,7 @@ def apply(
     num_valid_frames=None,
     int8_dense=False,
     int8_qk: bool = False,
+    stream=None,
 ):
     """Run the aggregator on (B, S, H, W, 3) channels-last images in [0, 1].
 
@@ -264,6 +271,11 @@ def apply(
     sharding: a ModelSharding (parallel/sharding.py): the frame blocks and
     DINOv2 attend under its frame shard, the global blocks under its global
     shard (which takes the padded frames' mask only under "allgather").
+
+    stream: a models/stream.StreamState and one frame (B = S = 1), the
+    clip's next: the global blocks attend over the stream's cache, which
+    this call fills at the frame's slot (the caller advances the count);
+    on the card the layers between the cache's writes run as CUDA graphs.
 
     remat: recompute each layer pair in the backward instead of keeping its
     activations (only while grad is enabled): True or "full" keeps nothing,
@@ -287,6 +299,12 @@ def apply(
     global_shard = sharding.global_attn_shard if sharding is not None else None
     mesh = sharding.mesh if sharding is not None else None
     has_first = mesh is None or not mesh.seq_processes or mesh.seq_rank == 0
+    if stream is not None:
+        if B != 1 or S != 1 or sharding is not None or tuple(cfg.aa_order) != ("frame", "global"):
+            raise ValueError("a stream runs one frame a call on one device, frame blocks "
+                             f"first; got B={B}, S={S}, aa_order {cfg.aa_order}"
+                             + (" under a sharding" if sharding else ""))
+        has_first = stream.filled == 0
 
     mean = torch.tensor(_RESNET_MEAN, dtype=dtype, device=dev)
     std = torch.tensor(_RESNET_STD, dtype=dtype, device=dev)
@@ -295,10 +313,14 @@ def apply(
     if cfg.patch_embed == "conv":
         patch_tokens = L.patch_embed(p.patch_embed, imgs)
     else:
-        patch_tokens = dinov2.apply(
-            p.patch_embed, imgs, attn_impl=attn_impl, shard=frame_shard, approx_gelu=approx_gelu,
-            int8_dense=int8_dense, int8_qk=int8_qk, pad_tokens=pad_tokens,
-        )
+        def embed(imgs):
+            return dinov2.apply(
+                p.patch_embed, imgs, attn_impl=attn_impl, shard=frame_shard,
+                approx_gelu=approx_gelu, int8_dense=int8_dense, int8_qk=int8_qk,
+                pad_tokens=pad_tokens,
+            )
+
+        patch_tokens = embed(imgs) if stream is None else stream.replay("dinov2", embed, imgs)
 
     camera_token = _expand_special_token(p.camera_token, B, S, dtype, has_first)
     register_token = _expand_special_token(p.register_token, B, S, dtype, has_first)
@@ -332,8 +354,11 @@ def apply(
     tokens = torch.cat([camera_token, register_token, patch_tokens], dim=2)
 
     if cfg.rope_freq > 0:
-        cos_f, sin_f = R.rope_tables(gh, gw, psi, C // cfg.num_heads, cfg.rope_freq, dev)
-        cos_f, sin_f = cos_f.to(dtype), sin_f.to(dtype)
+        def tables():
+            cos, sin = R.rope_tables(gh, gw, psi, C // cfg.num_heads, cfg.rope_freq, dev)
+            return cos.to(dtype), sin.to(dtype)
+
+        cos_f, sin_f = tables() if stream is None else stream.constant("rope", tables)
         cos_g, sin_g = R.tile_tables(cos_f, sin_f, S)
     else:
         cos_f = sin_f = cos_g = sin_g = None
@@ -401,6 +426,38 @@ def apply(
     wanted = set(output_layers)
     outputs = {}
     tokens = tokens.to(dtype)
+    if stream is not None:
+        # one frame against the stream's cache: each layer's frame block with
+        # the global block's projections, then the cache write and the
+        # attention over frames 0..t, then the rest of the global block; the
+        # parts whose shapes stay from frame to frame are CUDA graphs on the
+        # card (StreamState.replay), which read these tensors in place
+        pose_enc, cam_mask_f = stream.constant("no_camera", lambda: (pose_enc, cam_mask_f))
+        for i in range(cfg.depth):
+            blk = p.global_blocks[i]
+
+            def before(x, i=i, blk=blk):
+                f = frame_step(x, i, None)
+                h = L.layer_norm(blk.norm1, f.reshape(B, P, C), cfg.ln_eps)
+                return (f, *L.attention_qkv(blk.attn, h, cos_f, sin_f, ln_eps=cfg.ln_eps,
+                                            int8_dense=int8_dense))
+
+            def after(f, o, i=i, blk=blk):
+                x = f.reshape(B, P, C)
+                h = L.attention_proj(blk.attn, x, o, int8_dense)
+                g = L.block_rest(blk, x, h, ln_eps=cfg.ln_eps, approx_gelu=approx_gelu,
+                                 int8_dense=int8_dense).reshape(B, S, P, C)
+                return (g, torch.cat([f, g], dim=-1)) if i in wanted else (g,)
+
+            f, q, k, v = stream.replay(("before", i), before, tokens)
+            keys, values = stream.global_layer(i).append(k, v)
+            o = L.scaled_dot_product_attention(
+                q, keys, values, impl=attn_impl, bounded_logits=allow_bounded and cfg.qk_norm,
+                qk_int8=int8_qk)
+            tokens, *kept = stream.replay(("after", i), after, f, o)
+            if kept:
+                outputs[i] = kept[0]
+        return L.run_forward_hooks(p, (images,), (outputs, psi))
     ckpt_kw = {"context_fn": _DOTS_CONTEXT} if remat == "dots" else {}
     for i in range(cfg.depth):
         if remat and torch.is_grad_enabled():

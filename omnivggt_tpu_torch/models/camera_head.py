@@ -4,7 +4,10 @@ omnivggt_tpu/models/camera_head.py).
 Takes the camera token (index 0) of the last aggregated layer and runs
 `num_iterations` of adaLN-modulated refinement through a small transformer
 trunk, predicting a delta on the 9-dim absT_quaR_FoV encoding each time
-(the previous estimate is detached between iterations).
+(the previous estimate is detached between iterations). Under a
+frame-causal stream (models/stream.StreamState) the head runs one frame: in
+each iteration and trunk layer its pose token attends to the earlier
+frames' cached keys and values of that iteration and layer, and to its own.
 """
 
 from __future__ import annotations
@@ -37,12 +40,15 @@ class CameraHead(nn.Module):
         self.pose_branch = L.Mlp(D, D // 2, cfg.target_dim)
 
 
-def apply(p: CameraHead, tokens_last: torch.Tensor, num_valid_frames=None) -> torch.Tensor:
+def apply(p: CameraHead, tokens_last: torch.Tensor, num_valid_frames=None,
+          stream=None) -> torch.Tensor:
     """tokens_last: (B, S, P, 2C) final aggregated layer, in the head dtype.
     num_valid_frames: an int or an integer scalar tensor; the trunk attends
     across the S frame tokens, so padded frames (bucketed serving) are
-    masked out of its keys. Returns (num_iterations, B, S, 9) fp32 activated
-    pose encodings."""
+    masked out of its keys. stream: a StreamState and one frame (B = S =
+    1): the trunk attends over the stream's camera cache, which this call
+    fills at the frame's slot. Returns (num_iterations, B, S, 9) fp32
+    activated pose encodings."""
     L.run_forward_pre_hooks(p, (tokens_last,))
     cfg = p.cfg
     pose_tokens = L.layer_norm(p.token_norm, tokens_last[:, :, 0], cfg.ln_eps)
@@ -60,8 +66,9 @@ def apply(p: CameraHead, tokens_last: torch.Tensor, num_valid_frames=None) -> to
         mod = L.linear(modulation, F.silu(L.linear(p.embed_pose, prev)))
         shift, scale, gate = mod.chunk(3, dim=-1)
         x = gate * (normed * (1 + scale) + shift) + pose_tokens
-        for blk in p.trunk:
-            x = L.block(blk, x, ln_eps=cfg.ln_eps, kv_valid=num_valid_frames)
+        for j, blk in enumerate(p.trunk):
+            x = L.block(blk, x, ln_eps=cfg.ln_eps, kv_valid=num_valid_frames,
+                        kv_cache=None if stream is None else stream.camera_layer(it, j))
         h = L.linear(p.pose_branch.fc1, L.layer_norm(p.trunk_norm, x, cfg.ln_eps))
         delta = L.linear(p.pose_branch.fc2, F.gelu(h))
         pred = delta if it == 0 else pred + delta

@@ -10,6 +10,12 @@ depth_conf (B,S,H,W), world_points (B,S,H,W,3), world_points_conf
 forward runs fp32 work in full fp32 whatever torch's TF32 switches say
 (utils/platform.exact_fp32), as the JAX package's reference-parity heads do.
 
+Frame-causal streaming (`config.global_attention="frame_causal"`,
+StreamVGGT): `OmniVGGT.stream(capacity)` allocates the key/value cache of a
+clip (models/stream.StreamState) and `OmniVGGT.stream_step(state, image)`
+answers the clip's next frame through `apply(..., cache=state)`; `apply`
+of a whole clip under that config runs it through the same steps.
+
 Checkpoints: `from_safetensors` reads a reference file; `save_pretrained`
 writes the port's own directory (config.json as the JAX package writes it,
 model.safetensors under the reference's names) and `from_pretrained` reads
@@ -44,6 +50,7 @@ from omnivggt_tpu_torch.models import aggregator as agg
 from omnivggt_tpu_torch.models import camera_head as chead
 from omnivggt_tpu_torch.models import dpt_head as dhead
 from omnivggt_tpu_torch.models.aggregator import AuxInputs
+from omnivggt_tpu_torch.models.stream import StreamState
 from omnivggt_tpu_torch.ops import layers as L
 from omnivggt_tpu_torch.parallel import collectives as PC
 from omnivggt_tpu_torch.utils.device import resolve_device
@@ -61,7 +68,8 @@ def config_from_dict(raw: dict) -> OmniVGGTConfig:
     """An OmniVGGTConfig from a save_pretrained `config.json` of either
     package, read as the JAX package's from_pretrained reads it (lists to
     tuples, the same defaults for the fields older files lack), and the
-    port's head_quant and bounded_attn_logits when present."""
+    port's head_quant, bounded_attn_logits and global_attention when
+    present."""
 
     def tup(d, keys):
         return {k: tuple(v) if k in keys and isinstance(v, list) else v for k, v in d.items()}
@@ -85,7 +93,19 @@ def config_from_dict(raw: dict) -> OmniVGGTConfig:
         attn_quant=raw.get("attn_quant", "none"),
         head_quant=raw.get("head_quant", "none"),
         bounded_attn_logits=raw.get("bounded_attn_logits", True),
+        global_attention=raw.get("global_attention", "full"),
     )
+
+
+def config_to_dict(cfg: OmniVGGTConfig) -> dict:
+    """The dict `save_pretrained` writes as config.json: the JAX package's
+    fields as its save_pretrained writes them, and the port's own
+    global_attention only where it is not the default "full" (so a "full"
+    configuration's file is the JAX package's, byte for byte)."""
+    raw = dataclasses.asdict(cfg)
+    if raw["global_attention"] == "full":
+        del raw["global_attention"]
+    return raw
 
 
 def needed_layers(cfg: OmniVGGTConfig):
@@ -165,9 +185,13 @@ class OmniVGGT(nn.Module):
 
     @classmethod
     def from_safetensors(cls, path: str, config: Optional[OmniVGGTConfig] = None, device=None,
-                         head_dtype: str = "auto", quantising_rungs: bool = False):
+                         head_dtype: str = "auto", quantising_rungs: bool = False,
+                         layout: str = "omnivggt"):
         """Load a reference safetensors checkpoint strictly; the fixed-max
         softmax is turned off when the weights break its logit bound.
+        layout "vggt": a VGGT-layout file (VGGT, StreamVGGT; pair it with
+        global_attention="frame_causal" for StreamVGGT), loaded by
+        checkpoint.load_vggt_layout.
 
         head_dtype: "auto" (default) walks the `certify_fast_modes` ladder
         on load and keeps the most aggressive serving mode whose probe
@@ -184,14 +208,21 @@ class OmniVGGT(nn.Module):
         every such rung measured slower than the default config (PERF.md),
         so a load certifies bf16 heads and the tanh GELU only. True walks
         the JAX package's whole ladder."""
-        from omnivggt_tpu_torch.checkpoint import load_safetensors
+        from omnivggt_tpu_torch.checkpoint import (
+            load_safetensors, load_vggt_layout, read_safetensors,
+        )
         from omnivggt_tpu_torch.utils.validation import check_bounded_logits_safe
 
         config = config or OmniVGGTConfig()
         if head_dtype != "auto":
             config = dataclasses.replace(config, head_dtype=head_dtype)
         model = cls(config, device=device, seed=None)
-        load_safetensors(model, path)
+        if layout == "vggt":
+            load_vggt_layout(model, read_safetensors(path, device=next(model.parameters()).device))
+        elif layout == "omnivggt":
+            load_safetensors(model, path)
+        else:
+            raise ValueError(f"layout must be 'omnivggt' or 'vggt', got {layout!r}")
         head_dim = config.embed_dim // config.aggregator.num_heads
         if config.bounded_attn_logits and not check_bounded_logits_safe(model, head_dim):
             config = dataclasses.replace(config, bounded_attn_logits=False)
@@ -210,7 +241,7 @@ class OmniVGGT(nn.Module):
 
         os.makedirs(directory, exist_ok=True)
         with open(os.path.join(directory, CONFIG_NAME), "w") as f:
-            json.dump(dataclasses.asdict(self.config), f, indent=2)
+            json.dump(config_to_dict(self.config), f, indent=2)
         write_safetensors(os.path.join(directory, WEIGHTS_NAME), self.state_dict())
         return directory
 
@@ -308,6 +339,32 @@ class OmniVGGT(nn.Module):
         return apply(self, images, self.config, aux, attn_impl=attn_impl,
                      num_valid_frames=num_valid_frames, sharding=sharding)
 
+    def stream(self, capacity: int, image_hw=None) -> StreamState:
+        """The cache of a frame-causal stream of up to `capacity` frames of
+        `image_hw` (default the config's square img_size), allocated once
+        on the model's device: the global layers' keys and values in the
+        trunk dtype and the camera head's in the head dtype. Needs
+        config.global_attention == "frame_causal"."""
+        if self.config.global_attention != "frame_causal":
+            raise ValueError("streaming needs global_attention='frame_causal', this model is "
+                             f"{self.config.global_attention!r}")
+        hw = image_hw or (self.config.img_size, self.config.img_size)
+        device = next(self.parameters()).device
+        with torch.inference_mode(False):  # buffers written in place in any mode
+            return StreamState(self.config, capacity, hw, device)
+
+    @torch.no_grad()
+    def stream_step(self, state: StreamState, image, attn_impl: str = "auto") -> dict:
+        """The clip's next frame, (H, W, 3) channels-last in [0, 1] (or with
+        leading axes of 1), through `apply(..., cache=state)`: its keys and
+        values join the cache and it attends to the frames before it.
+        Returns the frame's predictions, each with B = S = 1 (pose_enc,
+        pose_enc_list, depth, depth_conf, world_points, world_points_conf).
+        Raises once the state holds its capacity (reset() it)."""
+        images = torch.as_tensor(image, device=next(self.parameters()).device)
+        return _stream_step(self, state, images.reshape(1, 1, *images.shape[-3:]),
+                            self.config, attn_impl)
+
 
 def apply(
     model: OmniVGGT,
@@ -322,9 +379,16 @@ def apply(
     train_generator: Optional[torch.Generator] = None,
     num_valid_frames=None,
     gather_outputs: bool = True,
+    cache: Optional[StreamState] = None,
 ):
     """Full forward pass on (B, S, H, W, 3) (or (S, H, W, 3)) channels-last
     images in [0, 1]. Returns the prediction dict (fp32 but `images`).
+
+    cache: a StreamState (OmniVGGT.stream): the images are one frame, the
+    clip's next; the global blocks and the camera head's trunk attend over
+    the frames cached before it and the frame's keys and values join the
+    cache. Without one, a frame_causal config runs the scene through such
+    steps frame by frame (`_apply_clip`), into a cache sized to the scene.
 
     sharding: a parallel.sharding.ModelSharding: the aggregator's attention
     runs under its strategies over the mesh's ranks (the "ring_fused"
@@ -358,6 +422,19 @@ def apply(
         images = images[None]
     B, S, H, W, _ = images.shape
     whole_images = images
+    if cfg.global_attention == "frame_causal":
+        if aux is not None and any(x is not None for x in aux):
+            raise ValueError("a frame_causal model takes images only (GT cameras and depth "
+                             "are normalised over the whole scene)")
+        if (sharding is not None or remat or train_generator is not None
+                or num_valid_frames is not None):
+            raise ValueError("a frame_causal model runs inference on one device: no "
+                             "sharding, remat, stochastic depth or padded frames")
+        if cache is None:
+            return _apply_clip(model, images, cfg, attn_impl)
+        cache.check_frame((H, W))
+    elif cache is not None:
+        raise ValueError("a stream cache needs global_attention='frame_causal'")
     mesh = sharding.mesh if sharding is not None else None
     if mesh is not None and not mesh.seq_processes:
         mesh = None  # logical seq ranks: every frame is here
@@ -382,6 +459,7 @@ def apply(
                 num_valid_frames=num_valid_frames,
                 int8_dense=cfg.trunk_quant,
                 int8_qk=cfg.attn_quant == "int8",
+                stream=cache,
             )
         last = layers[cfg.aggregator.depth - 1]
         if mesh is not None:
@@ -390,6 +468,7 @@ def apply(
         with span("model.camera_head"):
             pose_enc_list = chead.apply(
                 model.camera_head, last.to(cfg.heads_dtype), num_valid_frames=num_valid_frames,
+                stream=cache,
             )
         predictions = {"pose_enc": pose_enc_list[-1], "pose_enc_list": pose_enc_list}
         for name, head, key in (
@@ -399,17 +478,60 @@ def apply(
             hcfg = getattr(cfg, name)
             with span("model.dpt_head") as sp:
                 convs = dhead.conv_counts()
-                preds, conf = dhead.apply(
-                    head, [layers[i] for i in hcfg.intermediate_layer_idx], (H, W),
-                    patch_start_idx, dtype=cfg.heads_dtype, quant=cfg.head_quant,
-                )
+
+                def run_head(*levels, head=head):
+                    return dhead.apply(head, list(levels), (H, W), patch_start_idx,
+                                       dtype=cfg.heads_dtype, quant=cfg.head_quant)
+
+                levels = [layers[i] for i in hcfg.intermediate_layer_idx]
+                if cache is None:
+                    preds, conf = run_head(*levels)
+                else:  # a CUDA graph on the card: the frame's own copy of its buffers
+                    preds, conf = (x.clone() for x in cache.replay(name, run_head, *levels))
                 sp.count(**dhead.conv_counts(since=convs))
             if mesh is not None and gather_outputs:
                 preds, conf = (PC.seq_gather(x, mesh, 1) for x in (preds, conf))
             predictions[key] = preds
             predictions[f"{key}_conf"] = conf
         predictions["images"] = whole_images
+        if cache is not None:
+            cache.filled += 1
         return predictions
+
+
+def _stream_step(model: OmniVGGT, state: StreamState, images: torch.Tensor,
+                 cfg: OmniVGGTConfig, attn_impl: str) -> dict:
+    """One (1, 1, H, W, 3) frame through `apply(..., cache=state)`, in the
+    span `model.stream_step` (counts: the frame's index, the frames cached
+    before it, the keys its global layers attend to)."""
+    t = state.filled
+    with span("model.stream_step", frame=t, cached_frames=t,
+              keys=cfg.aggregator.depth * (t + 1) * state.tokens_per_frame):
+        out = apply(model, images, cfg, attn_impl=attn_impl, cache=state)
+    del out["images"]
+    return out
+
+
+@torch.no_grad()
+def _apply_clip(model: OmniVGGT, images: torch.Tensor, cfg: OmniVGGTConfig, attn_impl: str):
+    """A frame_causal forward of whole (B, S, ...) clips: each clip's frames
+    through the stream's steps (`_stream_step`), in order, into a cache of S
+    frames made for the call; the frames' predictions joined along the frame
+    axis. The steps launch op by op: a cache that lives for one clip would
+    capture its CUDA graphs anew at every call."""
+    B, S, H, W, _ = images.shape
+    clips = []
+    for b in range(B):
+        with torch.inference_mode(False):
+            state = StreamState(cfg, S, (H, W), images.device, graphs=False)
+        steps = [_stream_step(model, state, images[b:b + 1, t:t + 1], cfg, attn_impl)
+                 for t in range(S)]
+        clips.append({k: torch.cat([o[k] for o in steps], dim=2 if k == "pose_enc_list" else 1)
+                      for k in steps[0]})
+    out = {k: torch.cat([c[k] for c in clips], dim=1 if k == "pose_enc_list" else 0)
+           for k in clips[0]}
+    out["images"] = images
+    return out
 
 
 def own_frames(S: int, mesh) -> slice:

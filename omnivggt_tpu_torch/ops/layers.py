@@ -18,9 +18,14 @@ of use:
     exact float64 product stands in;
   - conv2d_s2d: the 3x3 convolution as one stride-2 4x4 convolution with
     2x2 output pixels folded into channels (an exact rewrite);
-  - attention: fused qkv, per-head-dim q/k LayerNorm, 2D RoPE;
+  - attention: fused qkv, per-head-dim q/k LayerNorm, 2D RoPE
+    (`attention_qkv`), the attention, the projection (`attention_proj`);
+    with a `kv_cache` (models/stream.LayerCache) the keys and values go
+    into the cache and the queries attend to its prefix (a frame-causal
+    stream);
   - block: pre-LN with LayerScale and, when training, stochastic depth
-    (drop_path) from keep masks the caller draws;
+    (drop_path) from keep masks the caller draws; `block_rest` is its part
+    after the attention;
   - run_forward_hooks: block, attention, mlp and the model's parts run the
     global module forward hooks and their module's own on their outputs,
     and block runs its module's forward pre-hooks first
@@ -378,6 +383,39 @@ def drop_path(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
     return x * (keep.reshape(shape) / (1.0 - rate)).to(x.dtype)
 
 
+def attention_qkv(
+    p: Attention,
+    x: torch.Tensor,
+    rope_cos: Optional[torch.Tensor] = None,
+    rope_sin: Optional[torch.Tensor] = None,
+    *,
+    ln_eps: float = 1e-5,
+    int8_dense=False,
+):
+    """The attention's (q, k, v), (B, N, H, D) each, of (B, N, C) tokens:
+    fused qkv, optional per-head-dim q/k LayerNorm, RoPE on q and k from
+    (N, head_dim) tables. int8_dense (a trunk_quant mode) runs qkv W8A8."""
+    B, N, C = x.shape
+    H = p.num_heads
+    q_ln, _ = _quant_gates(int8_dense)
+    qkv = dense(p.qkv, x, q_ln).reshape(B, N, 3, H, C // H)
+    q, k, v = qkv.unbind(2)  # (B, N, H, D) views
+    if p.q_norm is not None:
+        q = layer_norm(p.q_norm, q, ln_eps)
+        k = layer_norm(p.k_norm, k, ln_eps)
+    if rope_cos is not None:
+        q = apply_rope(q, rope_cos, rope_sin)
+        k = apply_rope(k, rope_cos, rope_sin)
+    return q, k, v
+
+
+def attention_proj(p: Attention, x: torch.Tensor, o: torch.Tensor, int8_dense=False):
+    """The attention's output projection of o (B, N, H, D); x is the
+    attention's (B, N, C) input, which its module's hooks are given."""
+    _, q_res = _quant_gates(int8_dense)
+    return run_forward_hooks(p, (x,), dense(p.proj, o.reshape(x.shape), q_res))
+
+
 def attention(
     p: Attention,
     x: torch.Tensor,
@@ -391,9 +429,13 @@ def attention(
     allow_bounded: bool = True,
     int8_dense=False,
     int8_qk: bool = False,
+    kv_cache=None,
 ) -> torch.Tensor:
-    """Multi-head self-attention over (B, N, C) tokens: fused qkv, optional
-    per-head-dim q/k LayerNorm, RoPE on q and k from (N, head_dim) tables.
+    """Multi-head self-attention over (B, N, C) tokens: `attention_qkv`,
+    the attention, `attention_proj`.
+    kv_cache: a models/stream.LayerCache: k and v (after the norm and RoPE)
+    are written into its slot and q attends to every cached key up to and
+    including them (`LayerCache.append`), a strided view of the cache.
     int8_dense (a trunk_quant mode) runs qkv and proj W8A8; int8_qk asks
     the flash kernels for int8 scores (config.attn_quant, serving only).
     shard: an AttnShard (parallel/sharding.py) that runs the attention
@@ -403,17 +445,9 @@ def attention(
     holds: after the norm, |q.k|/sqrt(D) <= sqrt(D)*(max|g_q|+max|b_q|)*
     (max|g_k|+max|b_k|), which checkpoint loading checks against the
     kernel's clamp (utils/validation)."""
-    B, N, C = x.shape
-    H = p.num_heads
-    q_ln, q_res = _quant_gates(int8_dense)
-    qkv = dense(p.qkv, x, q_ln).reshape(B, N, 3, H, C // H)
-    q, k, v = qkv.unbind(2)  # (B, N, H, D) views
-    if p.q_norm is not None:
-        q = layer_norm(p.q_norm, q, ln_eps)
-        k = layer_norm(p.k_norm, k, ln_eps)
-    if rope_cos is not None:
-        q = apply_rope(q, rope_cos, rope_sin)
-        k = apply_rope(k, rope_cos, rope_sin)
+    q, k, v = attention_qkv(p, x, rope_cos, rope_sin, ln_eps=ln_eps, int8_dense=int8_dense)
+    if kv_cache is not None:
+        k, v = kv_cache.append(k, v)
     bounded = allow_bounded and p.q_norm is not None
     if shard is not None:
         o = shard.attend(
@@ -423,7 +457,7 @@ def attention(
         o = scaled_dot_product_attention(
             q, k, v, impl=impl, kv_valid=kv_valid, bounded_logits=bounded, qk_int8=int8_qk
         )
-    return run_forward_hooks(p, (x,), dense(p.proj, o.reshape(B, N, C), q_res))
+    return attention_proj(p, x, o, int8_dense)
 
 
 def block(
@@ -442,18 +476,40 @@ def block(
     drop_path_keep: Optional[torch.Tensor] = None,
     int8_dense=False,
     int8_qk: bool = False,
+    kv_cache=None,
 ) -> torch.Tensor:
     """x += DP(LS1(Attn(LN(x), rope))); x += DP(LS2(MLP(LN(x)))), where DP
     is stochastic depth, active only when `drop_path_keep` (2, x.shape[0]
-    keep masks, drop_path_masks) is given and drop_path_rate > 0."""
-    use_dp = drop_path_rate > 0.0 and drop_path_keep is not None
+    keep masks, drop_path_masks) is given and drop_path_rate > 0.
+    kv_cache: the attention's (`attention`)."""
     run_forward_pre_hooks(p, (x,))
-    x_in = x
     h = attention(
         p.attn, layer_norm(p.norm1, x, ln_eps), rope_cos, rope_sin,
         ln_eps=ln_eps, impl=attn_impl, shard=shard, kv_valid=kv_valid,
         allow_bounded=allow_bounded, int8_dense=int8_dense, int8_qk=int8_qk,
+        kv_cache=kv_cache,
     )
+    return block_rest(p, x, h, ln_eps=ln_eps, approx_gelu=approx_gelu,
+                      drop_path_rate=drop_path_rate, drop_path_keep=drop_path_keep,
+                      int8_dense=int8_dense)
+
+
+def block_rest(
+    p: Block,
+    x: torch.Tensor,
+    h: torch.Tensor,
+    *,
+    ln_eps: float = 1e-5,
+    approx_gelu: bool = False,
+    drop_path_rate: float = 0.0,
+    drop_path_keep: Optional[torch.Tensor] = None,
+    int8_dense=False,
+) -> torch.Tensor:
+    """The block after its attention: x + DP(LS1(h)), then its MLP's
+    residual (`block`); h is the attention's output on the block's input
+    x, whose hooks are run on the result."""
+    use_dp = drop_path_rate > 0.0 and drop_path_keep is not None
+    x_in = x
     if p.ls1 is not None:
         h = h * p.ls1.gamma.to(h.dtype)
     if use_dp:

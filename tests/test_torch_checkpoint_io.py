@@ -182,7 +182,7 @@ def test_config_json_is_the_jax_packages(tmp_path, which):
     with open(want, "w") as f:
         json.dump(dataclasses.asdict(jcfg), f, indent=2)
     with open(tmp_path / "port.json", "w") as f:
-        json.dump(dataclasses.asdict(tcfg), f, indent=2)
+        json.dump(TM.config_to_dict(tcfg), f, indent=2)
     assert (tmp_path / "port.json").read_bytes() == want.read_bytes()
     parsed = TM.config_from_dict(json.loads(want.read_text()))
     assert parsed == tcfg
